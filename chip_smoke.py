@@ -13,16 +13,16 @@ Phases, each printing lines of its own (``[smoke] ...``):
             the batched Cholesky solve for k in {1,3,8,16,50,64,100,128} at
             a ragged n through both entry layouts (and against a float64
             solve), the bucket assembly on every ML-20M-shape bucket of both
-            sides (explicit, implicit, bf16 table), and a fused
-            assembly+solve iteration against the unfused one;
+            sides (explicit, implicit, bf16 table);
 4. main   — ``als_fit``'s sweep at the ML-20M shape (138,493 users x 26,744
-            items, 20M uniform ratings from seed 0, rank 50, lambda 0.1),
-            first with the default selection (Cholesky kernel + plain
-            assembly), then with the assembly kernel, from the same init:
-            sec/iter (1 vs N iterations, median), train RMSE after 1, 2, 3
-            iterations, and each kernel's launch count; then each side's
-            half-sweep from the trained factors against a float64 assembly
-            and solve of the same systems;
+            items, 20M uniform ratings from seed 0, rank 50, lambda 0.1)
+            through both kernels, first as a user calls it, then in the
+            fused assembly+solve mode (the solve's per-chunk entry), from
+            the same init: sec/iter (1 vs N iterations, median), train RMSE
+            after 1, 2, 3 iterations of ``als_fit``, and each kernel's
+            launch count on that path alone; then each side's half-sweep
+            from the trained factors, with the kernel and with the plain
+            assembly, against a float64 assembly and solve;
 5. times  — at the main path's shapes, each kernel's median time beside its
             bound, its plain version's time and a library yardstick.
 
@@ -35,6 +35,7 @@ before printing any result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -48,6 +49,7 @@ N_USERS, N_ITEMS, NNZ, RANK, LAMBDA = 138_493, 26_744, 20_000_000, 50, 0.1
 # contract, so the f32 rate bounds the arithmetic.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+SECTOR = 32  # bytes: the unit in which the card reads device memory
 
 
 class SmokeFailure(Exception):
@@ -71,6 +73,36 @@ def synth_ratings(n_users, n_items, nnz, seed=0):
     items = rng.integers(0, n_items, nnz)
     ratings = rng.uniform(1.0, 5.0, nnz)
     return users, items, ratings
+
+
+def lower_triangle_bytes(n: int, k: int) -> int:
+    """Bytes of the sectors that hold the lower triangles (diagonal
+    included) of n row-major k x k f32 matrices stored back to back: the
+    least an SPD solve must read of A.  The layout repeats every `period`
+    matrices, a whole number of sectors, so the count is exact."""
+    mat = k * k * 4
+    period = SECTOR // math.gcd(mat, SECTOR)
+
+    def sectors(m: int) -> int:
+        if m == 0:
+            return 0
+        rows = np.arange(k)
+        start = (np.arange(m)[:, None] * mat + rows * k * 4).reshape(-1)
+        end = start + np.tile((rows + 1) * 4, m)  # exclusive
+        first, last = start // SECTOR, (end - 1) // SECTOR
+        # row ranges ascend without overlapping, so two of them can share
+        # only the sector where one ends and the next begins
+        shared = int(np.count_nonzero(first[1:] == last[:-1]))
+        return int((last - first + 1).sum()) - shared
+
+    return (n // period * sectors(period) + sectors(n % period)) * SECTOR
+
+
+def assembly_flops(nnz: int, k: int) -> int:
+    """Operations the assembly needs for `nnz` real ratings: A is
+    symmetric, so k(k+1)/2 multiply-adds for its lower triangle and k for
+    b per rating; pads add nothing and need none."""
+    return nnz * (k * (k + 1) + 2 * k)
 
 
 def card_line() -> str:
@@ -163,37 +195,19 @@ def phase_checks(torch, CH, GA, TA, problem, dev_args, dev):
                 f"{worst:.3e} (limit 1e-5 of max|A|, max|b|)")
 
 
-def fused_check(torch, fit_fn, dev_args):
-    """The fused assembly+solve mode (the reference's per-chunk call site)
-    against the unfused sweep, one iteration at the full shape; a 512 MiB
-    chunk budget makes the big buckets take the per-chunk entry."""
-    ref = fit_fn(1, *dev_args)
-    os.environ["FLINK_MS_ALS_FUSED"] = "1"
-    os.environ["FLINK_MS_ALS_ASSEMBLY_CHUNK_BYTES"] = str(512 << 20)
-    try:
-        got = fit_fn(1, *dev_args)
-    finally:
-        del os.environ["FLINK_MS_ALS_FUSED"]
-        del os.environ["FLINK_MS_ALS_ASSEMBLY_CHUNK_BYTES"]
-    torch.cuda.synchronize()
-    for a, b in zip(got, ref):
-        over = ((a - b).abs() / (1e-5 + 1e-3 * b.abs())).max().item()
-        check(over <= 1.0, f"fused sweep off the unfused one ({over:.3f})")
-    log("check fused assembly+solve vs unfused, 1 iteration: within "
-        "rtol 1e-3 / atol 1e-5")
-
-
 def time_fit(torch, fit_fn, dev_args, iters=5, repeats=3):
     """Steady-state sec/iter: the same sweep timed at 1 and at `iters`
     iterations, each run ending in torch.cuda.synchronize; the difference
     isolates per-iteration cost from fixed overhead.  Median over
-    `repeats`.  -> (sec_per_iter, iterations run)."""
+    `repeats`.  -> (sec_per_iter, iterations run, the last run's (user,
+    item) factor tables in slot order)."""
     ran = 0
+    out = None
 
     def run(trip):
-        nonlocal ran
+        nonlocal ran, out
         t0 = time.perf_counter()
-        fit_fn(trip, *dev_args)
+        out = fit_fn(trip, *dev_args)
         torch.cuda.synchronize()
         ran += trip
         return time.perf_counter() - t0
@@ -206,74 +220,77 @@ def time_fit(torch, fit_fn, dev_args, iters=5, repeats=3):
         t1 = run(1)
         tn = run(iters)
         samples.append(max((tn - t1) / (iters - 1), 1e-9))
-    return float(np.median(samples)), ran
+    return float(np.median(samples)), ran, out
 
 
-def main_path(torch, TA, CH, GA, problem, fit, ratings_t, dev):
-    """Phase 4: the sweep at the ML-20M shape with the default selection,
-    then with the assembly kernel, from the same seeded init.  The sweep
-    reads the selection variables at each call, so one ``compile_fit``
-    serves both runs."""
+FUSED_ENV = {"FLINK_MS_ALS_FUSED": "1",
+             # 512 MiB of (C, k, k) systems per chunk: the big buckets of
+             # both sides are cut, so the solve's per-chunk entry runs
+             "FLINK_MS_ALS_ASSEMBLY_CHUNK_BYTES": str(512 << 20)}
+
+
+def main_path(torch, TA, CH, GA, problem, fit, ratings_t, init, dev):
+    """Phase 4: the sweep at the ML-20M shape through both kernels, first
+    as ``als_fit`` runs by default, then in the fused assembly+solve mode,
+    from the same seeded init.  Each path starts with both launch counts
+    at 0 and reads them when it ends.  The sweep reads the mode at each
+    call, so one ``compile_fit`` serves both timings."""
     users, items, ratings = ratings_t
     fit_fn, dev_args = fit
     n_buckets = len(problem.u.widths) + len(problem.i.widths)
     runs = {}
-    launches = {"cholesky": 0, "assembly": 0}
-    for label, env in (("default", {}),
-                       ("assembly-kernel", {"FLINK_MS_ALS_ASSEMBLY": "kernel"})):
+    for label, env in (("default", {}), ("fused", FUSED_ENV)):
         os.environ.update(env)
         try:
             CH.LAUNCHES = 0
             GA.LAUNCHES = 0
-            sec, ran = time_fit(torch, fit_fn, dev_args)
-            uf, itf = dev_args[0], dev_args[1]
-            rmses = []
-            for _ in range(3):
-                uf, itf = fit_fn(1, uf, itf, *dev_args[2:])
-                model = TA.ALSModel(
-                    problem.user_ids, problem.item_ids,
-                    uf[torch.from_numpy(problem.u.perm).to(dev)],
-                    itf[torch.from_numpy(problem.i.perm).to(dev)])
-                rmses.append(TA.rmse(model, users, items, ratings, dev))
-            ran += 3
+            sec, ran, (uf, itf) = time_fit(torch, fit_fn, dev_args)
+            rmses, models = [], []
+            for it in (1, 2, 3):
+                cfg = TA.ALSConfig(num_factors=RANK, iterations=it,
+                                   lambda_=LAMBDA)
+                models.append(TA.als_fit(users, items, ratings, cfg, dev,
+                                         problem=problem, init=init))
+                rmses.append(TA.rmse(models[-1], users, items, ratings, dev))
+                ran += it
             torch.cuda.synchronize()
             n_chol, n_asm = CH.LAUNCHES, GA.LAUNCHES
         finally:
             for key in env:
                 del os.environ[key]
-        launches["cholesky"] += n_chol
-        launches["assembly"] += n_asm
         log(f"main {label}: {sec:.6f} sec/iter (median of 3, 1 vs N "
             f"iterations); train RMSE after 1,2,3 iterations {rmses}; "
             f"launches over {ran} iterations: cholesky {n_chol}, "
             f"assembly {n_asm}")
         check(all(np.isfinite(rmses)) and rmses[0] > rmses[1] > rmses[2],
               f"{label}: train RMSE not finite and decreasing: {rmses}")
-        check(n_chol >= 2 * ran, f"{label}: {n_chol} solve launches for "
-              f"{ran} iterations")
-        want_asm = n_buckets * ran if env else 0
-        check(n_asm == want_asm, f"{label}: {n_asm} assembly launches, "
-              f"expected {want_asm} ({n_buckets} buckets x {ran} iterations)")
+        if env:
+            # one assembly launch per row chunk, each chunk solved at once;
+            # more chunks than buckets means the per-chunk entry ran
+            check(n_asm > n_buckets * ran and n_chol == n_asm,
+                  f"{label}: {n_asm} assembly and {n_chol} solve launches "
+                  f"for {ran} iterations of {n_buckets} buckets")
+        else:
+            check(n_chol == 2 * ran and n_asm == n_buckets * ran,
+                  f"{label}: {n_chol} solve and {n_asm} assembly launches "
+                  f"for {ran} iterations; expected {2 * ran} and "
+                  f"{n_buckets * ran} ({n_buckets} buckets)")
         check(bool((uf[-1] == 0).all()) and bool((itf[-1] == 0).all()),
               f"{label}: a dummy slot's factor row is not zero")
         runs[label] = {"sec_per_iter": sec, "rmse": rmses, "uf": uf,
-                       "itf": itf}
-    # The two runs differ only in how f32 sums are ordered.  The factors
-    # are held row by row, ||x_a - x_b|| <= 1e-5 + 1e-3 ||x_b|| per entity:
-    # on this structureless synthetic every user vector is nearly the same,
-    # so the item systems have condition number ~180, and ~3e-7 relative
-    # rounding in b (sums over ~750 ratings) moves each solution by ~5e-5 of
-    # its norm in ANY f32 implementation (cuBLAS against float64 included).
-    # Component-wise, small components of a row can then miss atol 1e-5;
-    # that figure is printed beside the gate.
-    a, b = runs["assembly-kernel"], runs["default"]
-    for name, x, y in (("user", a["uf"], b["uf"]), ("item", a["itf"], b["itf"])):
-        row = ((x - y).norm(dim=1) / (1e-5 + 1e-3 * y.norm(dim=1))).max().item()
+                       "itf": itf, "model": models[-1],
+                       "launches": {"cholesky": n_chol, "assembly": n_asm}}
+    # Chunks split the row axis only and each row is its own system, so
+    # the two paths must agree entry by entry
+    a, b = runs["fused"]["model"], runs["default"]["model"]
+    for name, x, y in (("user", a.user_factors, b.user_factors),
+                       ("item", a.item_factors, b.item_factors)):
         elem = ((x - y).abs() / (1e-5 + 1e-3 * y.abs())).max().item()
-        log(f"main: {name} factors of the two runs: row-wise {row:.4f}, "
-            f"component-wise {elem:.4f} of rtol 1e-3 / atol 1e-5")
-        check(row <= 1.0, f"the two runs' {name} factors disagree")
-    return runs, launches
+        log(f"main: {name} factors after 3 iterations, fused vs default: "
+            f"component-wise {elem:.4f} of rtol 1e-3 / atol 1e-5, max "
+            f"|diff| {(x - y).abs().max().item():.3e}")
+        check(elem <= 1.0, f"the two paths' {name} factors disagree")
+    return runs
 
 
 def f64_check(torch, TA, GA, flat, y, side, rows=2000):
@@ -324,8 +341,7 @@ def phase_times(torch, TA, CH, GA, flat, itf):
                 for i, v in buckets]
 
     def asm_plain():
-        return [TA._bucket_normal_eqs(itf, i, v, False, 40.0, torch.float32)
-                for i, v in buckets]
+        return [GA.bucket_assembly_plain(itf, i, v) for i, v in buckets]
 
     def asm_library():
         out = []
@@ -341,8 +357,11 @@ def phase_times(torch, TA, CH, GA, flat, itf):
                   for (a, b), (c, d) in zip(got, want))
     del got, want
     nnz_pad = sum(int(i.numel()) for i, _ in buckets)
+    nnz = int(counts.double().sum().item())  # this run's real ratings
     rows = sum(int(i.shape[0]) for i, _ in buckets)
-    asm_flops = 2.0 * nnz_pad * (k * k + k)
+    asm_flops = assembly_flops(nnz, k)
+    # the table, idx and val as given (pads included) read once; A and b
+    # written once
     asm_bytes = (itf.numel() * 4 + nnz_pad * 8 + rows * (k * k + k) * 4)
     asm = {
         "name": "fused_bucket_assembly", "route": "cuda",
@@ -359,7 +378,8 @@ def phase_times(torch, TA, CH, GA, flat, itf):
     asm["bound_by"] = "operations" if asm_ops_ms >= asm_bytes_ms else "bytes"
     entries.append(asm)
     log(f"times assembly, user half-sweep ({len(buckets)} buckets, "
-        f"{rows} rows, nnz_pad {nnz_pad}, {asm_flops / 1e9:.1f} GFLOP, "
+        f"{rows} rows, nnz {nnz}, nnz_pad {nnz_pad}, "
+        f"{asm_flops / 1e9:.2f} GFLOP, "
         f"{asm_bytes / 1e9:.3f} GB): kernel {asm['ms']:.3f} ms, plain "
         f"{asm['plain_ms']:.3f} ms, library {asm['library_ms']:.3f} ms, "
         f"bound {asm['bound_ms']:.3f} ms ({asm['bound_by']})")
@@ -382,7 +402,8 @@ def phase_times(torch, TA, CH, GA, flat, itf):
         L = torch.linalg.cholesky(A)
         return torch.cholesky_solve(b[..., None], L)
 
-    chol_bytes = n * (k * k + 2 * k) * 4
+    # A's lower triangle, all an SPD solve reads of it, b read, x written
+    chol_bytes = lower_triangle_bytes(n, k) + 2 * n * k * 4
     chol_flops = n * (k ** 3 / 3.0 + 2.0 * k * k)
     chol = {
         "name": "cholesky_solve_batched", "route": "cuda",
@@ -411,8 +432,7 @@ def item_side_times(torch, TA, CH, GA, flat, uf):
     buckets = [(flat[2 * j], flat[2 * j + 1]) for j in range(len(flat) // 2)]
     ms = event_ms(lambda: [GA.fused_bucket_assembly(uf, i, v)
                            for i, v in buckets], reps=5)
-    plain = event_ms(lambda: [TA._bucket_normal_eqs(uf, i, v, False, 40.0,
-                                                    torch.float32)
+    plain = event_ms(lambda: [GA.bucket_assembly_plain(uf, i, v)
                               for i, v in buckets], reps=3)
     A, b = TA._assemble_normal_eqs(uf, buckets, False, 40.0, torch.float32)
     A.diagonal(dim1=-2, dim2=-1).add_(
@@ -461,24 +481,29 @@ def main() -> int:
         f"user {len(problem.u.widths)} (nnz_pad {nnz_pad['u']}), item "
         f"{len(problem.i.widths)} (nnz_pad {nnz_pad['i']})")
 
-    cfg = TA.ALSConfig(num_factors=RANK, iterations=1, lambda_=LAMBDA,
-                       seed=42)
-    fit_fn, dev_args = TA.compile_fit(problem, cfg, dev)
+    gen = torch.Generator().manual_seed(42)
+    init = (TA.init_factors(problem.n_users, RANK, gen).numpy(),
+            TA.init_factors(problem.n_items, RANK, gen).numpy())
+    cfg = TA.ALSConfig(num_factors=RANK, iterations=1, lambda_=LAMBDA)
+    fit_fn, dev_args = TA.compile_fit(problem, cfg, dev, init=init)
     phase_checks(torch, CH, GA, TA, problem, dev_args, dev)
-    fused_check(torch, fit_fn, dev_args)
 
-    runs, launches = main_path(torch, TA, CH, GA, problem, (fit_fn, dev_args),
-                               (users, items, ratings), dev)
+    runs = main_path(torch, TA, CH, GA, problem, (fit_fn, dev_args),
+                     (users, items, ratings), init, dev)
     final = runs["default"]
     n_u = 2 * len(problem.u.widths) + 1
     f64_check(torch, TA, GA, dev_args[2:2 + n_u], final["itf"], "user")
     f64_check(torch, TA, GA, dev_args[2 + n_u:], final["uf"], "item")
     entries = phase_times(torch, TA, CH, GA, dev_args[2:2 + n_u], final["itf"])
     item_side_times(torch, TA, CH, GA, dev_args[2 + n_u:], final["uf"])
-    entries[0]["launches"] = launches["cholesky"]
-    entries[1]["launches"] = launches["assembly"]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # `launches` is the main path's own count; each path's count beside it
+    for e, key in zip(entries, ("cholesky", "assembly")):
+        e["launches"] = final["launches"][key]
+        e["launches_by_path"] = {label: run["launches"][key]
+                                 for label, run in runs.items()}
+    keys = ("name", "route", "source", "replaces", "launches",
+            "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     log(f"done in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": [{key: e[key] for key in keys}
                                   for e in entries]}))

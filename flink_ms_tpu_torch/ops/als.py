@@ -10,17 +10,18 @@ as a batched Cholesky solve over the degree-bucketed layout that
 numpy and equal to it array for array; the sweep is torch on one device
 with D = 1 block, so the reference's ``all_gather`` of the opposite factor
 table is the table itself and the implicit mode's ``psum`` of YᵀY is a
-plain product.  Two CUDA kernels carry the sweep on the card:
+plain product.  Two CUDA kernels carry every half-sweep on the card, in
+the unfused and the fused mode alike:
 
+- ``ops/gather_assembly.py`` — the fused gather + assembly of each bucket
+  (the reference's Pallas ``fused_bucket_assembly``);
 - ``ops/cholesky.py`` — the batched SPD solve (the reference's Pallas
-  solver, its default on the TPU), selected by FLINK_MS_ALS_SOLVER
-  (auto | kernel | pallas: the kernel; lax: ``torch.linalg``);
-- ``ops/gather_assembly.py`` — the fused gather + assembly, selected by
-  FLINK_MS_ALS_ASSEMBLY (auto | xla: gather + einsum; kernel | pallas: the
-  kernel for every bucket, unfused mode only, as in the reference).
+  solver, its default on the TPU).
 
 On CPU tensors each kernel's wrapper runs its plain torch version, which
-is how the tests hold the port against the reference.
+is how the tests hold the port against the reference.  The port has no
+selection between a kernel and a library path: the reference's
+FLINK_MS_ALS_SOLVER and FLINK_MS_ALS_ASSEMBLY are not read.
 
 Supports the two training modes of the reference: explicit feedback with
 weighted-λ (ALS-WR) or plain λ, and implicit feedback
@@ -39,8 +40,7 @@ import torch
 
 from ..parallel.mesh import num_blocks, resolve_device
 from .cholesky import cholesky_solve_batched
-from .gather_assembly import (assembly_choice, bucket_assembly_plain,
-                              fused_bucket_assembly)
+from .gather_assembly import fused_bucket_assembly
 
 # ---------------------------------------------------------------------------
 # config + host-side problem layout (copied from the reference, numpy)
@@ -322,9 +322,9 @@ def prepare_blocked(
 # the sweep
 # ---------------------------------------------------------------------------
 
-# upper bound on one bucket's gathered-factor transient (r·w·k at the
-# table's dtype); a bucket above it assembles in row chunks so the device
-# holds one chunk's gather at a time
+# upper bound on one bucket's transient (the plain version's r·w·k gather
+# at the table's dtype, and the fused solve's systems); a bucket above it
+# assembles in row chunks so the device holds one chunk's worth at a time
 _ASSEMBLY_CHUNK_ENV = "FLINK_MS_ALS_ASSEMBLY_CHUNK_BYTES"
 
 
@@ -346,15 +346,12 @@ def _bucket_normal_eqs(y_all, idx, val, implicit, alpha, dtype, post=None,
     chunked case (the reference's ``lax.map`` body).  ``extra`` is a
     (rows, ...) operand sliced alongside idx/val (the per-slot counts).
     Chunks split the row axis only, so per-row arithmetic is unchanged.
-    With FLINK_MS_ALS_ASSEMBLY=kernel and no ``post``, the bucket goes to
-    the fused kernel, which has no gather transient to chunk."""
-    if post is None and assembly_choice() == "kernel":
-        return fused_bucket_assembly(y_all, idx, val, dtype,
-                                     implicit=implicit, alpha=alpha)
+    Every chunk goes through ``fused_bucket_assembly``: the kernel on the
+    card, its plain version on the CPU."""
 
     def compute(idx_c, val_c, extra_c, in_scan=False):
-        A, b = bucket_assembly_plain(y_all, idx_c, val_c, dtype, implicit,
-                                     alpha)
+        A, b = fused_bucket_assembly(y_all, idx_c, val_c, dtype,
+                                     implicit=implicit, alpha=alpha)
         if post is None:
             return A, b
         return post(A, b, extra_c, in_scan=in_scan)
@@ -362,9 +359,12 @@ def _bucket_normal_eqs(y_all, idx, val, implicit, alpha, dtype, post=None,
     r, w = idx.shape
     k = y_all.shape[1]
     itemsize = torch.finfo(dtype).bits // 8
-    # peak transient: the gather at the table's width, plus the same-size
-    # weighted copy in implicit mode
-    row_bytes = w * k * (y_all.element_size() + (itemsize if implicit else 0))
+    # peak transient per row: the plain version (CPU tensors) gathers at
+    # the table's width, plus the same-size weighted copy in implicit mode;
+    # the kernel keeps its gather on chip, so an unfused bucket on the card
+    # is never cut
+    row_bytes = 0 if y_all.is_cuda else \
+        w * k * (y_all.element_size() + (itemsize if implicit else 0))
     if post is not None:
         # the fused solve holds the chunk's (C, k, k) system plus
         # factorization intermediates in the same budget
@@ -404,21 +404,6 @@ def _assemble_normal_eqs(y_all, buckets, implicit, alpha, dtype):
     return torch.cat(As), torch.cat(bs)
 
 
-def resolve_solver() -> str:
-    """FLINK_MS_ALS_SOLVER -> "kernel" (auto, kernel, pallas: the batched
-    Cholesky kernel on a CUDA tensor, its plain version on a CPU tensor) or
-    "lax" (``torch.linalg.cholesky`` + ``torch.cholesky_solve``, the
-    counterpart of the reference's ``lax.linalg`` path)."""
-    choice = os.environ.get("FLINK_MS_ALS_SOLVER", "auto")
-    if choice in ("auto", "kernel", "pallas"):
-        return "kernel"
-    if choice == "lax":
-        return "lax"
-    raise ValueError(
-        f"FLINK_MS_ALS_SOLVER={choice!r}: the port takes auto|kernel|pallas|lax"
-    )
-
-
 def _fused_solve() -> bool:
     """FLINK_MS_ALS_FUSED=1: solve each bucket chunk right after its
     assembly, so the (per_block, k, k) normal equations never exist whole."""
@@ -438,16 +423,6 @@ def resolve_exchange(exchange_dtype: Optional[str]) -> Optional[torch.dtype]:
     return dt
 
 
-def _chol_solve(A, b, in_scan=False):
-    if resolve_solver() == "kernel":
-        # in_scan: the reference's fused per-chunk call site, which forces
-        # the batch-major Pallas entry; both layouts reach one kernel here
-        return cholesky_solve_batched(A, b,
-                                      layout="batch_major" if in_scan else None)
-    L = torch.linalg.cholesky(A)
-    return torch.cholesky_solve(b[..., None], L)[..., 0]
-
-
 def _solve_factors(A, b, counts, lam, weighted_reg, in_scan=False):
     """Batched Cholesky solve of (A + λ·reg·I) x = b with empty rows masked.
     Adds the regularizer to A's diagonal in place (A is the sweep's own
@@ -457,7 +432,9 @@ def _solve_factors(A, b, counts, lam, weighted_reg, in_scan=False):
     # Cholesky stays PD, then a zero result
     diag = lam * reg + torch.where(counts > 0, 0.0, 1.0).to(counts.dtype)
     A.diagonal(dim1=-2, dim2=-1).add_(diag[:, None])
-    x = _chol_solve(A, b, in_scan=in_scan)
+    # in_scan: the reference's fused per-chunk call site, which forces the
+    # batch-major Pallas entry; both layouts reach one kernel here
+    x = cholesky_solve_batched(A, b, layout="batch_major" if in_scan else None)
     return torch.where((counts > 0)[:, None], x, 0.0)
 
 

@@ -11,8 +11,8 @@ device memory.
 The reference cuts a large factor table into at most four VMEM slices and
 gates the kernel on that (``use_fused_gather``, ``:77-94``); that is a
 budget of the TPU's on-chip memory.  The card reads the table through its
-50 MB L2, so the port has no slices and no gate: with
-``FLINK_MS_ALS_ASSEMBLY=kernel`` every bucket goes to the kernel.
+50 MB L2, so the port has no slices and no gate: on the card every
+bucket of the sweep goes to the kernel.
 
 ``fused_bucket_assembly`` launches the kernel for CUDA tensors and runs
 ``bucket_assembly_plain`` for CPU tensors; nothing falls back from one to
@@ -22,28 +22,14 @@ the other.
 from __future__ import annotations
 
 import ctypes
-import os
 
 import torch
 
 from . import _build
 
-_ASSEMBLY_ENV = "FLINK_MS_ALS_ASSEMBLY"
 MAX_K = 128
 
 LAUNCHES = 0  # kernel launches made by fused_bucket_assembly
-
-
-def assembly_choice() -> str:
-    """FLINK_MS_ALS_ASSEMBLY -> "plain" (auto, xla: gather + einsum, the
-    counterpart of the reference's XLA path, which its "auto" also picks)
-    or "kernel" (kernel, pallas: the CUDA kernel for every bucket)."""
-    mode = os.environ.get(_ASSEMBLY_ENV, "auto")
-    if mode in ("auto", "xla"):
-        return "plain"
-    if mode in ("kernel", "pallas"):
-        return "kernel"
-    raise ValueError(f"{_ASSEMBLY_ENV}={mode!r} must be auto|xla|kernel|pallas")
 
 
 def bucket_assembly_plain(y_all, idx, val, out_dtype=torch.float32,

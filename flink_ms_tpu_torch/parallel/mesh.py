@@ -34,13 +34,3 @@ def num_blocks() -> int:
     """ALS blocks of the port's sweep: one card holds one block."""
     return 1
 
-
-def row_bucket(n: int, n_shards: int, floor: int = 8) -> int:
-    """Pad a row count to the next power-of-two PER-SHARD bucket
-    (copy of ``flink_ms_tpu/parallel/mesh.py`` ``row_bucket``): the padded
-    total is ``n_shards * 2^ceil(log2(ceil(n / n_shards)))``, with the
-    per-shard size at least ``floor``."""
-    if n_shards < 1:
-        raise ValueError("need n_shards >= 1")
-    per_shard = max((max(n, 1) + n_shards - 1) // n_shards, floor)
-    return n_shards * (1 << (per_shard - 1).bit_length())

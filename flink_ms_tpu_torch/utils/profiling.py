@@ -1,4 +1,4 @@
-"""Tracing and per-step timing.
+"""Tracing and device sync.
 
 Counterpart of ``flink_ms_tpu/utils/profiling.py``: ``hard_sync`` waits
 for the card with ``torch.cuda.synchronize``, and ``trace`` records a
@@ -9,10 +9,8 @@ profiler.
 from __future__ import annotations
 
 import contextlib
-import math
 import os
-import time
-from typing import Dict, List, Optional
+from typing import Optional
 
 import torch
 
@@ -48,60 +46,3 @@ def trace(trace_dir: Optional[str]):
     os.makedirs(trace_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
 
-
-class StepTimer:
-    """Wall-clock timer for repeated steps with percentile reporting.
-
-    Usage::
-
-        timer = StepTimer("als_iter")
-        for _ in range(iters):
-            with timer:
-                step()
-        print(timer.summary())
-    """
-
-    def __init__(self, name: str):
-        self.name = name
-        self.durations_s: List[float] = []
-        self._t0: Optional[float] = None
-
-    def __enter__(self) -> "StepTimer":
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc) -> None:
-        if self._t0 is None:
-            raise RuntimeError("StepTimer exited without being entered")
-        self.durations_s.append(time.perf_counter() - self._t0)
-        self._t0 = None
-
-    def percentile(self, q: float) -> float:
-        if not self.durations_s:
-            return float("nan")
-        xs = sorted(self.durations_s)
-        # nearest-rank: smallest value with cumulative share >= q
-        idx = max(math.ceil(q / 100.0 * len(xs)) - 1, 0)
-        return xs[min(idx, len(xs) - 1)]
-
-    def stats(self) -> Dict[str, float]:
-        n = len(self.durations_s)
-        total = sum(self.durations_s)
-        return {
-            "name": self.name,
-            "steps": n,
-            "total_s": total,
-            "mean_s": total / n if n else float("nan"),
-            "p50_s": self.percentile(50),
-            "p90_s": self.percentile(90),
-            "p99_s": self.percentile(99),
-            "p999_s": self.percentile(99.9),
-        }
-
-    def summary(self) -> str:
-        s = self.stats()
-        return (
-            f"[{self.name}] {s['steps']} steps, {s['total_s']:.3f}s total, "
-            f"mean {s['mean_s'] * 1e3:.2f}ms, p50 {s['p50_s'] * 1e3:.2f}ms, "
-            f"p99 {s['p99_s'] * 1e3:.2f}ms"
-        )

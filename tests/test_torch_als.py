@@ -73,13 +73,17 @@ FIT_CASES = [
       "FLINK_MS_ALS_ASSEMBLY_CHUNK_BYTES": "20000"}, {}, {}),
     ("chunked-assembly", {},
      {"FLINK_MS_ALS_ASSEMBLY_CHUNK_BYTES": "4000"}, {}, {}),
-    ("assembly-kernel", {}, {}, {"FLINK_MS_ALS_ASSEMBLY": "pallas"},
-     {"FLINK_MS_ALS_ASSEMBLY": "kernel"}),
-    ("assembly-kernel-vs-xla", {}, {}, {"FLINK_MS_ALS_ASSEMBLY": "xla"},
-     {"FLINK_MS_ALS_ASSEMBLY": "kernel"}),
+    # the port has one assembly and one solve, the kernels' wrappers; the
+    # reference is held to it in each of its selections
+    ("assembly-kernel", {}, {}, {"FLINK_MS_ALS_ASSEMBLY": "pallas"}, {}),
+    ("assembly-kernel-vs-xla", {}, {}, {"FLINK_MS_ALS_ASSEMBLY": "xla"}, {}),
     ("jax-pallas-solver", {}, {"FLINK_MS_ALS_SOLVER": "pallas"}, {}, {}),
-    ("port-lax-solver", {}, {}, {}, {"FLINK_MS_ALS_SOLVER": "lax"}),
+    ("jax-lax-solver", {}, {}, {"FLINK_MS_ALS_SOLVER": "lax"}, {}),
     ("bf16-exchange", {"exchange_dtype": "bfloat16"}, {}, {}, {}),
+    ("fused-bf16-exchange", {"exchange_dtype": "bfloat16"},
+     {"FLINK_MS_ALS_FUSED": "1"}, {}, {}),
+    ("implicit-bf16-exchange", {"implicit": True, "alpha": 2.0,
+                                "exchange_dtype": "bfloat16"}, {}, {}, {}),
 ]
 
 
@@ -190,8 +194,9 @@ def test_warm_start(rng):
 
 
 @pytest.mark.parametrize("var,value", [
-    ("FLINK_MS_ALS_SOLVER", "panel"),
     ("FLINK_MS_ALS_BUCKET_RATIO", "1.0"),
+    ("FLINK_MS_ALS_BUCKET_RATIO", "20"),
+    ("FLINK_MS_ALS_BUCKET_RATIO", "wide"),
 ])
 def test_selection_variables_are_validated(rng, monkeypatch, var, value):
     u, i, r = _low_rank(rng)
@@ -199,6 +204,55 @@ def test_selection_variables_are_validated(rng, monkeypatch, var, value):
     with pytest.raises(ValueError, match=var):
         TA.als_fit(u, i, r, TA.ALSConfig(num_factors=4, iterations=1),
                    device="cpu")
+
+
+ROUTE_CASES = [
+    ("unfused", {}),
+    ("chunked-assembly", {"FLINK_MS_ALS_ASSEMBLY_CHUNK_BYTES": "1000"}),
+    ("fused", {"FLINK_MS_ALS_FUSED": "1"}),
+    ("fused-chunked", {"FLINK_MS_ALS_FUSED": "1",
+                       "FLINK_MS_ALS_ASSEMBLY_CHUNK_BYTES": "2000"}),
+]
+
+
+@pytest.mark.parametrize("case,env", ROUTE_CASES,
+                         ids=[c[0] for c in ROUTE_CASES])
+def test_sweep_runs_through_the_kernel_wrappers(rng, monkeypatch, case, env):
+    """Every bucket row is assembled and every system solved by the
+    kernels' wrappers, which launch the kernels on the card; the fused
+    mode's chunked solves take the batch-major entry, as in the
+    reference."""
+    for key, val in env.items():
+        monkeypatch.setenv(key, val)
+    asm_rows, solves = [], []
+    real_asm, real_solve = TA.fused_bucket_assembly, TA.cholesky_solve_batched
+
+    def asm(y_all, idx, val, *args, **kwargs):
+        asm_rows.append(idx.shape[0])
+        return real_asm(y_all, idx, val, *args, **kwargs)
+
+    def solve(A, b, layout=None):
+        solves.append((A.shape[0], layout))
+        return real_solve(A, b, layout=layout)
+
+    monkeypatch.setattr(TA, "fused_bucket_assembly", asm)
+    monkeypatch.setattr(TA, "cholesky_solve_batched", solve)
+    u, i, r = _low_rank(rng)
+    problem = TA.prepare_blocked(u, i, r, 1)
+    fit_fn, args = TA.compile_fit(problem, TA.ALSConfig(num_factors=4), "cpu")
+    fit_fn(1, *args)
+    n_rows = sum(problem.u.rows) + sum(problem.i.rows)
+    n_buckets = len(problem.u.widths) + len(problem.i.widths)
+    assert sum(asm_rows) == n_rows
+    assert (len(asm_rows) > n_buckets) == ("chunked" in case)
+    if case.startswith("fused"):
+        # one solve per assembled chunk; the dummy slots are not solved
+        assert [n for n, _ in solves] == asm_rows
+        want = {"batch_major"} if "chunked" in case else {None}
+        assert {layout for _, layout in solves} == want
+    else:
+        assert solves == [(problem.u.per_block, None),
+                          (problem.i.per_block, None)]
 
 
 def test_resolve_exchange():

@@ -98,21 +98,6 @@ def test_cpu_tensors_take_the_plain_version(rng):
     assert torch.equal(A, A2) and torch.equal(b, b2)
 
 
-@pytest.mark.parametrize("mode,want", [
-    ("auto", "plain"), ("xla", "plain"), ("kernel", "kernel"),
-    ("pallas", "kernel"),
-])
-def test_assembly_choice(monkeypatch, mode, want):
-    monkeypatch.setenv("FLINK_MS_ALS_ASSEMBLY", mode)
-    assert GA.assembly_choice() == want
-
-
-def test_assembly_choice_rejects_unknown(monkeypatch):
-    monkeypatch.setenv("FLINK_MS_ALS_ASSEMBLY", "fast")
-    with pytest.raises(ValueError, match="FLINK_MS_ALS_ASSEMBLY"):
-        GA.assembly_choice()
-
-
 def test_wrapper_rejects_bad_arguments(rng):
     y, idx, val = _torch_args(*_bucket(rng, torch.float32), torch.float32)
     with pytest.raises(TypeError, match="idx"):

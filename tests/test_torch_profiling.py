@@ -1,49 +1,17 @@
-"""The port's small helpers against their JAX-package counterparts:
-``utils/profiling.py`` (step timing, sync, traces) and ``parallel/mesh.py``
-(``row_bucket``, ``num_blocks``)."""
+"""The port's small helpers: ``utils/profiling.py`` (sync, traces) and
+``parallel/mesh.py`` (``num_blocks``)."""
 
 import json
 import os
 
-import pytest
 import torch
 
-from flink_ms_tpu.parallel.mesh import row_bucket as jax_row_bucket
-from flink_ms_tpu.utils.profiling import StepTimer as JaxStepTimer
 from flink_ms_tpu_torch.parallel import mesh
 from flink_ms_tpu_torch.utils import profiling
 
 
-@pytest.mark.parametrize("n,shards,floor", [
-    (0, 1, 8), (1, 1, 8), (9, 1, 8), (100, 4, 8), (1000, 3, 16), (7, 8, 1),
-])
-def test_row_bucket_matches_reference(n, shards, floor):
-    assert mesh.row_bucket(n, shards, floor) == jax_row_bucket(n, shards, floor)
-
-
-def test_row_bucket_rejects_no_shards():
-    with pytest.raises(ValueError):
-        mesh.row_bucket(10, 0)
-
-
 def test_one_block_on_one_card():
     assert mesh.num_blocks() == 1
-
-
-def test_step_timer_matches_reference_percentiles():
-    ours, ref = profiling.StepTimer("step"), JaxStepTimer("step")
-    samples = [0.004, 0.001, 0.003, 0.010, 0.002]
-    ours.durations_s = list(samples)
-    ref.durations_s = list(samples)
-    for q in (50, 90, 99, 99.9):
-        assert ours.percentile(q) == ref.percentile(q)
-    assert ours.stats() == ref.stats()
-    assert ours.summary() == ref.summary()
-    with ours:
-        pass
-    assert len(ours.durations_s) == 6
-    with pytest.raises(RuntimeError):
-        ours.__exit__(None, None, None)
 
 
 def test_hard_sync_returns_first_element():
