@@ -8,10 +8,11 @@ NVIDIA Hopper card (``csrc/``).  Importing the package imports nothing.
 Package layout
 --------------
 core/      flags and the text-format contracts (own copies)
-parallel/  device selection (one card, one block)
-ops/       blocked ALS, the batched Cholesky solve and bucket assembly
+parallel/  device selection (one card)
+ops/       blocked ALS, the batched Cholesky solve and bucket assembly;
+           CoCoA SVM, its round-boundary margin gather and Δw scatter-add
 csrc/      CUDA C++ sources of the kernels, built with nvcc at first use
-train/     the ALS training CLI
+train/     the ALS and SVM training CLIs
 utils/     step timing and profiler traces
 """
 

@@ -1,9 +1,10 @@
-"""Text-format contracts of the ALS training path (SURVEY.md Appendix B).
+"""Text-format contracts of the training paths (SURVEY.md Appendix B).
 
-Own copy of the subset of ``flink_ms_tpu/core/formats.py`` that ALS
-training reads and writes: ratings CSV in, ``id,U|I,f1;f2;...;fk`` factor
-rows out.  The lines are byte-identical to the JAX package's, so files
-written by either package are read by the other.
+Own copy of the subset of ``flink_ms_tpu/core/formats.py`` that ALS and
+SVM training read and write: ratings CSV in, ``id,U|I,f1;f2;...;fk``
+factor rows out; LibSVM in, ``featureIndex,weight`` or range-partitioned
+``bucket,idx:w;...`` rows out.  The lines are byte-identical to the JAX
+package's, so files written by either package are read by the other.
 
 All readers accept a file path or a directory (Flink jobs with parallelism > 1
 write directories of part files).
@@ -12,7 +13,8 @@ write directories of part files).
 from __future__ import annotations
 
 import os
-from typing import Iterable, Iterator, List, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Dict, Iterable, Iterator, List, Sequence, Tuple
 
 import numpy as np
 
@@ -103,6 +105,97 @@ def write_ratings(
             for u, i, r in zip(users, items, ratings)
         ),
     )
+
+
+@dataclass
+class SparseData:
+    """CSR sparse labeled data parsed from LibSVM (indices stored 0-based)."""
+
+    labels: np.ndarray      # (n,) float64
+    indptr: np.ndarray      # (n+1,) int64
+    indices: np.ndarray     # (nnz,) int64, 0-based
+    values: np.ndarray      # (nnz,) float64
+    n_features: int
+
+    @property
+    def n_examples(self) -> int:
+        return int(self.labels.shape[0])
+
+    def row(self, i: int) -> Tuple[np.ndarray, np.ndarray]:
+        s, e = self.indptr[i], self.indptr[i + 1]
+        return self.indices[s:e], self.values[s:e]
+
+
+def read_libsvm(path: str, n_features: int = 0) -> SparseData:
+    """Parse LibSVM ``label idx:val ...`` with 1-based indices
+    (``env.readLibSVM`` at SVMImpl.scala:21 [dep])."""
+    labels: List[float] = []
+    indptr: List[int] = [0]
+    indices: List[int] = []
+    values: List[float] = []
+    max_idx = -1
+    for line in iter_lines(path):
+        # strip LibSVM comments
+        hash_pos = line.find("#")
+        if hash_pos >= 0:
+            line = line[:hash_pos]
+        parts = line.split()
+        if not parts:
+            continue
+        labels.append(float(parts[0]))
+        for tok in parts[1:]:
+            idx_s, val_s = tok.split(":")
+            idx = int(idx_s) - 1  # 1-based on disk -> 0-based in memory
+            if idx < 0:
+                raise ValueError(f"LibSVM index must be >= 1, got {idx + 1}")
+            indices.append(idx)
+            values.append(float(val_s))
+            if idx > max_idx:
+                max_idx = idx
+        indptr.append(len(indices))
+    nf = max(n_features, max_idx + 1)
+    return SparseData(
+        labels=np.asarray(labels, dtype=np.float64),
+        indptr=np.asarray(indptr, dtype=np.int64),
+        indices=np.asarray(indices, dtype=np.int64),
+        values=np.asarray(values, dtype=np.float64),
+        n_features=nf,
+    )
+
+
+def format_svm_flat_rows(weights: np.ndarray) -> Iterator[str]:
+    """``featureIndex,weight`` with 1-based indices (SVMImpl.scala:33-35,45)."""
+    for i, w in enumerate(np.asarray(weights).ravel()):
+        yield f"{i + 1},{_fmt(w)}"
+
+
+def format_svm_range_rows(weights: np.ndarray, range_: int) -> Iterator[str]:
+    """``bucket,idx:w;idx:w;...`` with bucket = (1-based idx) / range
+    (SVMImpl.scala:40-46,63-71).  Buckets ascend, and indices ascend within
+    a bucket."""
+    w = np.asarray(weights).ravel()
+    buckets: Dict[int, List[str]] = {}
+    for i, v in enumerate(w):
+        idx1 = i + 1
+        buckets.setdefault(idx1 // range_, []).append(f"{idx1}:{_fmt(v)}")
+    for b in sorted(buckets):
+        yield f"{b}," + ";".join(buckets[b])
+
+
+def parse_svm_flat_row(line: str) -> Tuple[int, float]:
+    idx_s, w_s = line.split(",", 1)
+    return int(idx_s), float(w_s)
+
+
+def parse_svm_range_row(line: str) -> Tuple[int, List[Tuple[int, float]]]:
+    """Parse ``bucket,idx:w;idx:w;...`` (RangePartitionSVMPredict.java:80-101)
+    token by token; a malformed pair raises."""
+    bucket_s, payload = line.split(",", 1)
+    entries = []
+    for tok in _split_semis(payload):
+        idx_s, w_s = tok.split(":")
+        entries.append((int(idx_s), float(w_s)))
+    return int(bucket_s), entries
 
 
 def format_als_row(id_: object, factor_type: str, factors: Sequence[float]) -> str:

@@ -1,10 +1,12 @@
-"""Counterpart of ``flink_ms_tpu.ops``: blocked ALS and its two kernels.
+"""Counterpart of ``flink_ms_tpu.ops``: blocked ALS and CoCoA SVM, and their
+four kernels.
 
 TF32 is turned off here, on import of the ops, for matrix products and
-cuDNN alike.  The reference assembles the normal equations at HIGHEST
-precision (``flink_ms_tpu/ops/als.py:75-78``, ``:609-621``); a float32
-product in TF32 keeps about three decimal digits, which would break parity
-with it silently.
+cuDNN alike.  The reference assembles the ALS normal equations and builds
+the SVM Gram matrices at HIGHEST precision (``flink_ms_tpu/ops/als.py:75-78``,
+``:609-621``; ``flink_ms_tpu/ops/svm.py:407-409``); a float32 product in
+TF32 keeps about three decimal digits, which would break parity with it
+silently.
 """
 
 import torch

@@ -1,10 +1,11 @@
 """Device selection for the port.
 
 Counterpart of ``flink_ms_tpu/parallel/mesh.py``.  The JAX package spreads
-the ALS blocks over a 1-D device mesh; the port runs on one card with
-D = 1 block.  Every solve is exact per row, so on one card the result does
-not depend on D (``flink_ms_tpu/train/als_train.py:62-66``).  Multi-GPU
-training is later work (ROADMAP.md).
+the ALS blocks and the SVM chains over a 1-D device mesh; the port runs on
+one card, D = 1.  Every ALS solve is exact per row, so on one card the
+result does not depend on D (``flink_ms_tpu/train/als_train.py:62-66``);
+all K SVM chains run on the one card.  Multi-GPU training is later work
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ def resolve_device(device="cuda") -> torch.device:
 
 
 def num_blocks() -> int:
-    """ALS blocks of the port's sweep: one card holds one block."""
+    """Devices of the port's mesh, D: one card holds one ALS block and
+    every SVM chain."""
     return 1
 

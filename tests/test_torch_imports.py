@@ -13,8 +13,9 @@ import torch
 from flink_ms_tpu_torch.core import formats as F
 from flink_ms_tpu_torch.core.params import Params
 from flink_ms_tpu_torch.ops import als as TA
+from flink_ms_tpu_torch.ops import svm as TS
 from flink_ms_tpu_torch.parallel.mesh import resolve_device
-from flink_ms_tpu_torch.train import als_train
+from flink_ms_tpu_torch.train import als_train, svm_train
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -38,7 +39,7 @@ def test_port_and_chip_smoke_load_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 14  # every module of the port was imported
+    assert int(n) >= 17  # every module of the port was imported
     assert bad == "[]"
 
 
@@ -82,3 +83,18 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path, rng):
     F.write_ratings(path, u, i, r)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         als_train.run(Params.from_args(["--input", path]))
+
+
+def test_svm_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    path = str(tmp_path / "train.libsvm")
+    F.write_lines(path, ["+1 1:1.0 3:0.5", "-1 2:1.0 4:0.5"] * 5)
+    data = F.read_libsvm(path)
+    cfg = TS.SVMConfig(iterations=1, local_iterations=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TS.svm_fit(data, cfg)
+    problem = TS.prepare_svm_blocked(data, 2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TS.compile_svm_fit(problem, cfg)
+    assert TS.svm_fit(data, cfg, device="cpu").weights.shape == (4,)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        svm_train.run(Params.from_args(["--training", path]))
