@@ -13,9 +13,13 @@ Phases, each printing lines of its own (``[smoke] ...``):
             ``flink_ms_tpu_torch/csrc``, in parallel;
 3. checks — each ALS kernel held against its plain torch version on the card:
             the batched Cholesky solve for k in {1,3,8,16,50,64,100,128} at
-            a ragged n through both entry layouts (and against a float64
-            solve), the bucket assembly on every ML-20M-shape bucket of both
-            sides (explicit, implicit, bf16 table);
+            n = 1000 + k and n = 5, on a row-offset slice of a larger batch,
+            through both entry layouts (and against a float64 solve), and
+            its refusals (non-contiguous A, float64, k = 129); the bucket
+            assembly at ragged shapes (rating lists of 1, 31, 33, 1,120; k
+            from 1 to 128; indices outside the table; f32 and bf16 tables;
+            both modes; out= views at a row offset) and on every
+            ML-20M-shape bucket of both sides (explicit, implicit, bf16);
 4. main   — ``als_fit``'s sweep at the ML-20M shape (138,493 users x 26,744
             items, 20M uniform ratings from seed 0, rank 50, lambda 0.1)
             through both kernels, first as a user calls it, then in the
@@ -25,9 +29,13 @@ Phases, each printing lines of its own (``[smoke] ...``):
             launch count on that path alone; then each side's half-sweep
             from the trained factors, with the kernel and with the plain
             assembly, against a float64 assembly and solve; and one
-            iteration under torch.profiler for the device's idle share;
+            iteration under torch.profiler for the device's idle share,
+            which must show no concatenation;
 5. times  — at the main path's shapes, each kernel's median time beside its
-            bound, its plain version's time and a library yardstick;
+            bound, its plain version's time and a library yardstick: the
+            solve and the assembly on the user half-sweep, the solve's
+            batch-major entry on one fused-path chunk, and both kernels on
+            the item half-sweep with their bounds;
 6. SVM checks — the margin gather and the Δw scatter-add against their
             plain versions: at the RCV1 shape, at ragged shapes (L = 1,
             L = 33, row counts off the block, duplicate ids, zero pads), and
@@ -175,6 +183,32 @@ def assembly_flops(nnz: int, k: int) -> int:
     return nnz * (k * (k + 1) + 2 * k)
 
 
+def assembly_bytes(rows: int, nnz_pad: int, table_numel: int, k: int) -> int:
+    """Bytes the assembly must move: the f32 table, idx and val as given
+    (pads included) read once; A and b of every row written once."""
+    return table_numel * 4 + nnz_pad * 8 + rows * (k * k + k) * 4
+
+
+def solve_bytes(n: int, k: int) -> int:
+    """Bytes an SPD solve must move: A's lower triangle, b read, x
+    written."""
+    return lower_triangle_bytes(n, k) + 2 * n * k * 4
+
+
+def solve_flops(n: int, k: int) -> float:
+    return n * (k ** 3 / 3.0 + 2.0 * k * k)
+
+
+def bound(flops: float, nbytes: float):
+    """(the least ms the card could take, "operations" or "bytes"): the
+    larger of the operations at the f32 rate and the bytes at the memory
+    rate."""
+    ops_ms = flops / PEAK_F32_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -202,12 +236,13 @@ def event_ms(fn, reps: int, warmup: int = 1) -> float:
     return float(np.median(times))
 
 
-def device_busy(torch, label, fn, top=5) -> None:
+def device_busy(torch, label, fn, top=5) -> list:
     """Run fn() once under torch.profiler and log its wall time (ended by
     torch.cuda.synchronize), the device time of every kernel, memset and
     copy in it, the device's idle share, and the `top` kernels by device
     time.  The profiler's own cost per operation lengthens the host's
-    launch loop, so the idle share is an upper bound."""
+    launch loop, so the idle share is an upper bound.  -> the names of
+    every operation and kernel recorded."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -218,19 +253,20 @@ def device_busy(torch, label, fn, top=5) -> None:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
+    every = prof.key_averages()
+    events = [e for e in every if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in events) / 1e6
     if busy <= 0:
         log(f"profile {label}: wall {wall * 1e3:.3f} ms; device time not "
             f"measured (the profiler recorded no device activity)")
-        return
+        return [e.key for e in every]
     heavy = sorted(events, key=lambda e: -e.self_device_time_total)[:top]
     log(f"profile {label}: wall {wall * 1e3:.3f} ms under the profiler, "
         f"device busy {busy * 1e3:.3f} ms, idle share "
         f"{1 - busy / wall:.4f}; top by device time: " + "; ".join(
             f"{e.key[:48]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
             for e in heavy))
+    return [e.key for e in every]
 
 
 def rel_err(got, want) -> float:
@@ -240,32 +276,113 @@ def rel_err(got, want) -> float:
     return diff / scale if scale else diff
 
 
-def phase_checks(torch, CH, GA, TA, problem, dev_args, dev):
-    """Phase 3: each kernel against its plain version on the card."""
+def solve_checks(torch, CH, dev):
+    """The batched solve against its plain version and a float64 solve,
+    through both entry layouts, on a row-offset slice of a larger batch, at
+    batch sizes off the warps per block and below the persistent grid; and
+    the wrapper's refusals."""
     rng = np.random.default_rng(1)
     for k in (1, 3, 8, 16, 50, 64, 100, 128):
-        n = 1000 + k  # ragged against the warps per block
-        G = rng.standard_normal((n, k, k)).astype(np.float32)
-        A = G @ G.transpose(0, 2, 1) + 5.0 * np.eye(k, dtype=np.float32)
-        b = rng.standard_normal((n, k)).astype(np.float32)
-        x64 = np.linalg.solve(A.astype(np.float64),
-                              b.astype(np.float64)[..., None])[..., 0]
-        At = torch.from_numpy(A).to(dev)
-        bt = torch.from_numpy(b).to(dev)
-        plain = CH.cholesky_solve_plain(At, bt)
-        for layout in ("lane_major", "batch_major"):
-            x = CH.cholesky_solve_batched(At, bt, layout=layout)
-            torch.cuda.synchronize()
-            xn = x.cpu().numpy()
-            over = np.max(np.abs(xn - x64) / (2e-4 + 2e-3 * np.abs(x64)))
-            rel = rel_err(x, plain)
-            log(f"check cholesky k={k} n={n} layout={layout}: "
-                f"err/tol vs f64 {over:.4f} (rtol 2e-3, atol 2e-4), "
-                f"kernel vs plain {rel:.3e} (limit 1e-4 of max|x|)")
-            check(np.isfinite(xn).all() and over <= 1.0,
-                  f"cholesky k={k} {layout} off the f64 solve")
-            check(rel <= 1e-4, f"cholesky k={k} {layout} off its plain version")
+        for n in (1000 + k, 5):
+            G = rng.standard_normal((n + 3, k, k)).astype(np.float32)
+            A = G @ G.transpose(0, 2, 1) + 5.0 * np.eye(k, dtype=np.float32)
+            b = rng.standard_normal((n + 3, k)).astype(np.float32)
+            x64 = np.linalg.solve(A[3:].astype(np.float64),
+                                  b[3:].astype(np.float64)[..., None])[..., 0]
+            # rows 3.. of the batch: A starts off the allocation's alignment
+            At = torch.from_numpy(A).to(dev)[3:]
+            bt = torch.from_numpy(b).to(dev)[3:]
+            plain = CH.cholesky_solve_plain(At, bt)
+            for layout in ("lane_major", "batch_major"):
+                x = CH.cholesky_solve_batched(At, bt, layout=layout)
+                torch.cuda.synchronize()
+                xn = x.cpu().numpy()
+                over = np.max(np.abs(xn - x64) / (2e-4 + 2e-3 * np.abs(x64)))
+                rel = rel_err(x, plain)
+                log(f"check cholesky k={k} n={n} (offset 3, "
+                    f"kp {CH.solve_plan(k)}) layout={layout}: err/tol vs f64 "
+                    f"{over:.4f} (rtol 2e-3, atol 2e-4), kernel vs plain "
+                    f"{rel:.3e} (limit 1e-4 of max|x|)")
+                check(np.isfinite(xn).all() and over <= 1.0,
+                      f"cholesky k={k} n={n} {layout} off the f64 solve")
+                check(rel <= 1e-4,
+                      f"cholesky k={k} n={n} {layout} off its plain version")
+    A = torch.eye(4, device=dev).expand(3, 4, 4).contiguous()
+    b = torch.ones(3, 4, device=dev)
+    refusals = {"a non-contiguous A": (A.transpose(1, 2), b),
+                "float64": (A.double(), b.double()),
+                "k = 129": (torch.eye(129, device=dev)[None],
+                            torch.ones(1, 129, device=dev))}
+    for what, (a, bb) in refusals.items():
+        try:
+            CH.cholesky_solve_batched(a, bb)
+        except (TypeError, ValueError):
+            continue
+        raise SmokeFailure(f"the CUDA solve took {what}")
+    log(f"check cholesky refusals: {', '.join(refusals)} raise")
 
+
+def assembly_ragged_checks(torch, GA, dev):
+    """The assembly against its plain version at ragged shapes: rating
+    lists of 1, 31, 33 and 1,120, k from 1 to 128, pads of every length,
+    an index past the table and one below it (zero rows), f32 and bf16
+    tables, both modes, and out= views at a row offset of a larger
+    tensor (rows outside them untouched)."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    S, r = 5000, 67  # 67 rows: off every plan's rows per block
+    worst = 0.0
+    for w in (1, 31, 33, 1120):
+        for k in (1, 8, 50, 64, 100, 128):
+            y32 = torch.randn((S, k), generator=gen, device=dev)
+            y32[-1] = 0.0  # the dummy slot the pads point at
+            idx = torch.randint(0, S - 1, (r, w), generator=gen, device=dev,
+                                dtype=torch.int32)
+            val = torch.rand((r, w), generator=gen, device=dev) * 4 + 1
+            lens = torch.randint(0, w + 1, (r, 1), generator=gen, device=dev)
+            pad = torch.arange(w, device=dev) >= lens
+            idx[pad] = S - 1
+            val[pad] = 0.0
+            idx[1, 0] = S + 7   # past the table: a zero row
+            idx[2, w - 1] = -3  # below it: a zero row
+            # the plain version reads a table with one more zero row, at
+            # which both outside indices point
+            idx_p = torch.where((idx < 0) | (idx >= S), S, idx)
+            for ydt in (torch.float32, torch.bfloat16):
+                y = y32.to(ydt)
+                y_p = torch.cat([y, torch.zeros((1, k), dtype=ydt,
+                                                device=dev)])
+                for implicit in (False, True):
+                    A = torch.full((r + 4, k, k), float("nan"), device=dev)
+                    b = torch.full((r + 4, k), float("nan"), device=dev)
+                    GA.fused_bucket_assembly(y, idx, val, implicit=implicit,
+                                             out=(A[3:3 + r], b[3:3 + r]))
+                    Ap, bp = GA.bucket_assembly_plain(y_p, idx_p, val,
+                                                      implicit=implicit)
+                    torch.cuda.synchronize()
+                    ea = rel_err(A[3:3 + r], Ap)
+                    eb = rel_err(b[3:3 + r], bp)
+                    worst = max(worst, ea, eb)
+                    what = (f"assembly w={w} k={k} {ydt} implicit={implicit} "
+                            f"({GA.assembly_plan(k, y.element_size())})")
+                    check(ea <= 1e-5 and eb <= 1e-5,
+                          f"{what}: A {ea:.3e}, b {eb:.3e} off its plain "
+                          f"version")
+                    check(bool((A[3:3 + r] == A[3:3 + r].transpose(1, 2))
+                               .all()), f"{what}: A not symmetric")
+                    check(bool(torch.isnan(A[:3]).all()
+                               and torch.isnan(A[3 + r:]).all()
+                               and torch.isnan(b[:3]).all()
+                               and torch.isnan(b[3 + r:]).all()),
+                          f"{what}: wrote outside its out= views")
+    log(f"check assembly ragged: w in (1, 31, 33, 1120), k in (1, 8, 50, 64, "
+        f"100, 128), f32 and bf16 tables, both modes, out= views at row 3 of "
+        f"{r + 4}: max rel err {worst:.3e} (limit 1e-5 of max|A|, max|b|)")
+
+
+def phase_checks(torch, CH, GA, TA, problem, dev_args, dev):
+    """Phase 3: each kernel against its plain version on the card."""
+    solve_checks(torch, CH, dev)
+    assembly_ragged_checks(torch, GA, dev)
     uf0, itf0 = dev_args[0], dev_args[1]
     n_u = 2 * len(problem.u.widths) + 1
     sides = (("user", itf0, dev_args[2:2 + n_u]),
@@ -344,6 +461,7 @@ def main_path(torch, TA, CH, GA, problem, fit, ratings_t, init, dev):
         os.environ.update(env)
         try:
             CH.LAUNCHES = 0
+            CH.BATCH_MAJOR_LAUNCHES = 0
             GA.LAUNCHES = 0
             sec, ran, (uf, itf) = time_fit(torch, fit_fn, dev_args)
             rmses, models = [], []
@@ -356,23 +474,26 @@ def main_path(torch, TA, CH, GA, problem, fit, ratings_t, init, dev):
                 ran += it
             torch.cuda.synchronize()
             n_chol, n_asm = CH.LAUNCHES, GA.LAUNCHES
+            n_bm = CH.BATCH_MAJOR_LAUNCHES
         finally:
             for key in env:
                 del os.environ[key]
         log(f"main {label}: {sec:.6f} sec/iter (median of 3, 1 vs N "
             f"iterations); train RMSE after 1,2,3 iterations {rmses}; "
-            f"launches over {ran} iterations: cholesky {n_chol}, "
-            f"assembly {n_asm}")
+            f"launches over {ran} iterations: cholesky {n_chol} (of them "
+            f"batch-major {n_bm}), assembly {n_asm}")
         check(all(np.isfinite(rmses)) and rmses[0] > rmses[1] > rmses[2],
               f"{label}: train RMSE not finite and decreasing: {rmses}")
         if env:
             # one assembly launch per row chunk, each chunk solved at once;
             # more chunks than buckets means the per-chunk entry ran
-            check(n_asm > n_buckets * ran and n_chol == n_asm,
+            check(n_asm > n_buckets * ran and n_chol == n_asm and n_bm > 0,
                   f"{label}: {n_asm} assembly and {n_chol} solve launches "
-                  f"for {ran} iterations of {n_buckets} buckets")
+                  f"({n_bm} batch-major) for {ran} iterations of "
+                  f"{n_buckets} buckets")
         else:
-            check(n_chol == 2 * ran and n_asm == n_buckets * ran,
+            check(n_chol == 2 * ran and n_asm == n_buckets * ran
+                  and n_bm == 0,
                   f"{label}: {n_chol} solve and {n_asm} assembly launches "
                   f"for {ran} iterations; expected {2 * ran} and "
                   f"{n_buckets * ran} ({n_buckets} buckets)")
@@ -380,7 +501,8 @@ def main_path(torch, TA, CH, GA, problem, fit, ratings_t, init, dev):
               f"{label}: a dummy slot's factor row is not zero")
         runs[label] = {"sec_per_iter": sec, "rmse": rmses, "uf": uf,
                        "itf": itf, "model": models[-1],
-                       "launches": {"cholesky": n_chol, "assembly": n_asm}}
+                       "launches": {"cholesky": n_chol, "assembly": n_asm,
+                                    "cholesky_batch_major": n_bm}}
     # Chunks split the row axis only and each row is its own system, so
     # the two paths must agree entry by entry
     a, b = runs["fused"]["model"], runs["default"]["model"]
@@ -461,9 +583,7 @@ def phase_times(torch, TA, CH, GA, flat, itf):
     nnz = int(counts.double().sum().item())  # this run's real ratings
     rows = sum(int(i.shape[0]) for i, _ in buckets)
     asm_flops = assembly_flops(nnz, k)
-    # the table, idx and val as given (pads included) read once; A and b
-    # written once
-    asm_bytes = (itf.numel() * 4 + nnz_pad * 8 + rows * (k * k + k) * 4)
+    asm_bytes = assembly_bytes(rows, nnz_pad, itf.numel(), k)
     asm = {
         "name": "fused_bucket_assembly", "route": "cuda",
         "source": "flink_ms_tpu_torch/csrc/gather_assembly.cu",
@@ -473,10 +593,7 @@ def phase_times(torch, TA, CH, GA, flat, itf):
         "plain_ms": event_ms(asm_plain, reps=3),
         "library_ms": event_ms(asm_library, reps=3),
     }
-    asm_ops_ms = asm_flops / PEAK_F32_FLOPS * 1e3
-    asm_bytes_ms = asm_bytes / PEAK_BYTES_PER_S * 1e3
-    asm["bound_ms"] = max(asm_ops_ms, asm_bytes_ms)
-    asm["bound_by"] = "operations" if asm_ops_ms >= asm_bytes_ms else "bytes"
+    asm["bound_ms"], asm["bound_by"] = bound(asm_flops, asm_bytes)
     entries.append(asm)
     log(f"times assembly, user half-sweep ({len(buckets)} buckets, "
         f"{rows} rows, nnz {nnz}, nnz_pad {nnz_pad}, "
@@ -503,9 +620,7 @@ def phase_times(torch, TA, CH, GA, flat, itf):
         L = torch.linalg.cholesky(A)
         return torch.cholesky_solve(b[..., None], L)
 
-    # A's lower triangle, all an SPD solve reads of it, b read, x written
-    chol_bytes = lower_triangle_bytes(n, k) + 2 * n * k * 4
-    chol_flops = n * (k ** 3 / 3.0 + 2.0 * k * k)
+    chol_bytes, chol_flops = solve_bytes(n, k), solve_flops(n, k)
     chol = {
         "name": "cholesky_solve_batched", "route": "cuda",
         "source": "flink_ms_tpu_torch/csrc/cholesky_solve.cu",
@@ -515,21 +630,46 @@ def phase_times(torch, TA, CH, GA, flat, itf):
         "plain_ms": event_ms(lambda: CH.cholesky_solve_plain(A, b), reps=3),
         "library_ms": event_ms(chol_library, reps=3),
     }
-    c_ops_ms = chol_flops / PEAK_F32_FLOPS * 1e3
-    c_bytes_ms = chol_bytes / PEAK_BYTES_PER_S * 1e3
-    chol["bound_ms"] = max(c_ops_ms, c_bytes_ms)
-    chol["bound_by"] = "operations" if c_ops_ms >= c_bytes_ms else "bytes"
+    chol["bound_ms"], chol["bound_by"] = bound(chol_flops, chol_bytes)
     entries.insert(0, chol)
     log(f"times cholesky, user half-sweep (n={n}, k={k}, "
         f"{chol_bytes / 1e9:.3f} GB, {chol_flops / 1e9:.2f} GFLOP): kernel "
         f"{chol['ms']:.3f} ms, plain {chol['plain_ms']:.3f} ms, library "
         f"{chol['library_ms']:.3f} ms, bound {chol['bound_ms']:.3f} ms "
         f"({chol['bound_by']})")
+
+    # -- the batch-major entry: one fused-path row chunk of the user side ---
+    C = min(int(FUSED_ENV["FLINK_MS_ALS_ASSEMBLY_CHUNK_BYTES"])
+            // (3 * k * k * 4), n)  # rows per chunk (ops/als.py)
+    Ac, bc = A[:C], b[:C]
+    x_k = CH.cholesky_solve_batched(Ac, bc, layout="batch_major")
+    x_p = CH.cholesky_solve_plain(Ac, bc)
+    torch.cuda.synchronize()
+    check(rel_err(x_k, x_p) <= 1e-4, "batch-major solve off its plain version")
+    bm = {"name": "cholesky_solve_batched[batch_major]", "route": "cuda",
+          "source": "flink_ms_tpu_torch/csrc/cholesky_solve.cu",
+          "replaces": "flink_ms_tpu/ops/cholesky_pallas.py:97",
+          "max_abs_err": (x_k - x_p).abs().max().item(),
+          "ms": event_ms(lambda: CH.cholesky_solve_batched(
+              Ac, bc, layout="batch_major"), reps=10),
+          "plain_ms": event_ms(lambda: CH.cholesky_solve_plain(Ac, bc),
+                               reps=3),
+          "library_ms": event_ms(lambda: torch.cholesky_solve(
+              bc[..., None], torch.linalg.cholesky(Ac)), reps=3)}
+    bm["bound_ms"], bm["bound_by"] = bound(solve_flops(C, k),
+                                           solve_bytes(C, k))
+    entries.insert(1, bm)
+    log(f"times cholesky batch-major entry, one fused-path chunk (n={C}, "
+        f"k={k}): kernel {bm['ms']:.3f} ms, plain {bm['plain_ms']:.3f} ms, "
+        f"library {bm['library_ms']:.3f} ms, bound {bm['bound_ms']:.4f} ms "
+        f"({bm['bound_by']})")
     return entries
 
 
 def item_side_times(torch, TA, CH, GA, flat, uf):
-    """The same two kernels on the item half-sweep (log lines only)."""
+    """The same two kernels on the item half-sweep, with their bounds (log
+    lines only)."""
+    k = RANK
     buckets = [(flat[2 * j], flat[2 * j + 1]) for j in range(len(flat) // 2)]
     ms = event_ms(lambda: [GA.fused_bucket_assembly(uf, i, v)
                            for i, v in buckets], reps=5)
@@ -539,9 +679,17 @@ def item_side_times(torch, TA, CH, GA, flat, uf):
     A.diagonal(dim1=-2, dim2=-1).add_(
         (LAMBDA * flat[-1] + torch.where(flat[-1] > 0, 0.0, 1.0))[:, None])
     chol = event_ms(lambda: CH.cholesky_solve_batched(A, b), reps=10)
-    log(f"times item half-sweep ({len(buckets)} buckets, n={b.shape[0]}): "
-        f"assembly kernel {ms:.3f} ms, plain {plain:.3f} ms; cholesky "
-        f"kernel {chol:.3f} ms")
+    rows = sum(int(i.shape[0]) for i, _ in buckets)
+    nnz = int(flat[-1].double().sum().item())
+    nnz_pad = sum(int(i.numel()) for i, _ in buckets)
+    a_b, a_by = bound(assembly_flops(nnz, k),
+                      assembly_bytes(rows, nnz_pad, uf.numel(), k))
+    c_b, c_by = bound(solve_flops(int(b.shape[0]), k),
+                      solve_bytes(int(b.shape[0]), k))
+    log(f"times item half-sweep ({len(buckets)} buckets, n={b.shape[0]}, "
+        f"nnz {nnz}, nnz_pad {nnz_pad}): assembly kernel {ms:.3f} ms, plain "
+        f"{plain:.3f} ms, bound {a_b:.3f} ms ({a_by}); cholesky kernel "
+        f"{chol:.3f} ms, bound {c_b:.4f} ms ({c_by})")
 
 
 def svm_layout(torch, gen, dev, C, H, L, d):
@@ -739,13 +887,11 @@ def svm_times(torch, SK, main):
 
     def entry(name, source, replaces, err, ms, plain_ms, library_ms, nbytes,
               flops):
-        bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-        ops_ms = flops / PEAK_F32_FLOPS * 1e3
+        bound_ms, bound_by = bound(flops, nbytes)
         e = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "max_abs_err": err, "ms": ms,
-             "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-             "library_ms": library_ms}
+             "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": library_ms}
         log(f"times {name} at the RCV1 shape ({n} entries, "
             f"{nbytes / 1e9:.4f} GB, {flops / 1e6:.1f} MFLOP): kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library "
@@ -839,16 +985,22 @@ def main() -> int:
     runs = main_path(torch, TA, CH, GA, problem, (fit_fn, dev_args),
                      (users, items, ratings), init, dev)
     final = runs["default"]
-    device_busy(torch, "als 1 iteration, default path",
-                lambda: fit_fn(1, *dev_args))
+    names = device_busy(torch, "als 1 iteration, default path",
+                        lambda: fit_fn(1, *dev_args))
+    cats = sorted({n for n in names if n == "aten::cat" or "CatArray" in n})
+    log(f"profile: concatenations in one default-path iteration: {cats}")
+    check(not cats, "the default path still concatenates the buckets' A")
     n_u = 2 * len(problem.u.widths) + 1
     f64_check(torch, TA, GA, dev_args[2:2 + n_u], final["itf"], "user")
     f64_check(torch, TA, GA, dev_args[2 + n_u:], final["uf"], "item")
     entries = phase_times(torch, TA, CH, GA, dev_args[2:2 + n_u], final["itf"])
     item_side_times(torch, TA, CH, GA, dev_args[2 + n_u:], final["uf"])
-    # `launches` is the main path's own count; each path's count beside it
-    for e, key in zip(entries, ("cholesky", "assembly")):
-        e["launches"] = final["launches"][key]
+    # `launches` is the count on the kernel's own path (the batch-major
+    # entry runs on the fused path only); each path's count beside it
+    for e, key, path in zip(entries,
+                            ("cholesky", "cholesky_batch_major", "assembly"),
+                            ("default", "fused", "default")):
+        e["launches"] = runs[path]["launches"][key]
         e["launches_by_path"] = {label: run["launches"][key]
                                  for label, run in runs.items()}
 

@@ -333,7 +333,7 @@ def _assembly_chunk_bytes() -> int:
 
 
 def _bucket_normal_eqs(y_all, idx, val, implicit, alpha, dtype, post=None,
-                       extra=None):
+                       extra=None, out=None):
     """One bucket's (A, b): gather the opposite factors for each row's
     rating list and contract over the rating axis.
 
@@ -347,11 +347,14 @@ def _bucket_normal_eqs(y_all, idx, val, implicit, alpha, dtype, post=None,
     (rows, ...) operand sliced alongside idx/val (the per-slot counts).
     Chunks split the row axis only, so per-row arithmetic is unchanged.
     Every chunk goes through ``fused_bucket_assembly``: the kernel on the
-    card, its plain version on the CPU."""
+    card, its plain version on the CPU.  ``out=(A, b)`` (unfused only):
+    (rows, k, k) and (rows, k) views the chunks are assembled into, and
+    which are returned."""
 
-    def compute(idx_c, val_c, extra_c, in_scan=False):
+    def compute(idx_c, val_c, extra_c, in_scan=False, out_c=None):
         A, b = fused_bucket_assembly(y_all, idx_c, val_c, dtype,
-                                     implicit=implicit, alpha=alpha)
+                                     implicit=implicit, alpha=alpha,
+                                     out=out_c)
         if post is None:
             return A, b
         return post(A, b, extra_c, in_scan=in_scan)
@@ -371,16 +374,21 @@ def _bucket_normal_eqs(y_all, idx, val, implicit, alpha, dtype, post=None,
         row_bytes += 3 * k * k * itemsize
     limit = _assembly_chunk_bytes()
     if r * row_bytes <= limit:
-        return compute(idx, val, extra)
+        return compute(idx, val, extra, out_c=out)
     C = max(min(int(limit // max(row_bytes, 1)), r), 1)
-    outs = [
+    if post is None:
+        if out is None:
+            out = (torch.empty((r, k, k), dtype=dtype, device=y_all.device),
+                   torch.empty((r, k), dtype=dtype, device=y_all.device))
+        for s in range(0, r, C):
+            compute(idx[s:s + C], val[s:s + C], None, in_scan=True,
+                    out_c=(out[0][s:s + C], out[1][s:s + C]))
+        return out
+    return torch.cat([
         compute(idx[s:s + C], val[s:s + C],
                 None if extra is None else extra[s:s + C], in_scan=True)
         for s in range(0, r, C)
-    ]
-    if post is not None:
-        return torch.cat(outs)
-    return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+    ])
 
 
 def _assemble_normal_eqs(y_all, buckets, implicit, alpha, dtype):
@@ -390,18 +398,23 @@ def _assemble_normal_eqs(y_all, buckets, implicit, alpha, dtype):
     buckets: list of (idx, val) with shapes (rows_j, w_j), rows covering
              contiguous slot ranges
     returns A (per_block, k, k), b (per_block, k) in slot order, the last
-    slot (the block's dummy) a zero system."""
-    As, bs = [], []
-    for idx, val in buckets:
-        A, b = _bucket_normal_eqs(y_all, idx, val, implicit, alpha, dtype)
-        As.append(A)
-        bs.append(b)
+    slot (the block's dummy) a zero system.  Each bucket is assembled
+    straight into its rows of the two tensors, so no copy joins them."""
     k = y_all.shape[1]
+    n = sum(int(idx.shape[0]) for idx, _ in buckets) + 1
+    A = torch.empty((n, k, k), dtype=dtype, device=y_all.device)
+    b = torch.empty((n, k), dtype=dtype, device=y_all.device)
+    off = 0
+    for idx, val in buckets:
+        rows = int(idx.shape[0])
+        _bucket_normal_eqs(y_all, idx, val, implicit, alpha, dtype,
+                           out=(A[off:off + rows], b[off:off + rows]))
+        off += rows
     # one zero system for the guaranteed dummy last slot; count==0
     # regularization keeps it PD and the solve masks its result to zero
-    As.append(torch.zeros((1, k, k), dtype=dtype, device=y_all.device))
-    bs.append(torch.zeros((1, k), dtype=dtype, device=y_all.device))
-    return torch.cat(As), torch.cat(bs)
+    A[-1].zero_()
+    b[-1].zero_()
+    return A, b
 
 
 def _fused_solve() -> bool:

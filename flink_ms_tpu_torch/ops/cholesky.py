@@ -6,7 +6,10 @@ kernels, ``_solve_kernel`` (lane-major operands, ``:40``) and
 operand layout was a concern of the TPU's lanes.  On Hopper both are one
 CUDA kernel on batch-major operands, ``csrc/cholesky_solve.cu``, and
 ``layout`` stays an argument so that both call sites of the reference (the
-straight-line solve and the fused per-chunk solve) keep their shape.
+straight-line solve and the fused per-chunk solve) keep their shape.  Up to
+k = 64 a warp holds its system in registers at k padded to a multiple of 4
+while the next one streams into shared memory; wider systems are factored
+in shared memory (``solve_plan``).
 
 ``cholesky_solve_batched`` launches the kernel for CUDA tensors and runs
 ``cholesky_solve_plain`` for CPU tensors; nothing falls back from one to
@@ -23,8 +26,19 @@ from . import _build
 
 LAYOUTS = ("lane_major", "batch_major")
 MAX_K = 128
+MAX_REG_K = 64      # widest system the register path holds
+
+
+def solve_plan(k: int) -> int:
+    """The kernel's padded width for k: the register path's KP (k rounded
+    up to a multiple of 4, one template per KP), or 0 for the
+    shared-memory path above k = 64."""
+    if not (1 <= k <= MAX_K):
+        raise ValueError(f"the CUDA solve takes 1 <= k <= {MAX_K}, got {k}")
+    return 0 if k > MAX_REG_K else -(-k // 4) * 4
 
 LAUNCHES = 0  # kernel launches made by cholesky_solve_batched
+BATCH_MAJOR_LAUNCHES = 0  # of them, through the batch-major entry
 
 
 def cholesky_solve_plain(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -87,16 +101,15 @@ def cholesky_solve_batched(A: torch.Tensor, b: torch.Tensor,
         return cholesky_solve_plain(A, b)
     if A.device.type != "cuda":
         raise ValueError(f"unsupported device {A.device}")
-    return _launch(A, b)
+    return _launch(A, b, layout)
 
 
-def _launch(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    global LAUNCHES
+def _launch(A: torch.Tensor, b: torch.Tensor, layout) -> torch.Tensor:
+    global LAUNCHES, BATCH_MAJOR_LAUNCHES
     n, k = b.shape
     if A.dtype != torch.float32:
         raise TypeError(f"the CUDA solve takes float32, got {A.dtype}")
-    if not (1 <= k <= MAX_K):
-        raise ValueError(f"the CUDA solve takes 1 <= k <= {MAX_K}, got {k}")
+    kp = solve_plan(k)
     if not (A.is_contiguous() and b.is_contiguous()):
         raise ValueError("the CUDA solve takes contiguous A and b")
     x = torch.empty_like(b)
@@ -106,11 +119,12 @@ def _launch(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
         err = lib.cholesky_solve_f32(A.data_ptr(), b.data_ptr(),
-                                     x.data_ptr(), n, k, stream)
+                                     x.data_ptr(), n, k, kp, stream)
     if err != 0:
         raise RuntimeError(f"cholesky_solve_f32 launch failed: CUDA error "
                            f"{err} (n={n}, k={k})")
     LAUNCHES += 1
+    BATCH_MAJOR_LAUNCHES += int(layout == "batch_major")
     return x
 
 
@@ -120,7 +134,7 @@ def _library() -> ctypes.CDLL:
     # would pass as a 32-bit int and cut the pointer
     lib.cholesky_solve_f32.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.cholesky_solve_f32.restype = ctypes.c_int
     return lib

@@ -261,3 +261,36 @@ def test_resolve_exchange():
     assert TA.resolve_exchange("bfloat16") is torch.bfloat16
     with pytest.raises(ValueError):
         TA.resolve_exchange("int8")
+
+
+@pytest.mark.parametrize("chunk_bytes", [None, "1500"])
+@pytest.mark.parametrize("implicit", [False, True])
+def test_assemble_normal_eqs_fills_one_tensor(rng, monkeypatch, chunk_bytes,
+                                              implicit):
+    """Every bucket is assembled straight into its rows of one
+    (per_block, k, k) system tensor, chunked or not, with no torch.cat:
+    the result equals the buckets' own assemblies joined, the zero dummy
+    system last."""
+    if chunk_bytes:
+        monkeypatch.setenv("FLINK_MS_ALS_ASSEMBLY_CHUNK_BYTES", chunk_bytes)
+    u, i, r = _low_rank(rng)
+    problem = TA.prepare_blocked(u, i, r, 1)
+    y = torch.from_numpy(rng.normal(size=(problem.i.per_block, 4))
+                         .astype(np.float32))
+    y[-1] = 0.0
+    buckets = [(torch.from_numpy(problem.u.idx[j][0]),
+                torch.from_numpy(problem.u.val[j][0].astype(np.float32)))
+               for j in range(len(problem.u.widths))]
+    parts = [TA.fused_bucket_assembly(y, idx, val, implicit=implicit,
+                                      alpha=2.0) for idx, val in buckets]
+    want_A = torch.cat([p[0] for p in parts] + [torch.zeros(1, 4, 4)])
+    want_b = torch.cat([p[1] for p in parts] + [torch.zeros(1, 4)])
+
+    def no_cat(*args, **kwargs):
+        raise AssertionError("torch.cat joined the buckets")
+
+    monkeypatch.setattr(TA.torch, "cat", no_cat)
+    A, b = TA._assemble_normal_eqs(y, buckets, implicit, 2.0, torch.float32)
+    assert A.shape == (problem.u.per_block, 4, 4)
+    assert torch.equal(A, want_A) and torch.equal(b, want_b)
+    assert torch.equal(A[-1], torch.zeros(4, 4))

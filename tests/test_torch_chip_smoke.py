@@ -50,3 +50,16 @@ def test_synth_rcv1_equals_the_bench_copy():
     for name in ("labels", "indptr", "indices", "values"):
         assert np.array_equal(getattr(got, name), getattr(want, name)), name
     assert got.n_features == want.n_features == 300
+
+
+def test_bounds_of_the_ml20m_user_half_sweep():
+    # PERF.md's bounds of the user half-sweep: the assembly by its 53.0
+    # GFLOP, the solve by the 0.928 GB of its lower triangles, b and x
+    k = 50
+    asm_ms, asm_by = chip_smoke.bound(
+        chip_smoke.assembly_flops(20_000_000, k),
+        chip_smoke.assembly_bytes(138_493, 24_836_712, 26_745 * k, k))
+    sol_ms, sol_by = chip_smoke.bound(chip_smoke.solve_flops(138_494, k),
+                                      chip_smoke.solve_bytes(138_494, k))
+    assert asm_by == "operations" and 0.790 < asm_ms < 0.792
+    assert sol_by == "bytes" and 0.276 < sol_ms < 0.278

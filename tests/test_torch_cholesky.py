@@ -74,3 +74,18 @@ def test_wrapper_rejects_bad_arguments(rng, bad):
         b = b.double()
     with pytest.raises(ValueError):
         CH.cholesky_solve_batched(A, b, **kwargs)
+
+
+def test_solve_plan_for_every_k():
+    """Up to k = 64 the register path at k padded to a multiple of 4 (the
+    kernel's templates run KP = 4, 8, ..., 64); wider systems the
+    shared-memory path."""
+    for k in range(1, CH.MAX_K + 1):
+        kp = CH.solve_plan(k)
+        if k <= CH.MAX_REG_K:
+            assert kp % 4 == 0 and k <= kp < k + 4 and kp <= 64
+        else:
+            assert kp == 0
+    assert CH.solve_plan(50) == 52
+    with pytest.raises(ValueError):
+        CH.solve_plan(0)

@@ -104,3 +104,75 @@ def test_wrapper_rejects_bad_arguments(rng):
         GA.fused_bucket_assembly(y, idx.float(), val)
     with pytest.raises(ValueError, match="expected"):
         GA.fused_bucket_assembly(y, idx, val[:, :3])
+
+
+@pytest.mark.parametrize("implicit", [False, True])
+def test_out_views_are_filled_in_place(rng, implicit):
+    y, idx, val = _torch_args(*_bucket(rng, torch.float32), torch.float32)
+    want_A, want_b = GA.bucket_assembly_plain(y, idx, val, implicit=implicit)
+    A = torch.full((R + 5, K, K), float("nan"))
+    b = torch.full((R + 5, K), float("nan"))
+    views = (A[3:3 + R], b[3:3 + R])  # a non-zero row offset
+    got = GA.fused_bucket_assembly(y, idx, val, implicit=implicit, out=views)
+    assert got[0].data_ptr() == views[0].data_ptr()
+    assert torch.equal(A[3:3 + R], want_A) and torch.equal(b[3:3 + R], want_b)
+    # rows outside the views are untouched
+    assert torch.isnan(A[:3]).all() and torch.isnan(A[3 + R:]).all()
+    assert torch.isnan(b[:3]).all() and torch.isnan(b[3 + R:]).all()
+
+
+def test_out_views_are_checked(rng):
+    y, idx, val = _torch_args(*_bucket(rng, torch.float32), torch.float32)
+    A, b = torch.empty(R, K, K), torch.empty(R, K)
+    with pytest.raises(ValueError, match="out must be"):
+        GA.fused_bucket_assembly(y, idx, val, out=(A[1:], b[1:]))
+    with pytest.raises(TypeError, match="out must be"):
+        GA.fused_bucket_assembly(y, idx, val, out=(A.double(), b))
+    with pytest.raises(ValueError, match="contiguous"):
+        GA.fused_bucket_assembly(y, idx, val,
+                                 out=(A.transpose(1, 2), b))
+
+
+@pytest.mark.parametrize("esize", [4, 2])
+def test_assembly_plan_for_every_k(esize):
+    """The kernel's launch plan for each width it takes: every register
+    tile has a thread, groups tile a warp or are whole warps, and a block
+    stays within the kernel's launch bounds and the card's shared
+    memory."""
+    for k in range(1, GA.MAX_K + 1):
+        plan = GA.assembly_plan(k, esize)
+        assert plan.ts in GA.TILE_SIZES
+        assert GA.tile_count(k, plan.ts) <= plan.g
+        assert plan.g in (8, 16) or plan.g % 32 == 0
+        assert plan.g > 32 or 32 % plan.g == 0
+        assert plan.rows_per_block * plan.g <= (
+            GA.MAX_THREADS if plan.ts == 4 else GA.BLOCK_THREADS)
+        assert plan.smem_bytes == plan.rows_per_block * \
+            GA.group_smem_bytes(k, plan.ts, esize)
+        assert plan.smem_bytes <= GA.SMEM_LIMIT
+    # the main path's width: 10 x 10 tiles, two rows per warp
+    assert GA.assembly_plan(50, 4) == GA.AssemblyPlan(
+        ts=10, g=16, rows_per_block=8,
+        smem_bytes=8 * GA.group_smem_bytes(50, 10, 4))
+    with pytest.raises(ValueError):
+        GA.assembly_plan(129)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,ts", [(1, 4), (7, 4), (50, 10), (64, 10),
+                                  (33, 8), (128, 10)])
+def test_slot_table_layout(rng, k, ts, dtype):
+    """Each row of the kernel's table: ceil(k/ts) tiles of ts elements,
+    each padded with zeros to a 16-byte slot, rows whole 16-byte pieces."""
+    y = torch.from_numpy(rng.standard_normal((9, k)).astype(np.float32))
+    y = y.to(dtype)
+    got = GA.slot_table(y, ts)
+    slot = GA.slot_elems(ts, y.element_size())
+    nt = -(-k // ts)
+    assert got.shape == (9, nt * slot) and got.dtype == dtype
+    assert (got.shape[1] * y.element_size()) % 16 == 0
+    assert slot >= ts and (slot * y.element_size()) % 16 == 0
+    tiles = got.view(9, nt, slot)
+    assert torch.equal(tiles[:, :, :ts].reshape(9, nt * ts)[:, :k], y)
+    assert not tiles[:, :, ts:].any()
+    assert not tiles[:, :, :ts].reshape(9, nt * ts)[:, k:].any()
