@@ -9,7 +9,7 @@ Run from the repository root, on a machine with one CUDA card:
 Phases, each printing lines of its own (``[smoke] ...``):
 
 1. card   — ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build  — all four CUDA kernels built by nvcc from
+2. build  — all four CUDA sources built by nvcc from
             ``flink_ms_tpu_torch/csrc``, in parallel;
 3. checks — each ALS kernel held against its plain torch version on the card:
             the batched Cholesky solve for k in {1,3,8,16,50,64,100,128} at
@@ -36,16 +36,21 @@ Phases, each printing lines of its own (``[smoke] ...``):
             solve and the assembly on the user half-sweep, the solve's
             batch-major entry on one fused-path chunk, and both kernels on
             the item half-sweep with their bounds;
-6. SVM checks — the margin gather and the Δw scatter-add against their
-            plain versions: at the RCV1 shape, at ragged shapes (L = 1,
-            L = 33, row counts off the block, duplicate ids, zero pads), and
-            the scatter-add through both of its branches (RCV1's d in shared
-            memory, news20.binary's d = 1,355,191 in device memory);
+6. SVM checks — the margin gather and the Δw scatter-add, in its plain
+            form and its row-scale form, against their plain versions: at
+            the RCV1 shape and at ragged ones (L in {1, 2, 3, 5, 33, 70,
+            71}, row counts off every tile and stage, duplicate ids, zero
+            pads, rows all padding, indices outside [0, d), views off the
+            16-byte grid), and both kernels through both of their branches
+            (d at the shared-memory limit and one above it, RCV1's d in
+            shared memory, news20.binary's d = 1,355,191 in device
+            memory);
 7. SVM main — CoCoA training at the RCV1 shape of ``bench_sections.py``
             (700,000 x 47,236, 70 nnz per row, 5% label flips, K 8,192,
             86 local steps, add mode, sigma' 8, lambda 1e-4) on the gram
-            engine through both kernels: sec/round (1 vs 10 rounds, median
-            of 3), set-up seconds, the hinge+reg objective after 1 and 10
+            engine through both kernels (the scatter-add in its row-scale
+            form): sec/round (1 vs 10 rounds, median of 3), set-up
+            seconds, the hinge+reg objective after 1 and 10
             rounds of ``svm_fit``, each kernel's launch count on that
             path alone, and two rounds under torch.profiler for the
             device's idle share;
@@ -53,7 +58,9 @@ Phases, each printing lines of its own (``[smoke] ...``):
             kernels) against the scatter engine (no kernel), and a
             4 + 3 + 3-round segmented fit against a 10-round one;
 9. SVM times — each SVM kernel at the RCV1 shape beside its bound, its
-            plain version and a library yardstick.
+            plain version and a library yardstick: the margin gather, the
+            scatter-add on a materialised contribution and in its
+            row-scale form, and the elementwise pass that form replaces.
 
 It then prints one JSON line of the kernels, the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero, and
@@ -147,10 +154,11 @@ def margin_gather_bytes(rows: int, L: int, d: int) -> int:
     return rows * L * 8 + d * 4 + rows * 4
 
 
-def scatter_add_bytes(n: int, d: int) -> int:
-    """Bytes the Δw scatter-add must move: int32 idx and f32 contrib of
-    every entry read once, the f32 (d,) sum written once."""
-    return n * 8 + d * 4
+def scatter_add_bytes(n: int, d: int, scale_rows: int = 0) -> int:
+    """Bytes the Δw scatter-add must move: int32 idx and f32 values of
+    every entry read once, the f32 row scale of each of `scale_rows` rows
+    read once (the row_scale form), the f32 (d,) sum written once."""
+    return n * 8 + scale_rows * 4 + d * 4
 
 
 def lower_triangle_bytes(n: int, k: int) -> int:
@@ -218,8 +226,11 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def event_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Median device time of ``fn()`` in ms, one CUDA event pair per call."""
+def event_ms(fn, reps: int, warmup: int = 1, calls: int = 1) -> float:
+    """Median device time of ``fn()`` in ms: one CUDA event pair around
+    `calls` calls back to back, over `calls`.  With calls = 1 the time
+    includes the host's work between the events when that outlasts the
+    device's; a run of calls lets the host queue ahead of the device."""
     import torch
 
     for _ in range(warmup):
@@ -229,10 +240,11 @@ def event_ms(fn, reps: int, warmup: int = 1) -> float:
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
-        fn()
+        for _ in range(calls):
+            fn()
         t1.record()
         t1.synchronize()
-        times.append(t0.elapsed_time(t1))
+        times.append(t0.elapsed_time(t1) / calls)
     return float(np.median(times))
 
 
@@ -709,45 +721,79 @@ def svm_layout(torch, gen, dev, C, H, L, d):
     return w, idx, val
 
 
+def at_offset(torch, t, offset):
+    """A contiguous copy of t that starts `offset` elements into its
+    allocation, off the 16-byte grid for offset % 4 != 0."""
+    if not offset:
+        return t
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def svm_checks(torch, SK, dev):
-    """Phase 6: both SVM kernels against their plain versions."""
+    """Phase 6: both SVM kernels, and the scatter-add in both its forms
+    (values alone, values with a row scale), against their plain versions.
+    Every shape has rows whose slots are all padding and indices outside
+    [0, d) (the kernels skip them; the plain versions, which cannot take
+    them, get id 0 and value 0 there)."""
     gen = torch.Generator(device=dev).manual_seed(3)
     max_d = SK.scatter_shared_max_d(dev)
-    log(f"svm scatter-add: shared-memory branch up to d = {max_d}")
+    log(f"svm scatter-add and margin gather: shared-memory branch up to "
+        f"d = {max_d}")
     check(SVM_D <= max_d < NEWS20_D,
           f"d = {SVM_D} must take the shared branch and d = {NEWS20_D} the "
           f"global one; the shared branch ends at {max_d}")
     rows_pb = -(-SVM_N // SVM_K)
-    # (C, H, L, d): the RCV1 shape, then ragged ones: one slot per row,
-    # L = 33, row counts off the 8-row block, a single row
-    margin_shapes = [(SVM_K, rows_pb, SVM_NNZ, SVM_D), (5, 37, 1, 11),
-                     (7, 13, 33, 1000), (1001, 3, 70, SVM_D), (1, 1, 70, 300),
-                     (3, 5, 2, 3)]
-    for C, H, L, d in margin_shapes:
+    # (C, H, L, d, offsets of idx and val): the RCV1 shape; 259 rows (off
+    # every tile of 64 or 128 rows, and the last tile's lines ragged) at
+    # each L;
+    # rows off the tile at RCV1's L and d; a single row; 96,320 entries
+    # into 64 bins (contended); d at the shared limit and one above it;
+    # news20.binary's d; views off the 16-byte grid, idx and val alike and
+    # idx alone
+    shapes = [(SVM_K, rows_pb, SVM_NNZ, SVM_D, 0, 0)]
+    shapes += [(7, 37, L, 1000, 0, 0) for L in (1, 2, 3, 5, 33, 70, 71)]
+    shapes += [(1001, 3, 70, SVM_D, 0, 0), (1, 1, 70, 300, 0, 0),
+               (3, 5, 2, 3, 0, 0), (16, 86, 70, 64, 0, 0),
+               (5, 37, 71, max_d, 0, 0), (5, 37, 33, max_d + 1, 0, 0),
+               (2000, 86, 70, NEWS20_D, 0, 0), (9, 11, 33, NEWS20_D, 0, 0),
+               (7, 37, 70, 1000, 1, 1), (7, 37, 5, 1000, 1, 0),
+               (5, 37, 3, max_d + 1, 1, 1), (5, 37, 70, max_d + 1, 2, 0)]
+    worst = 0.0
+    for C, H, L, d, oi, ov in shapes:
         w, idx, val = svm_layout(torch, gen, dev, C, H, L, d)
-        got = SK.margin_gather(w, idx, val)
-        torch.cuda.synchronize()
-        rel = rel_err(got, SK.margin_gather_plain(w, idx, val))
-        log(f"check margin_gather C={C} H={H} L={L} d={d}: kernel vs plain "
-            f"{rel:.3e} (limit 1e-5 of max|out|)")
-        check(bool(torch.isfinite(got).all()) and rel <= 1e-5,
-              f"margin_gather C={C} H={H} L={L} d={d} off its plain version")
-    # (C, H, L, d): RCV1 (shared), ragged small ones (shared), 96,320
-    # entries into 64 bins (contended), news20's d at a reduced n (global)
-    scatter_shapes = [(SVM_K, rows_pb, SVM_NNZ, SVM_D), (5, 37, 1, 11),
-                      (7, 13, 33, 1000), (16, 86, 70, 64),
-                      (2000, 86, 70, NEWS20_D),
-                      (9, 11, 33, NEWS20_D)]
-    for C, H, L, d in scatter_shapes:
-        _, idx, contrib = svm_layout(torch, gen, dev, C, H, L, d)
-        got = SK.scatter_add_dw(idx, contrib, d)
-        torch.cuda.synchronize()
-        rel = rel_err(got, SK.scatter_add_plain(idx, contrib, d))
+        idx[0] = 0  # chain 0: every row padding
+        val[0] = 0.0
+        idx[-1, 0, 0] = d + 5
+        idx[-1, -1, -1] = -3
+        scale = torch.randn((C, H), generator=gen, device=dev)
+        outside = (idx < 0) | (idx >= d)
+        idx_p = torch.where(outside, 0, idx)
+        val_p = torch.where(outside, 0.0, val)
+        idx, val = at_offset(torch, idx, oi), at_offset(torch, val, ov)
         branch = "shared" if d <= max_d else "global"
-        log(f"check scatter_add_dw C={C} H={H} L={L} d={d} ({branch} "
-            f"branch): kernel vs plain {rel:.3e} (limit 1e-5 of max|out|)")
-        check(bool(torch.isfinite(got).all()) and rel <= 1e-5,
-              f"scatter_add_dw C={C} H={H} L={L} d={d} off its plain version")
+        runs = (("margin_gather", SK.margin_gather(w, idx, val),
+                 SK.margin_gather_plain(w, idx_p, val_p)),
+                ("scatter_add_dw", SK.scatter_add_dw(idx, val, d),
+                 SK.scatter_add_plain(idx_p, val_p, d)),
+                ("scatter_add_dw[row_scale]",
+                 SK.scatter_add_dw(idx, val, d, row_scale=scale),
+                 SK.scatter_add_plain(idx_p, val_p, d, scale)))
+        torch.cuda.synchronize()
+        errs = []
+        for name, got, want in runs:
+            rel = rel_err(got, want)
+            worst = max(worst, rel)
+            errs.append(f"{name} {rel:.3e}")
+            check(bool(torch.isfinite(got).all()) and rel <= 1e-5,
+                  f"{name} C={C} H={H} L={L} d={d} offsets ({oi}, {ov}) "
+                  f"off its plain version: {rel:.3e}")
+        log(f"check svm C={C} H={H} L={L} d={d} ({branch} branch, offsets "
+            f"{oi}, {ov}): kernel vs plain " + ", ".join(errs)
+            + " (limit 1e-5 of max|out|)")
+    log(f"check svm: {len(shapes)} shapes, max rel err {worst:.3e}")
 
 
 def time_rounds(torch, fit, dev_args, rounds, repeats=3):
@@ -824,16 +870,19 @@ def svm_main(torch, TS, SK, dev):
         f"alone {gram_s:.3f}s; hinge+reg objective after 1 and "
         f"{SVM_ROUNDS} rounds {objs}; launches over {ran} rounds: "
         f"margin_gather {launches['margin_gather']}, scatter_add_dw "
-        f"{launches['scatter_add_dw']}")
+        f"{launches['scatter_add_dw']} (with a row scale "
+        f"{launches['scatter_add_dw[row_scale]']})")
     check(all(np.isfinite(objs)) and objs[1] < 1.0 and objs[1] < objs[0],
           f"objective not finite, below 1.0 and falling: {objs}")
     ref_gap = abs(objs[1] - SVM_REF_OBJECTIVE) / SVM_REF_OBJECTIVE
     log(f"svm objective after {SVM_ROUNDS} rounds vs the JAX package's "
         f"{SVM_REF_OBJECTIVE}: relative gap {ref_gap:.3e} (limit 1e-2)")
     check(ref_gap <= 1e-2, "the objective is off the JAX package's")
-    check(launches == {"margin_gather": ran, "scatter_add_dw": ran},
+    # every scatter-add of the path takes the round's Δα as its row scale
+    check(launches == {"margin_gather": ran, "scatter_add_dw": ran,
+                       "scatter_add_dw[row_scale]": ran},
           f"{launches} launches for {ran} rounds; expected one of each per "
-          f"round")
+          f"round, every scatter-add with its row scale")
     device_busy(torch, "svm 2 rounds", lambda: fit(2, *dev_args))
     w, alpha = fit(SVM_ROUNDS, *dev_args)
     return launches, {"sec_per_round": sec, "objective": objs,
@@ -885,18 +934,26 @@ def svm_times(torch, SK, main):
     rows, n, d = C * H, idx.numel(), w.numel()
     entries = []
 
+    def kernel_ms(fn):
+        """(device ms over runs of 10 calls, ms with one event pair per
+        call: the wrapper's host work included where it outlasts the
+        kernel)."""
+        return event_ms(fn, reps=5, calls=10), event_ms(fn, reps=20)
+
     def entry(name, source, replaces, err, ms, plain_ms, library_ms, nbytes,
               flops):
         bound_ms, bound_by = bound(flops, nbytes)
+        ms, per_call = ms
         e = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "max_abs_err": err, "ms": ms,
              "plain_ms": plain_ms, "bound_ms": bound_ms,
              "bound_by": bound_by, "library_ms": library_ms}
+        library = "none" if library_ms is None else f"{library_ms:.4f} ms"
         log(f"times {name} at the RCV1 shape ({n} entries, "
             f"{nbytes / 1e9:.4f} GB, {flops / 1e6:.1f} MFLOP): kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-            f"{library_ms:.4f} ms, bound {e['bound_ms']:.4f} ms "
-            f"({e['bound_by']})")
+            f"{ms:.4f} ms ({ms / bound_ms:.2f}x bound; one call per event "
+            f"pair {per_call:.4f} ms), plain {plain_ms:.4f} ms, library "
+            f"{library}, bound {bound_ms:.4f} ms ({bound_by})")
         entries.append(e)
 
     def library_margin():
@@ -913,7 +970,7 @@ def svm_times(torch, SK, main):
     entry("margin_gather", "flink_ms_tpu_torch/csrc/svm_margin_gather.cu",
           "flink_ms_tpu/ops/svm_kernels.py:44",
           (got - want).abs().max().item(),
-          event_ms(lambda: SK.margin_gather(w, idx, val), reps=20),
+          kernel_ms(lambda: SK.margin_gather(w, idx, val)),
           event_ms(lambda: SK.margin_gather_plain(w, idx, val), reps=5),
           event_ms(library_margin, reps=5),
           margin_gather_bytes(rows, L, d), 2 * n)
@@ -930,8 +987,29 @@ def svm_times(torch, SK, main):
     entry("scatter_add_dw", "flink_ms_tpu_torch/csrc/svm_scatter_add.cu",
           "flink_ms_tpu/ops/svm_kernels.py:86",
           (got - want).abs().max().item(),
-          event_ms(lambda: SK.scatter_add_dw(idx, contrib, d), reps=20),
+          kernel_ms(lambda: SK.scatter_add_dw(idx, contrib, d)),
           plain_ms, plain_ms, scatter_add_bytes(n, d), n)
+    contrib_ms = entries[-1]["ms"]
+    del got, want, contrib
+
+    # the gram engine's form: the values and the (C, H) Δα; no one torch
+    # call scatter-adds a product, so it has no library yardstick
+    got = SK.scatter_add_dw(idx, val, d, row_scale=alpha)
+    want = SK.scatter_add_plain(idx, val, d, alpha)
+    torch.cuda.synchronize()
+    entry("scatter_add_dw[row_scale]",
+          "flink_ms_tpu_torch/csrc/svm_scatter_add.cu",
+          "flink_ms_tpu/ops/svm_kernels.py:86",
+          (got - want).abs().max().item(),
+          kernel_ms(lambda: SK.scatter_add_dw(idx, val, d, row_scale=alpha)),
+          event_ms(lambda: SK.scatter_add_plain(idx, val, d, alpha), reps=5),
+          None, scatter_add_bytes(n, d, rows), 2 * n)
+    del got, want
+    mul_ms = event_ms(lambda: val * alpha[:, :, None], reps=5, calls=10)
+    log(f"times the round's Δw at the RCV1 shape: the elementwise pass val * "
+        f"alpha[:, :, None] the row-scale form replaces {mul_ms:.4f} ms, "
+        f"with the contrib form's kernel {mul_ms + contrib_ms:.4f} ms; the "
+        f"row-scale form alone {entries[-1]['ms']:.4f} ms")
     return entries
 
 

@@ -3,66 +3,166 @@
 //
 // Replaces the Pallas TPU kernel scatter_add_dw in
 // flink_ms_tpu/ops/svm_kernels.py.  For n entries (the C chains x H rows x
-// L slots, flattened) with feature idx[e] and contribution contrib[e] =
-// val[e] * dalpha[row of e]:
-//   out[f] = sum over e with idx[e] == f of contrib[e]
-// in f32 (the caller divides by lambda * n).  Pad slots carry contrib 0;
-// an index outside [0, d) adds nothing.
+// L slots, flattened) with feature idx[e] and value vals[e]:
+//   out[f] = sum over e with idx[e] == f of vals[e] * row_scale[e / L]
+// in f32 (the caller divides by lambda * n).  With row_scale null each
+// entry adds vals[e] itself, which is the TPU kernel's function; the gram
+// engine passes the (C, H, L) values and the (C, H) dalpha, and each
+// product is the same f32 product that val * dalpha[:, :, None] forms, so
+// the (C, H, L) contribution never reaches device memory.  Pad slots carry
+// value 0; an index outside [0, d) adds nothing.
 //
-// What bounds it on an H100: bytes.  idx and contrib are read once (197 MB
+// What bounds it on an H100: bytes.  idx and vals are read once (197 MB
 // each at the RCV1 shape, 49,315,840 entries), against one add per entry;
-// at 3.35 TB/s about 0.12 ms, and the (d,) output adds little.
+// at 3.35 TB/s about 0.12 ms, and the (C, H) row_scale and the (d,) output
+// add little.
 //
 // What the design does about it: the TPU kernel accumulates into a
 // VMEM-resident (d,) buffer across sequential grid steps.  Blocks on the
 // card run in no order, so the sum across blocks needs atomics.  When the
 // whole (d,) accumulator fits a block's opt-in shared memory (227 KB on an
-// H100, so d up to about 58,000; RCV1's 47,236 features take 189 KB), each
-// block zeroes a private copy in shared memory, folds a grid-stride share of
-// the entries into it with shared-memory atomics (coalesced loads of idx
-// and contrib, random bins that rarely collide), then adds its non-zero
-// bins to out with one global atomic each.  Above that size each entry goes
-// to out with a global atomic, which the 50 MB L2 absorbs.  Both branches
-// are in this file; the choice follows d and the device's shared memory.
-// The sum order, and so the last bits of out, change from run to run.
+// H100, so d up to 58,112; RCV1's 47,236 features take 189 KB), one
+// 1,024-thread block per SM zeroes a private copy in shared memory, folds
+// a grid-stride share of the entries into it with shared-memory atomics,
+// then adds its non-zero bins to out (zeroed first) with one global atomic
+// each.  The shared-memory atomics alone take most of the bound (random
+// bins, one block per SM), so the stream must hide behind them: each
+// thread loads a 16-byte vector of idx and one of vals per step
+// (streaming, evict-first), the next step's before this step's atomics,
+// so 32 KB per SM are in flight while the atomics run; a scalar head and
+// tail take the entries off the 16-byte grid.  With a row scale, each
+// vector's row comes from one division and then counts on across its four
+// entries, and the scale is read through L1.
+// Above the shared-memory limit each entry goes to out with a global
+// atomic, which the 50 MB L2 absorbs.  Both branches are in this file; the
+// host's plan (ops/svm_kernels.py scatter_plan) picks one from d and the
+// device's shared memory.  The sum order, and so the last bits of out,
+// change from run to run.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kSharedThreads = 1024;
 constexpr int kGlobalThreads = 256;
+constexpr int kUnroll = 1;  // 16-byte vectors of each array per thread per step
 
-__global__ void __launch_bounds__(kSharedThreads)
-scatter_add_shared_kernel(const int* __restrict__ idx,
-                          const float* __restrict__ contrib, long long n,
-                          int d, float* __restrict__ out) {
-  extern __shared__ float acc[];
-  for (int f = threadIdx.x; f < d; f += blockDim.x) acc[f] = 0.f;
-  __syncthreads();
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < n;
-       e += stride) {
-    const int f = idx[e];
-    if (f >= 0 && f < d) atomicAdd(&acc[f], contrib[e]);
+// e / L, exact: a double reciprocal, then one correction step
+__device__ __forceinline__ long long row_of(long long e, int L, double inv_L) {
+  long long r = (long long)((double)e * inv_L);
+  if (r * L > e) --r;
+  else if ((r + 1) * L <= e) ++r;
+  return r;
+}
+
+// The entries [0, n) of idx and vals split over G threads (this one is g),
+// each handed to add(feature, contribution).  `head` entries come before
+// the first 16-byte vector of both arrays (n when their alignments differ:
+// then every entry is loaded alone).
+template <bool kScaled, class Add>
+__device__ __forceinline__ void for_each_entry(
+    const int* __restrict__ idx, const float* __restrict__ vals,
+    const float* __restrict__ scale, long long n, int L, double inv_L,
+    long long head, long long g, long long G, Add add) {
+  auto scalar = [&](long long e) {
+    float v = __ldcs(vals + e);
+    if (kScaled) v *= __ldg(scale + row_of(e, L, inv_L));
+    add(__ldcs(idx + e), v);
+  };
+  for (long long e = g; e < head; e += G) scalar(e);
+  const long long nv = (n - head) / 4;
+  const int4* iv = reinterpret_cast<const int4*>(idx + head);
+  const float4* vv = reinterpret_cast<const float4*>(vals + head);
+  auto load = [&](long long v0, int4* a, float4* b) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long v = v0 + u * G;
+      if (v < nv) {
+        a[u] = __ldcs(iv + v);
+        b[u] = __ldcs(vv + v);
+      }
+    }
+  };
+  // the next step's vectors are loaded before this step's adds
+  int4 a[kUnroll] = {};
+  float4 b[kUnroll] = {};
+  load(g, a, b);
+  for (long long v0 = g; v0 < nv; v0 += G * kUnroll) {
+    int4 na[kUnroll] = {};
+    float4 nb[kUnroll] = {};
+    load(v0 + G * kUnroll, na, nb);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long v = v0 + u * G;
+      if (v >= nv) break;
+      float c[4] = {b[u].x, b[u].y, b[u].z, b[u].w};
+      if (kScaled) {
+        const long long e0 = head + 4 * v;
+        long long r = row_of(e0, L, inv_L);
+        int m = (int)(e0 - r * L);
+        float s = __ldg(scale + r);
+        c[0] *= s;
+#pragma unroll
+        for (int q = 1; q < 4; ++q) {
+          if (++m == L) {
+            m = 0;
+            s = __ldg(scale + ++r);
+          }
+          c[q] *= s;
+        }
+      }
+      add(a[u].x, c[0]);
+      add(a[u].y, c[1]);
+      add(a[u].z, c[2]);
+      add(a[u].w, c[3]);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      a[u] = na[u];
+      b[u] = nb[u];
+    }
   }
+  for (long long e = head + 4 * nv + g; e < n; e += G) scalar(e);
+}
+
+// d bins in shared memory, added to out (zeroed) when the block is done
+template <bool kScaled>
+__global__ void __launch_bounds__(kSharedThreads, 1)
+scatter_add_shared_kernel(const int* __restrict__ idx,
+                          const float* __restrict__ vals,
+                          const float* __restrict__ scale, long long n, int L,
+                          double inv_L, long long head, int d,
+                          float* __restrict__ out) {
+  extern __shared__ float acc[];
+  for (int f = threadIdx.x; f < d; f += kSharedThreads) acc[f] = 0.f;
   __syncthreads();
-  for (int f = threadIdx.x; f < d; f += blockDim.x) {
+  for_each_entry<kScaled>(
+      idx, vals, scale, n, L, inv_L, head,
+      (long long)blockIdx.x * kSharedThreads + threadIdx.x,
+      (long long)gridDim.x * kSharedThreads, [&](int f, float v) {
+        if ((unsigned)f < (unsigned)d) atomicAdd(acc + f, v);
+      });
+  __syncthreads();
+  for (int f = threadIdx.x; f < d; f += kSharedThreads) {
     const float v = acc[f];
-    if (v != 0.f) atomicAdd(&out[f], v);
+    if (v != 0.f) atomicAdd(out + f, v);
   }
 }
 
+template <bool kScaled>
 __global__ void __launch_bounds__(kGlobalThreads)
 scatter_add_global_kernel(const int* __restrict__ idx,
-                          const float* __restrict__ contrib, long long n,
-                          long long d, float* __restrict__ out) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < n;
-       e += stride) {
-    const int f = idx[e];
-    if (f >= 0 && f < d) atomicAdd(&out[f], contrib[e]);
-  }
+                          const float* __restrict__ vals,
+                          const float* __restrict__ scale, long long n, int L,
+                          double inv_L, long long head, long long d,
+                          float* __restrict__ out) {
+  for_each_entry<kScaled>(
+      idx, vals, scale, n, L, inv_L, head,
+      (long long)blockIdx.x * kGlobalThreads + threadIdx.x,
+      (long long)gridDim.x * kGlobalThreads, [&](int f, float v) {
+        if (f >= 0 && f < d) atomicAdd(out + f, v);
+      });
 }
 
 cudaError_t device_limits(int* smem_optin, int* sms) {
@@ -73,6 +173,32 @@ cudaError_t device_limits(int* smem_optin, int* sms) {
                              cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return e;
   return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
+template <bool kScaled>
+cudaError_t launch(const int* idx, const float* vals, const float* scale,
+                   long long n, int L, long long d, int shared, int blocks,
+                   float* out, cudaStream_t s) {
+  cudaError_t e = cudaMemsetAsync(out, 0, (size_t)d * sizeof(float), s);
+  if (e != cudaSuccess) return e;
+  const double inv_L = kScaled ? 1.0 / L : 0.0;
+  const uintptr_t ai = (uintptr_t)idx, av = (uintptr_t)vals;
+  long long head =
+      ((ai ^ av) & 15) ? n : (long long)((16 - (ai & 15)) & 15) / 4;
+  if (head > n) head = n;
+  if (!shared) {
+    scatter_add_global_kernel<kScaled><<<blocks, kGlobalThreads, 0, s>>>(
+        idx, vals, scale, n, L, inv_L, head, d, out);
+    return cudaGetLastError();
+  }
+  const size_t bytes = (size_t)d * sizeof(float);
+  e = cudaFuncSetAttribute(scatter_add_shared_kernel<kScaled>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes);
+  if (e != cudaSuccess) return e;
+  scatter_add_shared_kernel<kScaled><<<blocks, kSharedThreads, bytes, s>>>(
+      idx, vals, scale, n, L, inv_L, head, (int)d, out);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -88,43 +214,30 @@ extern "C" int scatter_add_shared_max_d(long long* max_d) {
 }
 
 // C entry: zeroes out and launches on `stream` (a cudaStream_t); returns
-// cudaGetLastError() (0 on success).  idx int32 and contrib f32 hold n
-// entries; out is f32 (d,).  All arrays are contiguous device memory.
-extern "C" int scatter_add_f32(const int* idx, const float* contrib,
-                               long long n, long long d, float* out,
-                               void* stream) {
-  if (n < 0 || d < 0) return (int)cudaErrorInvalidValue;
+// cudaGetLastError() (0 on success).  idx int32 and vals f32 hold n
+// entries; row_scale is null or f32 (n / L,); out is f32 (d,).  The launch
+// plan comes from ops/svm_kernels.py scatter_plan: `shared` 1 keeps the
+// accumulator in shared memory (d up to scatter_add_shared_max_d), 0 adds
+// into out with global atomics; `blocks` is the grid.  All arrays are
+// contiguous device memory.
+extern "C" int scatter_add_f32(const int* idx, const float* vals,
+                               const float* row_scale, long long n, int L,
+                               long long d, int shared, int blocks,
+                               float* out, void* stream) {
+  if (n < 0 || d < 0 || blocks < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   if (d == 0) return 0;
-  cudaError_t e = cudaMemsetAsync(out, 0, (size_t)d * sizeof(float), s);
-  if (e != cudaSuccess || n == 0) return (int)e;
-  int smem_optin = 0, sms = 0;
-  e = device_limits(&smem_optin, &sms);
-  if (e != cudaSuccess) return (int)e;
-  const size_t bytes = (size_t)d * sizeof(float);
-  if (bytes <= (size_t)smem_optin) {
-    e = cudaFuncSetAttribute(scatter_add_shared_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-    int per_sm = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, scatter_add_shared_kernel, kSharedThreads, bytes);
-    if (e != cudaSuccess) return (int)e;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    // every block zeroes and flushes all d bins, so no more blocks than
-    // the entries can keep busy
-    const long long want = (n + kSharedThreads - 1) / kSharedThreads;
-    const long long cap = (long long)sms * per_sm;
-    const int blocks = (int)(want < cap ? want : cap);
-    scatter_add_shared_kernel<<<blocks, kSharedThreads, bytes, s>>>(
-        idx, contrib, n, (int)d, out);
-  } else {
-    const long long want = (n + kGlobalThreads - 1) / kGlobalThreads;
-    const long long cap = (long long)sms * 16;
-    const int blocks = (int)(want < cap ? want : cap);
-    scatter_add_global_kernel<<<blocks, kGlobalThreads, 0, s>>>(
-        idx, contrib, n, d, out);
+  if (n == 0)
+    return (int)cudaMemsetAsync(out, 0, (size_t)d * sizeof(float), s);
+  if (row_scale && (L < 1 || n % L != 0)) return (int)cudaErrorInvalidValue;
+  if (shared) {
+    long long max_d = 0;
+    const int err = scatter_add_shared_max_d(&max_d);
+    if (err != 0) return err;
+    if (d > max_d) return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  return (int)(row_scale ? launch<true>(idx, vals, row_scale, n, L, d, shared,
+                                        blocks, out, s)
+                         : launch<false>(idx, vals, nullptr, n, L, d, shared,
+                                         blocks, out, s));
 }

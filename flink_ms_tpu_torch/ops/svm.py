@@ -305,7 +305,8 @@ def _make_fit(problem: BlockedSVMProblem, config: SVMConfig,
     def gram_round(w, idx, val, label, sq_norm, alpha, gram, j_all):
         """H serial SDCA steps of every chain on a running (C, rows) margin
         vector: each update enters through one Gram row, and w is read
-        once (``margin_gather``) and written once (``scatter_add_dw``)."""
+        once (``margin_gather``) and written once (``scatter_add_dw``,
+        which forms each entry's val * Δα itself)."""
         wx = margin_gather(w, idx, val)
         y_all = torch.gather(label, 1, j_all)
         q_all = torch.gather(sq_norm, 1, j_all)
@@ -318,7 +319,7 @@ def _make_fit(problem: BlockedSVMProblem, config: SVMConfig,
             a[chains, j] = a_j + delta
             wx = wx + (sigma_p * delta / lam_n)[:, None] * gram[chains, j]
         dalpha = a - alpha
-        dw = scatter_add_dw(idx, val * dalpha[:, :, None], d) / lam_n
+        dw = scatter_add_dw(idx, val, d, row_scale=dalpha) / lam_n
         return w + gamma * dw, alpha + gamma * dalpha
 
     def fit(rounds, w, idx, val, label, sq_norm, alpha, seed, gram=None, *,

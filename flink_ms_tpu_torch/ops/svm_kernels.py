@@ -8,10 +8,16 @@ writes the round's Δw = XᵀΔα back; both are irregular passes over the whole
 (C, H, L) sparse layout (49,315,840 entries at the RCV1 shape) and nothing
 else of the round touches the (d,) weights.
 
-- ``margin_gather`` — ``csrc/svm_margin_gather.cu``: one warp per row, w
-  read through L2;
-- ``scatter_add_dw`` — ``csrc/svm_scatter_add.cu``: a (d,) accumulator in
-  shared memory per block when it fits, global atomics above that.
+- ``margin_gather`` — ``csrc/svm_margin_gather.cu``: persistent warps
+  stream tiles of whole rows as 16-byte vectors and gather from a copy of
+  w in shared memory (through L1 when w does not fit); ``margin_plan``
+  sizes the tiles and the grid;
+- ``scatter_add_dw`` — ``csrc/svm_scatter_add.cu``: one block per SM
+  folds 16-byte vectors of the entries into a (d,) accumulator in shared
+  memory when it fits, global atomics above that; ``scatter_plan`` picks
+  the branch and the grid.  With ``row_scale`` (the gram engine's Δα)
+  each entry's contribution is formed in the kernel, so the (C, H, L)
+  contribution tensor is never built.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version for CPU tensors; nothing falls back from one to the other, and no
@@ -22,13 +28,74 @@ variable selects between them (the reference's ``FLINK_MS_SVM_WX0``,
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import math
 
 import torch
 
 from . import _build
 
-# kernel launches made by each wrapper
-LAUNCHES = {"margin_gather": 0, "scatter_add_dw": 0}
+# kernel launches made by each wrapper; "scatter_add_dw[row_scale]"
+# counts the launches of scatter_add_dw's kernel that took a row_scale
+# (they are counted under "scatter_add_dw" too)
+LAUNCHES = {"margin_gather": 0, "scatter_add_dw": 0,
+            "scatter_add_dw[row_scale]": 0}
+
+# the kernels' launch constants (csrc/svm_scatter_add.cu,
+# csrc/svm_margin_gather.cu)
+SCATTER_SHARED_THREADS = 1024  # one block per SM
+SCATTER_GLOBAL_THREADS = 256
+SCATTER_VECTORS = 1            # 16-byte vectors of each array per step
+MARGIN_THREADS = 1024          # one block of 32 warps per SM
+MARGIN_LINE = 128              # entries per warp line: 32 lanes x 4
+
+
+@dataclasses.dataclass(frozen=True)
+class ScatterPlan:
+    shared: bool     # the (d,) accumulator in each block's shared memory
+    blocks: int
+    threads: int
+    smem_bytes: int
+
+
+def scatter_plan(n: int, d: int, sms: int, max_d: int) -> ScatterPlan:
+    """The scatter-add's launch for n entries into d bins on a card with
+    `sms` SMs whose shared-memory branch ends at `max_d` bins: up to one
+    block per SM (each zeroes and flushes all d bins, so no more than the
+    entries keep busy), or a grid of global-atomic blocks."""
+    if d <= max_d:
+        per_block = SCATTER_SHARED_THREADS * 4 * SCATTER_VECTORS
+        blocks = min(max(-(-n // per_block), 1), sms)
+        return ScatterPlan(True, blocks, SCATTER_SHARED_THREADS, 4 * d)
+    blocks = min(max(-(-n // (4 * SCATTER_GLOBAL_THREADS)), 1), 16 * sms)
+    return ScatterPlan(False, blocks, SCATTER_GLOBAL_THREADS, 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class MarginPlan:
+    shared_w: bool   # w copied into each block's shared memory
+    tile_rows: int   # rows per warp tile: tile_rows * L fills whole lines
+    lines: int       # 128-entry lines per full tile
+    tiles: int
+    blocks: int
+    threads: int
+    smem_bytes: int
+
+
+def margin_plan(rows: int, L: int, d: int, sms: int,
+                max_d: int) -> MarginPlan:
+    """The margin gather's launch for (rows, L) slots and w (d,) on a card
+    with `sms` SMs whose shared memory holds up to `max_d` floats: tiles
+    of 128 / gcd(L, 128) whole rows, so each tile is a whole number of
+    128-entry lines and starts on the 16-byte grid, one warp per tile at
+    a time, up to one block per SM."""
+    tile_rows = MARGIN_LINE // math.gcd(L, MARGIN_LINE)
+    tiles = -(-rows // tile_rows)
+    warps = MARGIN_THREADS // 32
+    blocks = min(max(-(-tiles // warps), 1), sms)
+    shared_w = d <= max_d
+    return MarginPlan(shared_w, tile_rows, tile_rows * L // MARGIN_LINE,
+                      tiles, blocks, MARGIN_THREADS, 4 * d if shared_w else 0)
 
 
 def margin_gather_plain(w, idx, val):
@@ -38,9 +105,11 @@ def margin_gather_plain(w, idx, val):
     return (g * val).sum(-1)
 
 
-def scatter_add_plain(idx, contrib, d):
+def scatter_add_plain(idx, vals, d, row_scale=None):
     """zeros(d).index_add_(idx, contrib): the reference's unsorted
-    ``.at[idx].add`` (``flink_ms_tpu/ops/svm.py:494-497``)."""
+    ``.at[idx].add`` (``flink_ms_tpu/ops/svm.py:494-497``), with contrib
+    = vals, or vals * row_scale[..., None] when a row scale is given."""
+    contrib = vals if row_scale is None else vals * row_scale[..., None]
     out = torch.zeros(d, dtype=contrib.dtype, device=contrib.device)
     return out.index_add_(0, idx.reshape(-1), contrib.reshape(-1))
 
@@ -74,6 +143,18 @@ def _check_kernel_args(name, *tensors) -> None:
         raise ValueError(f"{name}: the CUDA kernel takes contiguous tensors")
 
 
+def _device_plan_args(lib, query, device):
+    """(SM count, the shared-memory limit in floats from `query`) of a
+    CUDA device."""
+    max_d = ctypes.c_longlong(0)
+    with torch.cuda.device(device):
+        err = getattr(lib, query)(ctypes.byref(max_d))
+    if err != 0:
+        raise RuntimeError(f"{query} failed: CUDA error {err}")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms, int(max_d.value)
+
+
 def margin_gather(w, idx, val):
     """wx0 (...) = Σ_l w[idx[..., l]] * val[..., l]: at the gram engine's
     (C, H, L) layout, the (C, H) round-start margins.  CUDA tensors go to
@@ -88,58 +169,77 @@ def margin_gather(w, idx, val):
     _check_kernel_args("margin_gather", idx, w, val)
     L = idx.shape[-1]
     out = torch.empty(idx.shape[:-1], dtype=torch.float32, device=w.device)
-    rows = out.numel()
+    rows, d = out.numel(), w.numel()
     lib = _margin_library()
+    plan = margin_plan(rows, L, d, *_device_plan_args(
+        lib, "margin_gather_shared_max_d", w.device))
     with torch.cuda.device(w.device):
         stream = torch.cuda.current_stream(w.device).cuda_stream
-        err = lib.margin_gather_f32(w.data_ptr(), w.numel(), idx.data_ptr(),
-                                    val.data_ptr(), rows, L, out.data_ptr(),
-                                    stream)
+        err = lib.margin_gather_f32(w.data_ptr(), d, idx.data_ptr(),
+                                    val.data_ptr(), rows, L, plan.tile_rows,
+                                    int(plan.shared_w), plan.blocks,
+                                    out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"margin_gather_f32 launch failed: CUDA error "
-                           f"{err} (rows={rows}, L={L}, d={w.numel()})")
+                           f"{err} (rows={rows}, L={L}, d={d}, {plan})")
     LAUNCHES["margin_gather"] += 1
     return out
 
 
-def scatter_add_dw(idx, contrib, d):
+def scatter_add_dw(idx, vals, d, row_scale=None):
     """dw (d,) = Σ contrib over the entries whose idx is f, for every
-    feature f: the round's Δw = XᵀΔα before the 1/λn.  CUDA tensors go to
-    the kernel (idx int32, contrib f32, out f32); CPU tensors to
+    feature f: the round's Δw = XᵀΔα before the 1/λn.  contrib is vals,
+    or, with ``row_scale`` of shape ``idx.shape[:-1]``, vals[..., l] *
+    row_scale[...] (the same f32 product as ``vals * row_scale[..., None]``,
+    formed in the kernel).  CUDA tensors go to the kernel (idx int32,
+    vals and row_scale f32, out f32); CPU tensors to
     ``scatter_add_plain``."""
-    _check_pair("scatter_add_dw", idx, contrib)
+    _check_pair("scatter_add_dw", idx, vals)
     d = int(d)
     if d < 0:
         raise ValueError(f"scatter_add_dw: d must be >= 0, got {d}")
-    if not _on_card("scatter_add_dw", contrib):
-        return scatter_add_plain(idx, contrib, d)
-    _check_kernel_args("scatter_add_dw", idx, contrib)
-    out = torch.empty(d, dtype=torch.float32, device=contrib.device)
-    n = idx.numel()
+    if row_scale is not None:
+        if tuple(row_scale.shape) != tuple(idx.shape[:-1]):
+            raise ValueError(f"scatter_add_dw: row_scale must have the shape "
+                             f"{tuple(idx.shape[:-1])}, got "
+                             f"{tuple(row_scale.shape)}")
+        if row_scale.dtype != vals.dtype:
+            raise TypeError(f"scatter_add_dw: row_scale must be {vals.dtype} "
+                            f"like the values, got {row_scale.dtype}")
+        if row_scale.device != vals.device:
+            raise ValueError(f"scatter_add_dw: row_scale on "
+                             f"{row_scale.device}, values on {vals.device}")
+    if not _on_card("scatter_add_dw", vals):
+        return scatter_add_plain(idx, vals, d, row_scale)
+    scaled = () if row_scale is None else (row_scale,)
+    _check_kernel_args("scatter_add_dw", idx, vals, *scaled)
+    out = torch.empty(d, dtype=torch.float32, device=vals.device)
+    n, L = idx.numel(), idx.shape[-1]
     lib = _scatter_library()
-    with torch.cuda.device(contrib.device):
-        stream = torch.cuda.current_stream(contrib.device).cuda_stream
-        err = lib.scatter_add_f32(idx.data_ptr(), contrib.data_ptr(), n, d,
-                                  out.data_ptr(), stream)
+    plan = scatter_plan(n, d, *_device_plan_args(
+        lib, "scatter_add_shared_max_d", vals.device))
+    with torch.cuda.device(vals.device):
+        stream = torch.cuda.current_stream(vals.device).cuda_stream
+        err = lib.scatter_add_f32(
+            idx.data_ptr(), vals.data_ptr(),
+            None if row_scale is None else row_scale.data_ptr(), n, L, d,
+            int(plan.shared), plan.blocks, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"scatter_add_f32 launch failed: CUDA error {err} "
-                           f"(n={n}, d={d})")
+                           f"(n={n}, L={L}, d={d}, {plan})")
     LAUNCHES["scatter_add_dw"] += 1
+    if row_scale is not None:
+        LAUNCHES["scatter_add_dw[row_scale]"] += 1
     return out
 
 
 def scatter_shared_max_d(device=None) -> int:
     """The largest d whose accumulator ``scatter_add_dw``'s kernel keeps in
     shared memory on the current CUDA device; above it the kernel adds
-    straight into device memory."""
-    lib = _scatter_library()
-    max_d = ctypes.c_longlong(0)
-    with torch.cuda.device(device):
-        err = lib.scatter_add_shared_max_d(ctypes.byref(max_d))
-    if err != 0:
-        raise RuntimeError(f"scatter_add_shared_max_d failed: CUDA error "
-                           f"{err}")
-    return int(max_d.value)
+    straight into device memory.  ``margin_gather`` copies w into shared
+    memory up to the same d."""
+    return _device_plan_args(_scatter_library(), "scatter_add_shared_max_d",
+                             device)[1]
 
 
 # c_void_p for every pointer and the stream: an undeclared argument would
@@ -147,18 +247,24 @@ def scatter_shared_max_d(device=None) -> int:
 _PTR, _LL = ctypes.c_void_p, ctypes.c_longlong
 
 
+_INT = ctypes.c_int
+
+
 def _margin_library() -> ctypes.CDLL:
     lib = _build.load("svm_margin_gather")
-    lib.margin_gather_f32.argtypes = [_PTR, _LL, _PTR, _PTR, _LL,
-                                      ctypes.c_int, _PTR, _PTR]
-    lib.margin_gather_f32.restype = ctypes.c_int
+    lib.margin_gather_f32.argtypes = [_PTR, _LL, _PTR, _PTR, _LL, _INT, _INT,
+                                      _INT, _INT, _PTR, _PTR]
+    lib.margin_gather_f32.restype = _INT
+    lib.margin_gather_shared_max_d.argtypes = [ctypes.POINTER(_LL)]
+    lib.margin_gather_shared_max_d.restype = _INT
     return lib
 
 
 def _scatter_library() -> ctypes.CDLL:
     lib = _build.load("svm_scatter_add")
-    lib.scatter_add_f32.argtypes = [_PTR, _PTR, _LL, _LL, _PTR, _PTR]
-    lib.scatter_add_f32.restype = ctypes.c_int
+    lib.scatter_add_f32.argtypes = [_PTR, _PTR, _PTR, _LL, _INT, _LL, _INT,
+                                    _INT, _PTR, _PTR]
+    lib.scatter_add_f32.restype = _INT
     lib.scatter_add_shared_max_d.argtypes = [ctypes.POINTER(_LL)]
-    lib.scatter_add_shared_max_d.restype = ctypes.c_int
+    lib.scatter_add_shared_max_d.restype = _INT
     return lib

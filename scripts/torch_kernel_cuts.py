@@ -1,23 +1,36 @@
 #!/usr/bin/env python3
-"""Where the time of the port's two ALS kernels goes, on one CUDA card.
+"""Where the time of the port's kernels goes, on one CUDA card.
 
 Run from the repository root, on a machine with one CUDA card and nvcc:
 
-    python3 scripts/torch_kernel_cuts.py
+    python3 scripts/torch_kernel_cuts.py [--only als|svm]
+        [--old-csrc DIR]
 
-It builds variants of ``flink_ms_tpu_torch/csrc/gather_assembly.cu`` and
-``csrc/cholesky_solve.cu``, each with one part cut out or one constant
-changed, into ``build/scratch/cuts/``, then times every variant (median of
-CUDA-event timed calls) on the user and the item half-sweep of the ML-20M
-shape that ``chip_smoke.py`` trains (its seeded ratings, two iterations
-from its init).  A cut changes what the kernel computes; the times say
-what each part costs, not what any result is.  Prints the card line, the
-registers and spills of the main instances, and one line per side and
-kernel.
+It builds variants of the kernels' sources, each with one part cut out or
+one constant changed, into ``build/scratch/cuts/``, then times every
+variant (median of CUDA-event timed calls):
+
+- ALS: ``flink_ms_tpu_torch/csrc/gather_assembly.cu`` and
+  ``csrc/cholesky_solve.cu`` on the user and the item half-sweep of the
+  ML-20M shape that ``chip_smoke.py`` trains (its seeded ratings, two
+  iterations from its init);
+- SVM: ``csrc/svm_scatter_add.cu`` and ``csrc/svm_margin_gather.cu`` on
+  the RCV1-shaped layout that ``chip_smoke.py`` trains (its seeded data,
+  K 8,192), with a random w and Δα.  ``--old-csrc DIR`` also builds the
+  earlier, scalar designs of the two SVM sources (a grid-stride
+  scatter-add with one 4-byte load per atomic, one warp per row in the
+  margin gather) from DIR, the ``csrc`` directory of a checkout of a
+  commit that has them, with their own cuts, and times them beside the
+  current ones.
+
+A cut changes what the kernel computes; the times say what each part
+costs, not what any result is.  Prints the card line, the registers and
+spills of the main instances, and one line per side and kernel.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import os
 import subprocess
@@ -33,6 +46,8 @@ from flink_ms_tpu_torch.ops import _build  # noqa: E402
 from flink_ms_tpu_torch.ops import als as TA  # noqa: E402
 from flink_ms_tpu_torch.ops import cholesky as CH  # noqa: E402
 from flink_ms_tpu_torch.ops import gather_assembly as GA  # noqa: E402
+from flink_ms_tpu_torch.ops import svm as TS  # noqa: E402
+from flink_ms_tpu_torch.ops import svm_kernels as SK  # noqa: E402
 
 OUT = os.path.join(ROOT, "build", "scratch", "cuts")
 NEVER = "p.alpha == 12345.f"  # a run-time false the compiler cannot fold
@@ -72,26 +87,160 @@ SOLVE = [
 ]
 
 
-ARGTYPES = {  # the C entries' arguments (ops/gather_assembly.py, cholesky.py)
-    "gather_assembly": [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-    "cholesky_solve": [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+# a run-time false in both SVM sources
+D_NEVER = "d == -7"
+# the earlier, scalar SVM sources (``--old-csrc``); "no_loads" stands
+# hashed bins below RCV1's d and a contribution of 1 in for the loads
+OLD_SMEM_LOOP = ("    const int f = idx[e];\n"
+                 "    if (f >= 0 && f < d) atomicAdd(&acc[f], contrib[e]);\n"
+                 "  }\n  __syncthreads();")
+# with its bins left at zero a block would flush none of them: these
+# variants flush every bin, as the base does at RCV1's density
+OLD_EVERY_BIN = ("    if (v != 0.f) atomicAdd(&out[f], v);",
+                 "    atomicAdd(&out[f], v);")
+SVM_OLD = {
+    "svm_scatter_add": [
+        ("base", []),
+        ("no_flush", [("    if (v != 0.f) atomicAdd(&out[f], v);",
+                       f"    if (v != 0.f && {D_NEVER}) "
+                       "atomicAdd(&out[f], v);")]),
+        # the loads summed into a register, written once under a false
+        ("no_smem_atomics", [
+            ("  const long long stride = (long long)gridDim.x * blockDim.x;\n"
+             "  for (long long e = (long long)blockIdx.x * blockDim.x + "
+             "threadIdx.x; e < n;\n       e += stride) {\n" + OLD_SMEM_LOOP,
+             "  const long long stride = (long long)gridDim.x * blockDim.x;\n"
+             "  float sink = 0.f;\n"
+             "  for (long long e = (long long)blockIdx.x * blockDim.x + "
+             "threadIdx.x; e < n;\n       e += stride) {\n"
+             "    const int f = idx[e];\n"
+             "    if (f >= 0 && f < d) sink += contrib[e];\n"
+             f"  }}\n  if ({D_NEVER}) acc[0] = sink;\n  __syncthreads();"),
+            OLD_EVERY_BIN]),
+        ("no_loads", [
+            (OLD_SMEM_LOOP,
+             "    const int f = (int)((unsigned)e * 2654435761u >> 17);\n"
+             "    atomicAdd(&acc[f], 1.f);\n  }\n  __syncthreads();"),
+            OLD_EVERY_BIN]),
+    ],
+    "svm_margin_gather": [
+        ("base", []),
+        ("no_gather", [("    if (f >= 0 && f < d) acc += __ldg(w + f) * v;",
+                        "    if (f >= 0 && f < d) acc += v;")]),
+    ],
+}
+# the current SVM sources
+FOLD = ("      (long long)gridDim.x * kSharedThreads, [&](int f, float v) {\n"
+        "        if ((unsigned)f < (unsigned)d) atomicAdd(acc + f, v);\n"
+        "      });\n  __syncthreads();")
+EVERY_BIN = ("    if (v != 0.f) atomicAdd(out + f, v);",
+             "    atomicAdd(out + f, v);")
+LOADS = "        a[u] = __ldcs(iv + v);\n        b[u] = __ldcs(vv + v);"
+
+
+def source_span(kind, first, last):
+    """The text of csrc/<kind>.cu from the line that starts with `first`
+    through the line that starts with `last`."""
+    lines = open(os.path.join(_build.CSRC, f"{kind}.cu")).read().split("\n")
+    a = next(i for i, x in enumerate(lines) if x.startswith(first))
+    b = next(i for i, x in enumerate(lines) if i > a and x.startswith(last))
+    return "\n".join(lines[a:b + 1])
+
+
+ROW_OF = source_span("svm_scatter_add", "  long long r = (long long)((double)",
+                     "  return r;")
+ROW_SUMS = source_span("svm_margin_gather",
+                       "        const unsigned e = (unsigned)(l0 + u)",
+                       "        carry_row = __shfl_sync(")
+SVM_NEW = {
+    "svm_scatter_add": [
+        ("base", []),
+        ("no_flush", [("    if (v != 0.f) atomicAdd(out + f, v);",
+                       f"    if (v != 0.f && {D_NEVER}) "
+                       "atomicAdd(out + f, v);")]),
+        ("no_smem_atomics", [
+            ("  __syncthreads();\n  for_each_entry<kScaled>(",
+             "  __syncthreads();\n  float sink = 0.f;\n"
+             "  for_each_entry<kScaled>("),
+            (FOLD, FOLD.replace("atomicAdd(acc + f, v)", "sink += v").replace(
+                "  __syncthreads();",
+                f"  if ({D_NEVER}) acc[0] = sink;\n  __syncthreads();")),
+            EVERY_BIN]),
+        # hashed bins below RCV1's d and a contribution of 1 for the loads
+        ("no_loads", [
+            (LOADS,
+             "        a[u] = make_int4((int)((unsigned)v * 2654435761u >> 17),"
+             " (int)((unsigned)v * 2246822519u >> 17), (int)((unsigned)v * "
+             "3266489917u >> 17), (int)((unsigned)v * 668265263u >> 17));\n"
+             "        b[u] = make_float4(1.f, 1.f, 1.f, 1.f);"),
+            EVERY_BIN]),
+        # the row of each vector by a 32-bit division (exact below 2^32
+        # entries, as at RCV1), and the row scale not loaded
+        ("row_u32", [(ROW_OF, "  return (long long)((unsigned)e / "
+                              "(unsigned)L);")]),
+        ("no_scale_loads", [("float s = __ldg(scale + r);",
+                             "float s = (float)(r & 7);"),
+                            ("s = __ldg(scale + ++r);",
+                             "s = (float)(++r & 7);")]),
+        ("vectors2", [("constexpr int kUnroll = 1;", "constexpr int kUnroll = 2;")]),
+    ],
+    "svm_margin_gather": [
+        ("base", []),
+        ("no_gather", [("? (kSharedW ? ws[i] : __ldg(w + i)) * p[u][q]",
+                        "? p[u][q]")]),
+        # w read through L1 and L2 although it fits shared memory
+        ("w_in_l1", [("  if (shared_w)\n    e = vec",
+                      f"  if (shared_w && {D_NEVER})\n    e = vec")]),
+        # the loads and gathers summed per lane, no row sums
+        ("no_rows", [
+            ("  const unsigned uL = (unsigned)L;",
+             "  const unsigned uL = (unsigned)L;\n  float sink = 0.f;"),
+            (ROW_SUMS, "        sink += p[u][0] + p[u][1] + p[u][2] + "
+                       "p[u][3];"),
+            ("  }\n}\n\ntemplate <bool kSharedW, bool kVec>",
+             f"  }}\n  if ({D_NEVER}) out[0] = sink;\n}}\n\n"
+             "template <bool kSharedW, bool kVec>")]),
+        # 16 warps per SM, two lines per stage
+        ("warps16", [("constexpr int kThreads = 1024;",
+                      "constexpr int kThreads = 512;"),
+                     ("constexpr int kLines = 1;", "constexpr int kLines = 2;")]),
+        # the next stage's loads issued after this stage's row sums
+        ("no_prefetch", [("      load(l0 + kLines, nf, np);\n", ""),
+                         ("        for (int q = 0; q < 4; ++q) f[u][q] = "
+                          "nf[u][q], p[u][q] = np[u][q];",
+                          "        for (int q = 0; q < 4; ++q) {}\n"
+                          "      load(l0 + kLines, f, p);")]),
+    ],
 }
 
 
-def build(kind, name, cuts):
-    src = open(os.path.join(_build.CSRC, f"{kind}.cu")).read()
+_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+ARGTYPES = {  # the C entries' arguments (ops/gather_assembly.py, cholesky.py)
+    "gather_assembly": [
+        _P, _I, _LL, _I, _P, _P, _LL, _I, _I, ctypes.c_float, _P, _P, _I, _I,
+        _I, _P],
+    "cholesky_solve": [_P, _P, _P, _LL, _I, _I, _P],
+}
+ENTRY = {"gather_assembly": "gather_assembly_f32",
+         "cholesky_solve": "cholesky_solve_f32",
+         "svm_scatter_add": "scatter_add_f32",
+         "svm_margin_gather": "margin_gather_f32"}
+# the SVM C entries (ops/svm_kernels.py), and the earlier ones
+ARGTYPES_NEW = {
+    "svm_scatter_add": [_P, _P, _P, _LL, _I, _LL, _I, _I, _P, _P],
+    "svm_margin_gather": [_P, _LL, _P, _P, _LL, _I, _I, _I, _I, _P, _P]}
+ARGTYPES_OLD = {"svm_scatter_add": [_P, _P, _LL, _LL, _P, _P],
+                "svm_margin_gather": [_P, _LL, _P, _P, _LL, _I, _P, _P]}
+
+
+def build(kind, name, cuts, csrc=_build.CSRC, tag=""):
+    src = open(os.path.join(csrc, f"{kind}.cu")).read()
     for text, repl in cuts:
         if text not in src:
             raise SystemExit(f"{kind} {name}: the source no longer has "
                              f"{text!r}")
         src = src.replace(text, repl)
-    path = os.path.join(OUT, f"{kind}_{name}")
+    path = os.path.join(OUT, f"{kind}{tag}_{name}")
     with open(path + ".cu", "w") as f:
         f.write(src)
     return subprocess.Popen(
@@ -99,54 +248,56 @@ def build(kind, name, cuts):
          path + ".so", path + ".cu"], stderr=subprocess.PIPE, text=True)
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("CUDA is not available", file=sys.stderr)
-        return 2
-    print(S.card_line(), flush=True)
-    os.makedirs(OUT, exist_ok=True)
-    procs = {("gather_assembly", n): build("gather_assembly", n, c)
-             for n, c in ASSEMBLY}
-    procs.update({("cholesky_solve", n): build("cholesky_solve", n, c)
-                  for n, c in SOLVE})
-    libs = {}
-    for (kind, name), proc in procs.items():
+def finish(procs, argtypes):
+    """Wait for the builds; print the registers and spills of the main
+    instances; -> {(kind, name): the C entry}."""
+    fns = {}
+    for (kind, name, tag), proc in procs.items():
         log = proc.communicate()[1]
         if proc.returncode:
-            raise SystemExit(f"nvcc failed for {kind} {name}:\n{log}")
+            raise SystemExit(f"nvcc failed for {kind}{tag} {name}:\n{log}")
         entry = ""
         for line in log.splitlines():
             if "Compiling entry" in line:
                 entry = line
-            elif ("IfLi10ELb0" in entry or "Li52E" in entry) and (
+            elif ("IfLi10ELb0" in entry or "Li52E" in entry
+                  or kind.startswith("svm")) and (
                     "registers" in line or "spill" in line):
-                print(f"{kind} {name}: {line.split(':', 1)[-1].strip()}")
-        lib = ctypes.CDLL(os.path.join(OUT, f"{kind}_{name}.so"))
-        fn = getattr(lib, "gather_assembly_f32" if kind == "gather_assembly"
-                     else "cholesky_solve_f32")
-        fn.argtypes, fn.restype = ARGTYPES[kind], ctypes.c_int
-        libs[(kind, name)] = lib
+                print(f"{kind}{tag} {name}: "
+                      f"{line.split(':', 1)[-1].strip()}")
+        lib = ctypes.CDLL(os.path.join(OUT, f"{kind}{tag}_{name}.so"))
+        fn = getattr(lib, ENTRY[kind])
+        fn.argtypes = argtypes(kind, tag)
+        fn.restype = ctypes.c_int
+        fns[(kind, name, tag)] = fn
+    return fns
+
+
+def als_cuts() -> None:
+    procs = {("gather_assembly", n, ""): build("gather_assembly", n, c)
+             for n, c in ASSEMBLY}
+    procs.update({("cholesky_solve", n, ""): build("cholesky_solve", n, c)
+                  for n, c in SOLVE})
+    fns = finish(procs, lambda kind, tag: ARGTYPES[kind])
     dev = torch.device("cuda", 0)
     stream = torch.cuda.current_stream().cuda_stream
 
-    def assemble(lib, y, idx, val):
+    def assemble(fn, y, idx, val):
         r, w = idx.shape
         k = y.shape[1]
         A = torch.empty((r, k, k), device=dev)
         b = torch.empty((r, k), device=dev)
         plan = GA.assembly_plan(k, 4)
         ys = GA.slot_table(y, plan.ts)
-        err = lib.gather_assembly_f32(
-            ys.data_ptr(), 0, y.shape[0], k, idx.data_ptr(), val.data_ptr(),
-            r, w, 0, 40.0, A.data_ptr(), b.data_ptr(), plan.ts, plan.g,
-            plan.rows_per_block, stream)
+        err = fn(ys.data_ptr(), 0, y.shape[0], k, idx.data_ptr(),
+                 val.data_ptr(), r, w, 0, 40.0, A.data_ptr(), b.data_ptr(),
+                 plan.ts, plan.g, plan.rows_per_block, stream)
         assert err == 0, err
 
-    def solve(lib, A, b, kp):
+    def solve(fn, A, b, kp):
         x = torch.empty_like(b)
-        err = lib.cholesky_solve_f32(A.data_ptr(), b.data_ptr(),
-                                     x.data_ptr(), b.shape[0], b.shape[1],
-                                     kp, stream)
+        err = fn(A.data_ptr(), b.data_ptr(), x.data_ptr(), b.shape[0],
+                 b.shape[1], kp, stream)
         assert err == 0, err
 
     users, items, ratings = S.synth_ratings(S.N_USERS, S.N_ITEMS, S.NNZ, 0)
@@ -164,8 +315,8 @@ def main() -> int:
                    for j in range(len(flat) // 2)]
         times = []
         for name, _ in ASSEMBLY:
-            lib = libs[("gather_assembly", name)]
-            ms = S.event_ms(lambda: [assemble(lib, table, i, v)
+            fn = fns[("gather_assembly", name, "")]
+            ms = S.event_ms(lambda: [assemble(fn, table, i, v)
                                      for i, v in buckets], reps=5)
             times.append(f"{name} {ms:.3f}")
         print(f"assembly {side} half-sweep ms: " + ", ".join(times),
@@ -178,14 +329,100 @@ def main() -> int:
         kp = CH.solve_plan(S.RANK)
         times = []
         for name, _ in SOLVE:
-            lib = libs[("cholesky_solve", name)]
-            ms = S.event_ms(lambda: solve(lib, A, b, kp), reps=10)
+            fn = fns[("cholesky_solve", name, "")]
+            ms = S.event_ms(lambda: solve(fn, A, b, kp), reps=10)
             times.append(f"{name} {ms:.3f}")
-        lib = libs[("cholesky_solve", "base")]
-        ms = S.event_ms(lambda: solve(lib, A, b, 56), reps=10)
+        fn = fns[("cholesky_solve", "base", "")]
+        ms = S.event_ms(lambda: solve(fn, A, b, 56), reps=10)
         times.append(f"kp56 {ms:.3f}")
         print(f"solve {side} half-sweep ms (kp {kp}): " + ", ".join(times),
               flush=True)
+
+
+def checked(fn, *args):
+    def call():
+        err = fn(*args)
+        assert err == 0, err
+    return call
+
+
+def svm_call(kind, tag, fn, stream, w, idx, val, contrib, dalpha, rows, n,
+             L, d, out_d, out_rows):
+    """-> {form: a call of the C entry at the RCV1 shape}."""
+    p = [t.data_ptr() for t in (w, idx, val, contrib, dalpha, out_d,
+                                out_rows)]
+    if tag:  # the earlier entries
+        if kind == "svm_scatter_add":
+            return {"": checked(fn, p[1], p[3], n, d, p[5], stream)}
+        return {"": checked(fn, p[0], d, p[1], p[2], rows, L, p[6], stream)}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    max_d = SK.scatter_shared_max_d()
+    if kind == "svm_scatter_add":
+        plan = SK.scatter_plan(n, d, sms, max_d)
+        return {f"[{form}]": checked(fn, p[1], src, scale, n, L, d,
+                                     int(plan.shared), plan.blocks, p[5],
+                                     stream)
+                for form, src, scale in (("contrib", p[3], None),
+                                         ("row_scale", p[2], p[4]))}
+    plan = SK.margin_plan(rows, L, d, sms, max_d)
+    return {"": checked(fn, p[0], d, p[1], p[2], rows, L, plan.tile_rows,
+                        int(plan.shared_w), plan.blocks, p[6], stream)}
+
+
+def svm_cuts(old_csrc) -> None:
+    designs = [("", _build.CSRC, SVM_NEW)]
+    if old_csrc:
+        designs.insert(0, ("_old", old_csrc, SVM_OLD))
+    procs = {}
+    for tag, csrc, cuts in designs:
+        for kind, variants in cuts.items():
+            for name, c in variants:
+                procs[(kind, name, tag)] = build(kind, name, c, csrc, tag)
+    fns = finish(procs, lambda kind, tag: (ARGTYPES_OLD[kind] if tag
+                                           else ARGTYPES_NEW[kind]))
+    dev = torch.device("cuda", 0)
+    stream = torch.cuda.current_stream().cuda_stream
+    data = S.synth_rcv1(S.SVM_N, S.SVM_D, S.SVM_NNZ, seed=0)
+    problem = TS.prepare_svm_blocked(data, S.SVM_K)
+    idx = torch.from_numpy(problem.idx).to(dev)
+    val = torch.from_numpy(problem.val).to(dev)
+    C, H, L = idx.shape
+    rows, n, d = C * H, idx.numel(), S.SVM_D
+    gen = torch.Generator(device=dev).manual_seed(7)
+    w = torch.randn(d, generator=gen, device=dev)
+    dalpha = torch.rand((C, H), generator=gen, device=dev)
+    contrib = val * dalpha[:, :, None]
+    out_d = torch.empty(d, device=dev)
+    out_rows = torch.empty((C, H), device=dev)
+    for tag, _, cuts in designs:
+        for kind, variants in cuts.items():
+            times = []
+            for name, _ in variants:
+                fn = fns[(kind, name, tag)]
+                call = svm_call(kind, tag, fn, stream, w, idx, val, contrib,
+                                dalpha, rows, n, L, d, out_d, out_rows)
+                for form, f in call.items():
+                    ms = S.event_ms(f, reps=10, calls=5)
+                    times.append(f"{name}{form} {ms:.4f}")
+            print(f"{kind}{tag or ''} RCV1 ms: " + ", ".join(times),
+                  flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", choices=("als", "svm"))
+    ap.add_argument("--old-csrc", help="csrc directory of the earlier, "
+                    "scalar SVM sources, timed beside the current ones")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("CUDA is not available", file=sys.stderr)
+        return 2
+    print(S.card_line(), flush=True)
+    os.makedirs(OUT, exist_ok=True)
+    if args.only != "svm":
+        als_cuts()
+    if args.only != "als":
+        svm_cuts(args.old_csrc)
     return 0
 
 

@@ -63,3 +63,63 @@ def test_bounds_of_the_ml20m_user_half_sweep():
                                       chip_smoke.solve_bytes(138_494, k))
     assert asm_by == "operations" and 0.790 < asm_ms < 0.792
     assert sol_by == "bytes" and 0.276 < sol_ms < 0.278
+
+
+def test_row_scale_scatter_add_bytes_at_rcv1():
+    # the row-scale form reads idx and the values of every entry and the
+    # (C, H) scale, and writes the (d,) sum
+    rows, n, d = 8192 * 86, 8192 * 86 * 70, 47_236
+    nbytes = chip_smoke.scatter_add_bytes(n, d, rows)
+    assert nbytes == n * (4 + 4) + rows * 4 + d * 4
+    assert round(nbytes / 1e9, 4) == 0.3975
+    ms, by = chip_smoke.bound(2 * n, nbytes)
+    assert by == "bytes" and round(ms, 4) == 0.1187
+
+
+SMS, MAX_D = 132, 58_112  # an H100's SMs and shared-memory floats
+
+
+@pytest.mark.parametrize("d", [1, 47_236, MAX_D - 1, MAX_D, MAX_D + 1,
+                               1_355_191])
+@pytest.mark.parametrize("rows", [1, 259, 704_512])
+def test_margin_plan_tiles_whole_lines(rows, d):
+    from flink_ms_tpu_torch.ops import svm_kernels as SK
+
+    for L in range(1, 129):
+        plan = SK.margin_plan(rows, L, d, SMS, MAX_D)
+        # whole 128-entry lines per tile, so every tile starts on the
+        # 16-byte grid; the fewest rows that do so
+        assert plan.tile_rows * L % 128 == 0
+        assert all(r * L % 128 for r in range(1, plan.tile_rows))
+        assert plan.lines == plan.tile_rows * L // 128 >= 1
+        assert (plan.tiles - 1) * plan.tile_rows < rows
+        assert plan.tiles * plan.tile_rows >= rows
+        # one warp per tile at a time, no block without a tile, at most
+        # one block per SM
+        warps = plan.threads // 32
+        assert 1 <= plan.blocks <= SMS
+        assert (plan.blocks - 1) * warps < plan.tiles
+        assert plan.shared_w == (d <= MAX_D)
+        assert plan.smem_bytes == (4 * d if d <= MAX_D else 0)
+        assert plan.smem_bytes <= 4 * MAX_D
+    assert SK.margin_plan(704_512, 70, 47_236, SMS, MAX_D) == SK.MarginPlan(
+        True, 64, 35, 11_008, 132, 1024, 188_944)
+
+
+@pytest.mark.parametrize("d", [1, 47_236, MAX_D, MAX_D + 1, 1_355_191])
+@pytest.mark.parametrize("n", [1, 3, 9_000, 49_315_840])
+def test_scatter_plan_branch_and_grid(n, d):
+    from flink_ms_tpu_torch.ops import svm_kernels as SK
+
+    plan = SK.scatter_plan(n, d, SMS, MAX_D)
+    assert plan.shared == (d <= MAX_D)
+    assert plan.blocks >= 1
+    if plan.shared:
+        # each block zeroes and flushes all d bins: at most one per SM and
+        # none without a step of entries
+        per_step = plan.threads * 4 * SK.SCATTER_VECTORS
+        assert plan.blocks <= SMS
+        assert (plan.blocks - 1) * per_step < n
+        assert plan.smem_bytes == 4 * d <= 4 * MAX_D
+    else:
+        assert plan.blocks <= 16 * SMS and plan.smem_bytes == 0

@@ -208,9 +208,9 @@ def test_gram_engine_runs_both_kernel_wrappers(rng, monkeypatch):
     calls = {"margin": 0, "scatter": 0}
 
     def count(name, fn):
-        def wrapped(*a):
+        def wrapped(*a, **kw):
             calls[name] += 1
-            return fn(*a)
+            return fn(*a, **kw)
         return wrapped
 
     monkeypatch.setattr(TS, "margin_gather", count("margin", SK.margin_gather))
@@ -223,6 +223,63 @@ def test_gram_engine_runs_both_kernel_wrappers(rng, monkeypatch):
         cfg = TS.SVMConfig(iterations=3, local_iterations=5, inner=inner)
         TS.svm_fit(td, cfg, device="cpu", problem=p)
         assert calls == {"margin": want, "scatter": want}, inner
+
+
+def test_gram_round_scales_rows_in_the_scatter_add(rng, monkeypatch):
+    """The gram engine hands ``scatter_add_dw`` the device's (C, H, L)
+    values themselves and the (C, H) Δα as ``row_scale``: no operation of
+    the round outside the two kernel wrappers makes a (C, H, L) tensor, so
+    the contribution val * Δα is not built.  The result is the scatter-add
+    of that contribution, bit for bit."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    _, td = _data(rng, n=100)
+    p = TS.prepare_svm_blocked(td, 4, seed=0)
+    shape = tuple(p.idx.shape)
+    made, seen = [], []
+    paused = [False]
+
+    class Shapes(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not paused[0]:
+                for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                    if isinstance(t, torch.Tensor) and tuple(t.shape) == shape:
+                        made.append(str(func))
+            return out
+
+    def unrecorded(fn, *a, **kw):
+        paused[0] = True
+        try:
+            return fn(*a, **kw)
+        finally:
+            paused[0] = False
+
+    def margin(*a):  # its plain version gathers a (C, H, L) tensor
+        return unrecorded(SK.margin_gather, *a)
+
+    def scatter(idx, vals, d, row_scale=None):
+        # on the CPU the wrapper's plain version builds it; the kernel
+        # forms each product in registers
+        seen.append((vals, row_scale))
+        got = unrecorded(SK.scatter_add_dw, idx, vals, d,
+                         row_scale=row_scale)
+        want = unrecorded(lambda: SK.scatter_add_plain(
+            idx, vals * row_scale[..., None], d))
+        assert torch.equal(got, want)
+        return got
+
+    monkeypatch.setattr(TS, "margin_gather", margin)
+    monkeypatch.setattr(TS, "scatter_add_dw", scatter)
+    cfg = TS.SVMConfig(iterations=2, local_iterations=5, inner="gram")
+    fit, dev_args = TS.compile_svm_fit(p, cfg, device="cpu")
+    with Shapes():
+        fit(2, *dev_args)
+    assert len(seen) == 2
+    for vals, row_scale in seen:
+        assert vals is dev_args[2]
+        assert row_scale is not None and tuple(row_scale.shape) == shape[:2]
+    assert made == [], made
 
 
 def test_build_gram_equals_dense_product(rng):

@@ -61,6 +61,24 @@ def test_scatter_add_plain_matches_jax_kernel(rng, C, H, L, d):
     _close(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("C,H,L,d", SHAPES)
+def test_scatter_add_row_scale_matches_jax_kernel(rng, C, H, L, d):
+    """The gram engine's form: values and a per-row Δα, against the JAX
+    kernel on the contribution val * Δα[..., None]."""
+    _, idx, val = _layout(rng, C, H, L, d)
+    dalpha = rng.standard_normal((C, H)).astype(np.float32)
+    contrib = val * dalpha[..., None]
+    want = JK.scatter_add_dw(jnp.asarray(idx), jnp.asarray(contrib), d,
+                             jnp.float32, "cpu")
+    got = SK.scatter_add_dw(torch.from_numpy(idx), torch.from_numpy(val), d,
+                            row_scale=torch.from_numpy(dalpha))
+    assert got.shape == (d,) and got.dtype == torch.float32
+    _close(got.numpy(), np.asarray(want))
+    # the same f32 products as the contribution tensor, summed the same way
+    assert torch.equal(got, SK.scatter_add_plain(
+        torch.from_numpy(idx), torch.from_numpy(contrib), d))
+
+
 def test_duplicates_and_pads_count_as_the_formula_says(rng):
     w, idx, val = _layout(rng, 4, 9, 6, 13)
     wx = SK.margin_gather(*map(torch.from_numpy, (w, idx, val))).numpy()
@@ -105,3 +123,20 @@ def test_wrappers_refuse_other_devices_and_bad_arguments(rng):
         SK.margin_gather(w[None], idx, val)
     with pytest.raises(ValueError, match="d must be"):
         SK.scatter_add_dw(idx, val, -1)
+
+
+def test_scatter_add_refuses_a_row_scale_it_cannot_take(rng):
+    _, idx, val = map(torch.from_numpy, _layout(rng, 2, 3, 4, 10))
+    scale = torch.ones(2, 3)
+    with pytest.raises(ValueError, match=r"row_scale must have the shape "
+                                         r"\(2, 3\)"):
+        SK.scatter_add_dw(idx, val, 10, row_scale=scale[:, :2])
+    with pytest.raises(ValueError, match="row_scale must have the shape"):
+        SK.scatter_add_dw(idx, val, 10, row_scale=torch.ones(2, 3, 4))
+    with pytest.raises(TypeError, match="row_scale must be torch.float32"):
+        SK.scatter_add_dw(idx, val, 10, row_scale=scale.double())
+    with pytest.raises(ValueError, match="row_scale on meta"):
+        SK.scatter_add_dw(idx, val, 10, row_scale=scale.to("meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        SK.scatter_add_dw(idx.to("meta"), val.to("meta"), 10,
+                          row_scale=scale.to("meta"))
