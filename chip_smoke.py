@@ -62,6 +62,10 @@ Phases, each printing lines of its own (``[smoke] ...``):
             scatter-add on a materialised contribution and in its
             row-scale form, and the elementwise pass that form replaces.
 
+Each kernel's ``ms`` is the median over calls timed one CUDA event pair
+each, the wrapper's host work included where it outlasts the device's;
+``device_ms`` is the device time over runs of 10 calls back to back.
+
 It then prints one JSON line of the kernels, the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero, and
 without CUDA (or without the package beside this file) it exits non-zero
@@ -227,10 +231,11 @@ def card_line() -> str:
 
 
 def event_ms(fn, reps: int, warmup: int = 1, calls: int = 1) -> float:
-    """Median device time of ``fn()`` in ms: one CUDA event pair around
-    `calls` calls back to back, over `calls`.  With calls = 1 the time
-    includes the host's work between the events when that outlasts the
-    device's; a run of calls lets the host queue ahead of the device."""
+    """Median time of ``fn()`` in ms: one CUDA event pair around `calls`
+    calls back to back, over `calls`.  With calls = 1 (each kernel's
+    ``ms``) the time includes the host's work between the events when that
+    outlasts the device's; a run of calls (``device_ms``) lets the host
+    queue ahead of the device."""
     import torch
 
     for _ in range(warmup):
@@ -246,6 +251,20 @@ def event_ms(fn, reps: int, warmup: int = 1, calls: int = 1) -> float:
         t1.synchronize()
         times.append(t0.elapsed_time(t1) / calls)
     return float(np.median(times))
+
+
+def host_ms(torch, fn, calls: int = 50) -> float:
+    """The host's time per ``fn()`` call in ms, over `calls` calls issued
+    back to back while the device works through them (the device's queue
+    is not full, so the host never waits)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e3
 
 
 def device_busy(torch, label, fn, top=5) -> list:
@@ -602,6 +621,7 @@ def phase_times(torch, TA, CH, GA, flat, itf):
         "replaces": "flink_ms_tpu/ops/gather_assembly.py:97",
         "max_abs_err": asm_err,
         "ms": event_ms(asm_kernel, reps=5),
+        "device_ms": event_ms(asm_kernel, reps=3, calls=10),
         "plain_ms": event_ms(asm_plain, reps=3),
         "library_ms": event_ms(asm_library, reps=3),
     }
@@ -639,6 +659,8 @@ def phase_times(torch, TA, CH, GA, flat, itf):
         "replaces": "flink_ms_tpu/ops/cholesky_pallas.py:40",
         "max_abs_err": chol_err,
         "ms": event_ms(lambda: CH.cholesky_solve_batched(A, b), reps=10),
+        "device_ms": event_ms(lambda: CH.cholesky_solve_batched(A, b),
+                              reps=3, calls=10),
         "plain_ms": event_ms(lambda: CH.cholesky_solve_plain(A, b), reps=3),
         "library_ms": event_ms(chol_library, reps=3),
     }
@@ -664,6 +686,8 @@ def phase_times(torch, TA, CH, GA, flat, itf):
           "max_abs_err": (x_k - x_p).abs().max().item(),
           "ms": event_ms(lambda: CH.cholesky_solve_batched(
               Ac, bc, layout="batch_major"), reps=10),
+          "device_ms": event_ms(lambda: CH.cholesky_solve_batched(
+              Ac, bc, layout="batch_major"), reps=3, calls=10),
           "plain_ms": event_ms(lambda: CH.cholesky_solve_plain(Ac, bc),
                                reps=3),
           "library_ms": event_ms(lambda: torch.cholesky_solve(
@@ -869,20 +893,22 @@ def svm_main(torch, TS, SK, dev):
         f"rounds); set-up: upload + Gram build {compile_s:.3f}s, Gram build "
         f"alone {gram_s:.3f}s; hinge+reg objective after 1 and "
         f"{SVM_ROUNDS} rounds {objs}; launches over {ran} rounds: "
-        f"margin_gather {launches['margin_gather']}, scatter_add_dw "
-        f"{launches['scatter_add_dw']} (with a row scale "
-        f"{launches['scatter_add_dw[row_scale]']})")
+        f"margin_gather {launches['margin_gather']}, scatter_add_dw with a "
+        f"row scale {launches['scatter_add_dw[row_scale]']} and on a "
+        f"contribution {launches['scatter_add_dw']}")
     check(all(np.isfinite(objs)) and objs[1] < 1.0 and objs[1] < objs[0],
           f"objective not finite, below 1.0 and falling: {objs}")
     ref_gap = abs(objs[1] - SVM_REF_OBJECTIVE) / SVM_REF_OBJECTIVE
     log(f"svm objective after {SVM_ROUNDS} rounds vs the JAX package's "
         f"{SVM_REF_OBJECTIVE}: relative gap {ref_gap:.3e} (limit 1e-2)")
     check(ref_gap <= 1e-2, "the objective is off the JAX package's")
-    # every scatter-add of the path takes the round's Δα as its row scale
-    check(launches == {"margin_gather": ran, "scatter_add_dw": ran,
+    # every scatter-add of the path takes the round's Δα as its row scale:
+    # none runs on a (C, H, L) contribution
+    check(launches == {"margin_gather": ran, "scatter_add_dw": 0,
                        "scatter_add_dw[row_scale]": ran},
-          f"{launches} launches for {ran} rounds; expected one of each per "
-          f"round, every scatter-add with its row scale")
+          f"{launches} launches for {ran} rounds; expected one margin "
+          f"gather and one scatter-add per round, every scatter-add with "
+          f"its row scale")
     device_busy(torch, "svm 2 rounds", lambda: fit(2, *dev_args))
     w, alpha = fit(SVM_ROUNDS, *dev_args)
     return launches, {"sec_per_round": sec, "objective": objs,
@@ -935,25 +961,28 @@ def svm_times(torch, SK, main):
     entries = []
 
     def kernel_ms(fn):
-        """(device ms over runs of 10 calls, ms with one event pair per
-        call: the wrapper's host work included where it outlasts the
-        kernel)."""
-        return event_ms(fn, reps=5, calls=10), event_ms(fn, reps=20)
+        """(ms with one event pair per call, device ms over runs of 10
+        calls, the host's ms per call)."""
+        return (event_ms(fn, reps=20), event_ms(fn, reps=5, calls=10),
+                host_ms(torch, fn))
 
     def entry(name, source, replaces, err, ms, plain_ms, library_ms, nbytes,
               flops):
         bound_ms, bound_by = bound(flops, nbytes)
-        ms, per_call = ms
+        ms, device_ms, host = ms
         e = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "max_abs_err": err, "ms": ms,
-             "plain_ms": plain_ms, "bound_ms": bound_ms,
-             "bound_by": bound_by, "library_ms": library_ms}
+             "device_ms": device_ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by,
+             "library_ms": library_ms}
         library = "none" if library_ms is None else f"{library_ms:.4f} ms"
         log(f"times {name} at the RCV1 shape ({n} entries, "
             f"{nbytes / 1e9:.4f} GB, {flops / 1e6:.1f} MFLOP): kernel "
-            f"{ms:.4f} ms ({ms / bound_ms:.2f}x bound; one call per event "
-            f"pair {per_call:.4f} ms), plain {plain_ms:.4f} ms, library "
-            f"{library}, bound {bound_ms:.4f} ms ({bound_by})")
+            f"{ms:.4f} ms one call per event pair ({ms / bound_ms:.2f}x "
+            f"bound), device {device_ms:.4f} ms over runs of 10 calls "
+            f"({device_ms / bound_ms:.2f}x), host {host:.4f} ms per call; "
+            f"plain {plain_ms:.4f} ms, library {library}, bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
         entries.append(e)
 
     def library_margin():
@@ -989,7 +1018,7 @@ def svm_times(torch, SK, main):
           (got - want).abs().max().item(),
           kernel_ms(lambda: SK.scatter_add_dw(idx, contrib, d)),
           plain_ms, plain_ms, scatter_add_bytes(n, d), n)
-    contrib_ms = entries[-1]["ms"]
+    contrib_ms = entries[-1]["ms"], entries[-1]["device_ms"]
     del got, want, contrib
 
     # the gram engine's form: the values and the (C, H) Δα; no one torch
@@ -1005,11 +1034,16 @@ def svm_times(torch, SK, main):
           event_ms(lambda: SK.scatter_add_plain(idx, val, d, alpha), reps=5),
           None, scatter_add_bytes(n, d, rows), 2 * n)
     del got, want
-    mul_ms = event_ms(lambda: val * alpha[:, :, None], reps=5, calls=10)
-    log(f"times the round's Δw at the RCV1 shape: the elementwise pass val * "
-        f"alpha[:, :, None] the row-scale form replaces {mul_ms:.4f} ms, "
-        f"with the contrib form's kernel {mul_ms + contrib_ms:.4f} ms; the "
-        f"row-scale form alone {entries[-1]['ms']:.4f} ms")
+    mul_ms = (event_ms(lambda: val * alpha[:, :, None], reps=20),
+              event_ms(lambda: val * alpha[:, :, None], reps=5, calls=10))
+    for label, i in (("one call per event pair", 0),
+                     ("device time over runs of 10 calls", 1)):
+        key = ("ms", "device_ms")[i]
+        log(f"times the round's Δw at the RCV1 shape, {label}: the "
+            f"elementwise pass val * alpha[:, :, None] the row-scale form "
+            f"replaces {mul_ms[i]:.4f} ms, with the contrib form's kernel "
+            f"{mul_ms[i] + contrib_ms[i]:.4f} ms; the row-scale form alone "
+            f"{entries[-1][key]:.4f} ms")
     return entries
 
 
@@ -1085,13 +1119,15 @@ def main() -> int:
     svm_checks(torch, SK, dev)
     svm_launches, svm_run = svm_main(torch, TS, SK, dev)
     svm_cross_checks(torch, TS, dev)
+    # the scatter-add's contrib form (the TPU kernel's function) runs on no
+    # path since the gram engine passes its row scale: its launches are 0
     for e in svm_times(torch, SK, svm_run):
         e["launches"] = svm_launches[e["name"]]
         e["launches_by_path"] = {"svm_rcv1": svm_launches[e["name"]]}
         entries.append(e)
     keys = ("name", "route", "source", "replaces", "launches",
-            "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")
+            "launches_by_path", "max_abs_err", "ms", "device_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
     log(f"done in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": [{key: e[key] for key in keys}
                                   for e in entries]}))

@@ -30,17 +30,18 @@
 // segmented scan over the warp's lanes (the rows are runs of consecutive
 // lanes): the lane that holds a row's last entry writes its sum, and a
 // row that runs past the line carries over to the next one.  Nothing is
-// written but out.
+// written but out.  The host's plan (ops/svm_kernels.py margin_plan) sets
+// the tile rows, the grid and the block size, which the kernel reads from
+// the launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_attr.cuh"
+
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
-constexpr int kLine = 128;  // entries per warp line: 32 lanes x 4
-constexpr int kLines = 1;   // lines per stage: their loads go out together
+constexpr int kLine = 32 * 4;  // a warp's line: one 16-byte vector a lane
 constexpr unsigned kFull = 0xffffffffu;
 
 // entries e..e+3 of a tile (those at or past nent read as index -1)
@@ -65,23 +66,25 @@ __device__ __forceinline__ void load4(const int* __restrict__ idx,
 }
 
 // kSharedW: w is copied into shared memory first.  kVec: idx and val start
-// on the 16-byte grid, so whole lines load as vectors.
+// on the 16-byte grid, so whole lines load as vectors.  One block of up to
+// 1,024 threads per SM.
 template <bool kSharedW, bool kVec>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(1024, 1)
 margin_gather_kernel(const float* __restrict__ w, long long d,
                      const int* __restrict__ idx,
                      const float* __restrict__ val, long long rows, int L,
                      int tile_rows, float* __restrict__ out) {
   extern __shared__ float ws[];
   if (kSharedW) {
-    for (int i = threadIdx.x; i < d; i += kThreads) ws[i] = __ldg(w + i);
+    for (int i = threadIdx.x; i < d; i += blockDim.x) ws[i] = __ldg(w + i);
     __syncthreads();
   }
   const unsigned lane = threadIdx.x & 31;
   const unsigned uL = (unsigned)L;
+  const long long warps = blockDim.x >> 5;
   const long long tiles = (rows + tile_rows - 1) / tile_rows;
-  for (long long t = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-       t < tiles; t += (long long)gridDim.x * kWarps) {
+  for (long long t = blockIdx.x * warps + (threadIdx.x >> 5); t < tiles;
+       t += gridDim.x * warps) {
     const long long row0 = t * tile_rows;
     const unsigned nrows =
         (unsigned)(rows - row0 < tile_rows ? rows - row0 : tile_rows);
@@ -92,81 +95,69 @@ margin_gather_kernel(const float* __restrict__ w, long long d,
     float* to = out + row0;
     int carry_row = -1;  // a row that runs on from the previous line
     float carry = 0.f;
-    // the loads of a stage of kLines lines; the next stage's go out before
-    // this stage's gathers
-    auto load = [&](int l0, int f[kLines][4], float v[kLines][4]) {
-#pragma unroll
-      for (int u = 0; u < kLines; ++u)
-        load4<kVec>(ti, tv, (unsigned)(l0 + u) * kLine + lane * 4,
-                    l0 + u < lines ? nent : 0u, f[u], v[u]);
+    auto load_line = [&](int l, int f[4], float v[4]) {
+      load4<kVec>(ti, tv, (unsigned)l * kLine + lane * 4,
+                  l < lines ? nent : 0u, f, v);
     };
-    int f[kLines][4];
-    float p[kLines][4];
-    load(0, f, p);
-    for (int l0 = 0; l0 < lines; l0 += kLines) {
-      int nf[kLines][4];
-      float np[kLines][4];
-      load(l0 + kLines, nf, np);
+    int f[4];
+    float p[4];
+    load_line(0, f, p);
+    for (int l = 0; l < lines; ++l) {
+      // the next line's loads go out before this line's gathers
+      int nf[4];
+      float np[4];
+      load_line(l + 1, nf, np);
 #pragma unroll
-      for (int u = 0; u < kLines; ++u)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int i = f[u][q];
-          p[u][q] = (i >= 0 && i < d)
-                        ? (kSharedW ? ws[i] : __ldg(w + i)) * p[u][q]
-                        : 0.f;
-        }
-#pragma unroll
-      for (int u = 0; u < kLines; ++u) {
-        if (l0 + u >= lines) break;  // the same for the whole warp
-        const unsigned e = (unsigned)(l0 + u) * kLine + lane * 4;
-        // the rows of this lane's four entries: rA holds the first, rB the
-        // last; rows strictly between them lie wholly inside (L < 4)
-        const unsigned rA = e / uL;
-        unsigned m = e - rA * uL, r = rA;
-        float cur = 0.f, first = 0.f;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          if (q > 0 && ++m == uL) {
-            if (r == rA) first = cur;
-            else if (r < nrows) to[r] = cur;
-            cur = 0.f, m = 0, ++r;
-          }
-          cur += p[u][q];
-        }
-        const unsigned rB = r;
-        if (rB == rA) first = cur;
-        if (lane == 0 && (int)rA == carry_row) first += carry;
-        // inclusive segmented scan of the part that may run on (key rB)
-        float x = rB == rA ? first : cur;
-        const unsigned prev_rB = __shfl_up_sync(kFull, rB, 1);
-        int head = rA != rB || lane == 0 || prev_rB != rA;
-#pragma unroll
-        for (unsigned off = 1; off < 32; off <<= 1) {
-          const float xo = __shfl_up_sync(kFull, x, off);
-          const int ho = __shfl_up_sync(kFull, head, off);
-          if (lane >= off) {
-            if (!head) x += xo;
-            head |= ho;
-          }
-        }
-        // row rA ends inside this lane: its earlier part is the previous
-        // lane's run
-        const float xprev = __shfl_up_sync(kFull, x, 1);
-        if (rA != rB && rA < nrows)
-          to[rA] = first + (lane > 0 && prev_rB == rA ? xprev : 0.f);
-        // row rB ends with this lane unless the next entry is in it
-        const unsigned next_rA = __shfl_down_sync(kFull, rA, 1);
-        const bool ends = lane < 31 ? next_rA != rB
-                                    : l0 + u == lines - 1 || (e + 4) / uL != rB;
-        if (ends && rB < nrows) to[rB] = x;
-        carry = __shfl_sync(kFull, x, 31);
-        carry_row = __shfl_sync(kFull, ends ? -1 : (int)rB, 31);
+      for (int q = 0; q < 4; ++q) {
+        const int i = f[q];
+        p[q] = (i >= 0 && i < d) ? (kSharedW ? ws[i] : __ldg(w + i)) * p[q]
+                                 : 0.f;
       }
+      const unsigned e = (unsigned)l * kLine + lane * 4;
+      // the rows of this lane's four entries: rA holds the first, rB the
+      // last; rows strictly between them lie wholly inside (L < 4)
+      const unsigned rA = e / uL;
+      unsigned m = e - rA * uL, r = rA;
+      float cur = 0.f, first = 0.f;
 #pragma unroll
-      for (int u = 0; u < kLines; ++u)
+      for (int q = 0; q < 4; ++q) {
+        if (q > 0 && ++m == uL) {
+          if (r == rA) first = cur;
+          else if (r < nrows) to[r] = cur;
+          cur = 0.f, m = 0, ++r;
+        }
+        cur += p[q];
+      }
+      const unsigned rB = r;
+      if (rB == rA) first = cur;
+      if (lane == 0 && (int)rA == carry_row) first += carry;
+      // inclusive segmented scan of the part that may run on (key rB)
+      float x = rB == rA ? first : cur;
+      const unsigned prev_rB = __shfl_up_sync(kFull, rB, 1);
+      int head = rA != rB || lane == 0 || prev_rB != rA;
 #pragma unroll
-        for (int q = 0; q < 4; ++q) f[u][q] = nf[u][q], p[u][q] = np[u][q];
+      for (unsigned off = 1; off < 32; off <<= 1) {
+        const float xo = __shfl_up_sync(kFull, x, off);
+        const int ho = __shfl_up_sync(kFull, head, off);
+        if (lane >= off) {
+          if (!head) x += xo;
+          head |= ho;
+        }
+      }
+      // row rA ends inside this lane: its earlier part is the previous
+      // lane's run
+      const float xprev = __shfl_up_sync(kFull, x, 1);
+      if (rA != rB && rA < nrows)
+        to[rA] = first + (lane > 0 && prev_rB == rA ? xprev : 0.f);
+      // row rB ends with this lane unless the next entry is in it
+      const unsigned next_rA = __shfl_down_sync(kFull, rA, 1);
+      const bool ends = lane < 31 ? next_rA != rB
+                                  : l == lines - 1 || (e + 4) / uL != rB;
+      if (ends && rB < nrows) to[rB] = x;
+      carry = __shfl_sync(kFull, x, 31);
+      carry_row = __shfl_sync(kFull, ends ? -1 : (int)rB, 31);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) f[q] = nf[q], p[q] = np[q];
     }
   }
 }
@@ -174,72 +165,48 @@ margin_gather_kernel(const float* __restrict__ w, long long d,
 template <bool kSharedW, bool kVec>
 cudaError_t launch(const float* w, long long d, const int* idx,
                    const float* val, long long rows, int L, int tile_rows,
-                   int blocks, float* out, cudaStream_t s) {
+                   int blocks, int threads, float* out, cudaStream_t s) {
   const size_t bytes = kSharedW ? (size_t)d * sizeof(float) : 0;
   if (kSharedW) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        margin_gather_kernel<kSharedW, kVec>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    static size_t granted[kSmemAttrDevices];
+    const cudaError_t e = allow_dynamic_smem(
+        (const void*)margin_gather_kernel<kSharedW, kVec>, bytes, granted);
     if (e != cudaSuccess) return e;
   }
-  margin_gather_kernel<kSharedW, kVec><<<blocks, kThreads, bytes, s>>>(
+  margin_gather_kernel<kSharedW, kVec><<<blocks, threads, bytes, s>>>(
       w, d, idx, val, rows, L, tile_rows, out);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// The largest d whose w the kernel copies into shared memory on the
-// current device, written to *max_d.  Returns a CUDA error code (0 on
-// success).
-extern "C" int margin_gather_shared_max_d(long long* max_d) {
-  int dev = 0, smem_optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&smem_optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e != cudaSuccess) return (int)e;
-  *max_d = smem_optin / (long long)sizeof(float);
-  return 0;
-}
-
 // C entry: launches on `stream` (a cudaStream_t) and returns
 // cudaGetLastError() (0 on success).  w is f32 (d,); idx int32 and val f32
-// are (rows, L); out is f32 (rows,).  The launch plan comes from
-// ops/svm_kernels.py margin_plan: tile_rows rows per warp tile (tile_rows
-// x L a multiple of 128), shared_w 1 to copy w into shared memory (4 d
-// bytes within the opt-in limit), `blocks` the grid.  All arrays are
-// contiguous device memory.
+// are (rows, L); out is f32 (rows,).  The launch is the plan of
+// ops/svm_kernels.py margin_plan, taken as given: tile_rows rows per warp
+// tile (tile_rows x L a multiple of 128, so every tile starts on the
+// 16-byte grid), shared_w 1 to copy w into shared memory (4 d bytes within
+// the device's opt-in limit), `blocks` x `threads` the grid.  All arrays
+// are contiguous device memory.
 extern "C" int margin_gather_f32(const float* w, long long d, const int* idx,
                                  const float* val, long long rows, int L,
                                  int tile_rows, int shared_w, int blocks,
-                                 float* out, void* stream) {
-  if (d < 0 || rows < 0 || L < 0) return (int)cudaErrorInvalidValue;
+                                 int threads, float* out, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   if (rows == 0) return 0;
   if (L == 0)
     return (int)cudaMemsetAsync(out, 0, (size_t)rows * sizeof(float), s);
-  if (tile_rows < 1 || tile_rows > kLine || blocks < 1 ||
-      (long long)tile_rows * L % kLine != 0 ||
-      (long long)tile_rows * L > 0xffffffffLL)
-    return (int)cudaErrorInvalidValue;
-  if (shared_w) {
-    long long max_d = 0;
-    const int err = margin_gather_shared_max_d(&max_d);
-    if (err != 0) return err;
-    if (d > max_d) return (int)cudaErrorInvalidValue;
-  }
   const bool vec = (((uintptr_t)idx | (uintptr_t)val) & 15) == 0;
   cudaError_t e;
   if (shared_w)
     e = vec ? launch<true, true>(w, d, idx, val, rows, L, tile_rows, blocks,
-                                 out, s)
+                                 threads, out, s)
             : launch<true, false>(w, d, idx, val, rows, L, tile_rows, blocks,
-                                  out, s);
+                                  threads, out, s);
   else
     e = vec ? launch<false, true>(w, d, idx, val, rows, L, tile_rows, blocks,
-                                  out, s)
+                                  threads, out, s)
             : launch<false, false>(w, d, idx, val, rows, L, tile_rows, blocks,
-                                   out, s);
+                                   threads, out, s);
   return (int)e;
 }

@@ -25,10 +25,10 @@
 // 1,024-thread block per SM zeroes a private copy in shared memory, folds
 // a grid-stride share of the entries into it with shared-memory atomics,
 // then adds its non-zero bins to out (zeroed first) with one global atomic
-// each.  The shared-memory atomics alone take most of the bound (random
-// bins, one block per SM), so the stream must hide behind them: each
-// thread loads a 16-byte vector of idx and one of vals per step
-// (streaming, evict-first), the next step's before this step's atomics,
+// each.  The shared-memory atomics (random bins, one block per SM) and the
+// stream must overlap: each thread loads a 16-byte vector of idx and one
+// of vals per step (streaming, evict-first), the next step's before this
+// step's atomics,
 // so 32 KB per SM are in flight while the atomics run; a scalar head and
 // tail take the entries off the 16-byte grid.  With a row scale, each
 // vector's row comes from one division and then counts on across its four
@@ -36,17 +36,16 @@
 // Above the shared-memory limit each entry goes to out with a global
 // atomic, which the 50 MB L2 absorbs.  Both branches are in this file; the
 // host's plan (ops/svm_kernels.py scatter_plan) picks one from d and the
-// device's shared memory.  The sum order, and so the last bits of out,
-// change from run to run.
+// device's shared memory, and sets the grid and the block size, which the
+// kernels read from the launch.  The sum order, and so the last bits of
+// out, change from run to run.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "smem_attr.cuh"
 
-constexpr int kSharedThreads = 1024;
-constexpr int kGlobalThreads = 256;
-constexpr int kUnroll = 1;  // 16-byte vectors of each array per thread per step
+namespace {
 
 // e / L, exact: a double reciprocal, then one correction step
 __device__ __forceinline__ long long row_of(long long e, int L, double inv_L) {
@@ -74,170 +73,130 @@ __device__ __forceinline__ void for_each_entry(
   const long long nv = (n - head) / 4;
   const int4* iv = reinterpret_cast<const int4*>(idx + head);
   const float4* vv = reinterpret_cast<const float4*>(vals + head);
-  auto load = [&](long long v0, int4* a, float4* b) {
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const long long v = v0 + u * G;
-      if (v < nv) {
-        a[u] = __ldcs(iv + v);
-        b[u] = __ldcs(vv + v);
-      }
+  auto load = [&](long long v, int4& a, float4& b) {
+    if (v < nv) {
+      a = __ldcs(iv + v);
+      b = __ldcs(vv + v);
     }
   };
-  // the next step's vectors are loaded before this step's adds
-  int4 a[kUnroll] = {};
-  float4 b[kUnroll] = {};
+  int4 a = make_int4(0, 0, 0, 0);
+  float4 b = make_float4(0.f, 0.f, 0.f, 0.f);
   load(g, a, b);
-  for (long long v0 = g; v0 < nv; v0 += G * kUnroll) {
-    int4 na[kUnroll] = {};
-    float4 nb[kUnroll] = {};
-    load(v0 + G * kUnroll, na, nb);
+  for (long long v = g; v < nv; v += G) {
+    // the next step's vectors are loaded before this step's adds
+    int4 na = a;
+    float4 nb = b;
+    load(v + G, na, nb);
+    float c[4] = {b.x, b.y, b.z, b.w};
+    if (kScaled) {
+      const long long e0 = head + 4 * v;
+      long long r = row_of(e0, L, inv_L);
+      int m = (int)(e0 - r * L);
+      float s = __ldg(scale + r);
+      c[0] *= s;
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const long long v = v0 + u * G;
-      if (v >= nv) break;
-      float c[4] = {b[u].x, b[u].y, b[u].z, b[u].w};
-      if (kScaled) {
-        const long long e0 = head + 4 * v;
-        long long r = row_of(e0, L, inv_L);
-        int m = (int)(e0 - r * L);
-        float s = __ldg(scale + r);
-        c[0] *= s;
-#pragma unroll
-        for (int q = 1; q < 4; ++q) {
-          if (++m == L) {
-            m = 0;
-            s = __ldg(scale + ++r);
-          }
-          c[q] *= s;
+      for (int q = 1; q < 4; ++q) {
+        if (++m == L) {
+          m = 0;
+          s = __ldg(scale + ++r);
         }
+        c[q] *= s;
       }
-      add(a[u].x, c[0]);
-      add(a[u].y, c[1]);
-      add(a[u].z, c[2]);
-      add(a[u].w, c[3]);
     }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      a[u] = na[u];
-      b[u] = nb[u];
-    }
+    add(a.x, c[0]);
+    add(a.y, c[1]);
+    add(a.z, c[2]);
+    add(a.w, c[3]);
+    a = na;
+    b = nb;
   }
   for (long long e = head + 4 * nv + g; e < n; e += G) scalar(e);
 }
 
-// d bins in shared memory, added to out (zeroed) when the block is done
+// d bins in shared memory, added to out (zeroed) when the block is done;
+// one block of up to 1,024 threads per SM
 template <bool kScaled>
-__global__ void __launch_bounds__(kSharedThreads, 1)
+__global__ void __launch_bounds__(1024, 1)
 scatter_add_shared_kernel(const int* __restrict__ idx,
                           const float* __restrict__ vals,
                           const float* __restrict__ scale, long long n, int L,
                           double inv_L, long long head, int d,
                           float* __restrict__ out) {
   extern __shared__ float acc[];
-  for (int f = threadIdx.x; f < d; f += kSharedThreads) acc[f] = 0.f;
+  for (int f = threadIdx.x; f < d; f += blockDim.x) acc[f] = 0.f;
   __syncthreads();
   for_each_entry<kScaled>(
       idx, vals, scale, n, L, inv_L, head,
-      (long long)blockIdx.x * kSharedThreads + threadIdx.x,
-      (long long)gridDim.x * kSharedThreads, [&](int f, float v) {
+      (long long)blockIdx.x * blockDim.x + threadIdx.x,
+      (long long)gridDim.x * blockDim.x, [&](int f, float v) {
         if ((unsigned)f < (unsigned)d) atomicAdd(acc + f, v);
       });
   __syncthreads();
-  for (int f = threadIdx.x; f < d; f += kSharedThreads) {
+  for (int f = threadIdx.x; f < d; f += blockDim.x) {
     const float v = acc[f];
     if (v != 0.f) atomicAdd(out + f, v);
   }
 }
 
 template <bool kScaled>
-__global__ void __launch_bounds__(kGlobalThreads)
-scatter_add_global_kernel(const int* __restrict__ idx,
-                          const float* __restrict__ vals,
-                          const float* __restrict__ scale, long long n, int L,
-                          double inv_L, long long head, long long d,
-                          float* __restrict__ out) {
+__global__ void scatter_add_global_kernel(const int* __restrict__ idx,
+                                          const float* __restrict__ vals,
+                                          const float* __restrict__ scale,
+                                          long long n, int L, double inv_L,
+                                          long long head, long long d,
+                                          float* __restrict__ out) {
   for_each_entry<kScaled>(
       idx, vals, scale, n, L, inv_L, head,
-      (long long)blockIdx.x * kGlobalThreads + threadIdx.x,
-      (long long)gridDim.x * kGlobalThreads, [&](int f, float v) {
+      (long long)blockIdx.x * blockDim.x + threadIdx.x,
+      (long long)gridDim.x * blockDim.x, [&](int f, float v) {
         if (f >= 0 && f < d) atomicAdd(out + f, v);
       });
-}
-
-cudaError_t device_limits(int* smem_optin, int* sms) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(smem_optin,
-                             cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e != cudaSuccess) return e;
-  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
 }
 
 template <bool kScaled>
 cudaError_t launch(const int* idx, const float* vals, const float* scale,
                    long long n, int L, long long d, int shared, int blocks,
-                   float* out, cudaStream_t s) {
-  cudaError_t e = cudaMemsetAsync(out, 0, (size_t)d * sizeof(float), s);
-  if (e != cudaSuccess) return e;
+                   int threads, float* out, cudaStream_t s) {
   const double inv_L = kScaled ? 1.0 / L : 0.0;
   const uintptr_t ai = (uintptr_t)idx, av = (uintptr_t)vals;
   long long head =
       ((ai ^ av) & 15) ? n : (long long)((16 - (ai & 15)) & 15) / 4;
   if (head > n) head = n;
   if (!shared) {
-    scatter_add_global_kernel<kScaled><<<blocks, kGlobalThreads, 0, s>>>(
+    scatter_add_global_kernel<kScaled><<<blocks, threads, 0, s>>>(
         idx, vals, scale, n, L, inv_L, head, d, out);
     return cudaGetLastError();
   }
+  static size_t granted[kSmemAttrDevices];
   const size_t bytes = (size_t)d * sizeof(float);
-  e = cudaFuncSetAttribute(scatter_add_shared_kernel<kScaled>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)bytes);
+  const cudaError_t e = allow_dynamic_smem(
+      (const void*)scatter_add_shared_kernel<kScaled>, bytes, granted);
   if (e != cudaSuccess) return e;
-  scatter_add_shared_kernel<kScaled><<<blocks, kSharedThreads, bytes, s>>>(
+  scatter_add_shared_kernel<kScaled><<<blocks, threads, bytes, s>>>(
       idx, vals, scale, n, L, inv_L, head, (int)d, out);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// The largest d that the shared-memory branch takes on the current device,
-// written to *max_d.  Returns a CUDA error code (0 on success).
-extern "C" int scatter_add_shared_max_d(long long* max_d) {
-  int smem_optin = 0, sms = 0;
-  const cudaError_t e = device_limits(&smem_optin, &sms);
-  if (e != cudaSuccess) return (int)e;
-  *max_d = smem_optin / (long long)sizeof(float);
-  return 0;
-}
-
 // C entry: zeroes out and launches on `stream` (a cudaStream_t); returns
 // cudaGetLastError() (0 on success).  idx int32 and vals f32 hold n
 // entries; row_scale is null or f32 (n / L,); out is f32 (d,).  The launch
-// plan comes from ops/svm_kernels.py scatter_plan: `shared` 1 keeps the
-// accumulator in shared memory (d up to scatter_add_shared_max_d), 0 adds
-// into out with global atomics; `blocks` is the grid.  All arrays are
-// contiguous device memory.
+// is the plan of ops/svm_kernels.py scatter_plan, taken as given: `shared`
+// 1 keeps the accumulator in shared memory (4 d bytes within the device's
+// opt-in limit), 0 adds into out with global atomics; `blocks` x
+// `threads` is the grid.  All arrays are contiguous device memory.
 extern "C" int scatter_add_f32(const int* idx, const float* vals,
                                const float* row_scale, long long n, int L,
                                long long d, int shared, int blocks,
-                               float* out, void* stream) {
-  if (n < 0 || d < 0 || blocks < 1) return (int)cudaErrorInvalidValue;
+                               int threads, float* out, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   if (d == 0) return 0;
-  if (n == 0)
-    return (int)cudaMemsetAsync(out, 0, (size_t)d * sizeof(float), s);
-  if (row_scale && (L < 1 || n % L != 0)) return (int)cudaErrorInvalidValue;
-  if (shared) {
-    long long max_d = 0;
-    const int err = scatter_add_shared_max_d(&max_d);
-    if (err != 0) return err;
-    if (d > max_d) return (int)cudaErrorInvalidValue;
-  }
+  const cudaError_t e =
+      cudaMemsetAsync(out, 0, (size_t)d * sizeof(float), s);
+  if (e != cudaSuccess || n == 0) return (int)e;
   return (int)(row_scale ? launch<true>(idx, vals, row_scale, n, L, d, shared,
-                                        blocks, out, s)
+                                        blocks, threads, out, s)
                          : launch<false>(idx, vals, nullptr, n, L, d, shared,
-                                         blocks, out, s));
+                                         blocks, threads, out, s));
 }

@@ -29,25 +29,35 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 
 import torch
 
 from . import _build
 
-# kernel launches made by each wrapper; "scatter_add_dw[row_scale]"
-# counts the launches of scatter_add_dw's kernel that took a row_scale
-# (they are counted under "scatter_add_dw" too)
+# kernel launches made by each wrapper, the scatter-add's two forms
+# apart: "scatter_add_dw" on a contribution (the TPU kernel's function),
+# "scatter_add_dw[row_scale]" with a row scale
 LAUNCHES = {"margin_gather": 0, "scatter_add_dw": 0,
             "scatter_add_dw[row_scale]": 0}
 
-# the kernels' launch constants (csrc/svm_scatter_add.cu,
-# csrc/svm_margin_gather.cu)
+# The launch plans are made here alone: the C entries take the branch,
+# the grid, the block size and the margin gather's tile rows as given, and
+# the kernels read their block size from the launch.
 SCATTER_SHARED_THREADS = 1024  # one block per SM
 SCATTER_GLOBAL_THREADS = 256
-SCATTER_VECTORS = 1            # 16-byte vectors of each array per step
 MARGIN_THREADS = 1024          # one block of 32 warps per SM
-MARGIN_LINE = 128              # entries per warp line: 32 lanes x 4
+MARGIN_LINE = 32 * 4           # a warp's line: one 16-byte vector a lane
+
+
+@functools.lru_cache(maxsize=None)
+def _device_limits(index: int):
+    """(SM count, opt-in shared memory of a block in floats) of CUDA
+    device `index`: the card's side of both plans, read once."""
+    props = torch.cuda.get_device_properties(index)
+    return (props.multi_processor_count,
+            props.shared_memory_per_block_optin // 4)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,13 +68,15 @@ class ScatterPlan:
     smem_bytes: int
 
 
+@functools.lru_cache(maxsize=64)
 def scatter_plan(n: int, d: int, sms: int, max_d: int) -> ScatterPlan:
     """The scatter-add's launch for n entries into d bins on a card with
     `sms` SMs whose shared-memory branch ends at `max_d` bins: up to one
     block per SM (each zeroes and flushes all d bins, so no more than the
-    entries keep busy), or a grid of global-atomic blocks."""
+    entries keep busy: a step of a block takes one 16-byte vector of 4
+    entries a thread), or a grid of global-atomic blocks."""
     if d <= max_d:
-        per_block = SCATTER_SHARED_THREADS * 4 * SCATTER_VECTORS
+        per_block = SCATTER_SHARED_THREADS * 4
         blocks = min(max(-(-n // per_block), 1), sms)
         return ScatterPlan(True, blocks, SCATTER_SHARED_THREADS, 4 * d)
     blocks = min(max(-(-n // (4 * SCATTER_GLOBAL_THREADS)), 1), 16 * sms)
@@ -82,6 +94,7 @@ class MarginPlan:
     smem_bytes: int
 
 
+@functools.lru_cache(maxsize=64)
 def margin_plan(rows: int, L: int, d: int, sms: int,
                 max_d: int) -> MarginPlan:
     """The margin gather's launch for (rows, L) slots and w (d,) on a card
@@ -90,6 +103,9 @@ def margin_plan(rows: int, L: int, d: int, sms: int,
     128-entry lines and starts on the 16-byte grid, one warp per tile at
     a time, up to one block per SM."""
     tile_rows = MARGIN_LINE // math.gcd(L, MARGIN_LINE)
+    # the kernel counts a tile's entries in 32 bits
+    if tile_rows * L >= 1 << 32:
+        raise ValueError(f"margin_gather: L = {L} is too long")
     tiles = -(-rows // tile_rows)
     warps = MARGIN_THREADS // 32
     blocks = min(max(-(-tiles // warps), 1), sms)
@@ -143,18 +159,6 @@ def _check_kernel_args(name, *tensors) -> None:
         raise ValueError(f"{name}: the CUDA kernel takes contiguous tensors")
 
 
-def _device_plan_args(lib, query, device):
-    """(SM count, the shared-memory limit in floats from `query`) of a
-    CUDA device."""
-    max_d = ctypes.c_longlong(0)
-    with torch.cuda.device(device):
-        err = getattr(lib, query)(ctypes.byref(max_d))
-    if err != 0:
-        raise RuntimeError(f"{query} failed: CUDA error {err}")
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return sms, int(max_d.value)
-
-
 def margin_gather(w, idx, val):
     """wx0 (...) = Σ_l w[idx[..., l]] * val[..., l]: at the gram engine's
     (C, H, L) layout, the (C, H) round-start margins.  CUDA tensors go to
@@ -170,15 +174,12 @@ def margin_gather(w, idx, val):
     L = idx.shape[-1]
     out = torch.empty(idx.shape[:-1], dtype=torch.float32, device=w.device)
     rows, d = out.numel(), w.numel()
-    lib = _margin_library()
-    plan = margin_plan(rows, L, d, *_device_plan_args(
-        lib, "margin_gather_shared_max_d", w.device))
+    plan = margin_plan(rows, L, d, *_device_limits(w.get_device()))
     with torch.cuda.device(w.device):
-        stream = torch.cuda.current_stream(w.device).cuda_stream
-        err = lib.margin_gather_f32(w.data_ptr(), d, idx.data_ptr(),
-                                    val.data_ptr(), rows, L, plan.tile_rows,
-                                    int(plan.shared_w), plan.blocks,
-                                    out.data_ptr(), stream)
+        err = _margin_library().margin_gather_f32(
+            w.data_ptr(), d, idx.data_ptr(), val.data_ptr(), rows, L,
+            plan.tile_rows, int(plan.shared_w), plan.blocks, plan.threads,
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"margin_gather_f32 launch failed: CUDA error "
                            f"{err} (rows={rows}, L={L}, d={d}, {plan})")
@@ -215,31 +216,29 @@ def scatter_add_dw(idx, vals, d, row_scale=None):
     _check_kernel_args("scatter_add_dw", idx, vals, *scaled)
     out = torch.empty(d, dtype=torch.float32, device=vals.device)
     n, L = idx.numel(), idx.shape[-1]
-    lib = _scatter_library()
-    plan = scatter_plan(n, d, *_device_plan_args(
-        lib, "scatter_add_shared_max_d", vals.device))
+    plan = scatter_plan(n, d, *_device_limits(vals.get_device()))
     with torch.cuda.device(vals.device):
-        stream = torch.cuda.current_stream(vals.device).cuda_stream
-        err = lib.scatter_add_f32(
+        err = _scatter_library().scatter_add_f32(
             idx.data_ptr(), vals.data_ptr(),
             None if row_scale is None else row_scale.data_ptr(), n, L, d,
-            int(plan.shared), plan.blocks, out.data_ptr(), stream)
+            int(plan.shared), plan.blocks, plan.threads, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"scatter_add_f32 launch failed: CUDA error {err} "
                            f"(n={n}, L={L}, d={d}, {plan})")
-    LAUNCHES["scatter_add_dw"] += 1
-    if row_scale is not None:
-        LAUNCHES["scatter_add_dw[row_scale]"] += 1
+    LAUNCHES["scatter_add_dw" if row_scale is None
+             else "scatter_add_dw[row_scale]"] += 1
     return out
 
 
 def scatter_shared_max_d(device=None) -> int:
     """The largest d whose accumulator ``scatter_add_dw``'s kernel keeps in
-    shared memory on the current CUDA device; above it the kernel adds
-    straight into device memory.  ``margin_gather`` copies w into shared
-    memory up to the same d."""
-    return _device_plan_args(_scatter_library(), "scatter_add_shared_max_d",
-                             device)[1]
+    shared memory on a CUDA device (default: the current one); above it
+    the kernel adds straight into device memory.  ``margin_gather`` copies
+    w into shared memory up to the same d."""
+    index = torch.device("cuda" if device is None else device).index
+    return _device_limits(torch.cuda.current_device() if index is None
+                          else index)[1]
 
 
 # c_void_p for every pointer and the stream: an undeclared argument would
@@ -250,21 +249,19 @@ _PTR, _LL = ctypes.c_void_p, ctypes.c_longlong
 _INT = ctypes.c_int
 
 
+@functools.cache
 def _margin_library() -> ctypes.CDLL:
     lib = _build.load("svm_margin_gather")
     lib.margin_gather_f32.argtypes = [_PTR, _LL, _PTR, _PTR, _LL, _INT, _INT,
-                                      _INT, _INT, _PTR, _PTR]
+                                      _INT, _INT, _INT, _PTR, _PTR]
     lib.margin_gather_f32.restype = _INT
-    lib.margin_gather_shared_max_d.argtypes = [ctypes.POINTER(_LL)]
-    lib.margin_gather_shared_max_d.restype = _INT
     return lib
 
 
+@functools.cache
 def _scatter_library() -> ctypes.CDLL:
     lib = _build.load("svm_scatter_add")
     lib.scatter_add_f32.argtypes = [_PTR, _PTR, _PTR, _LL, _INT, _LL, _INT,
-                                    _INT, _PTR, _PTR]
+                                    _INT, _INT, _PTR, _PTR]
     lib.scatter_add_f32.restype = _INT
-    lib.scatter_add_shared_max_d.argtypes = [ctypes.POINTER(_LL)]
-    lib.scatter_add_shared_max_d.restype = _INT
     return lib

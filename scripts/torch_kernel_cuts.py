@@ -130,12 +130,12 @@ SVM_OLD = {
     ],
 }
 # the current SVM sources
-FOLD = ("      (long long)gridDim.x * kSharedThreads, [&](int f, float v) {\n"
+FOLD = ("      (long long)gridDim.x * blockDim.x, [&](int f, float v) {\n"
         "        if ((unsigned)f < (unsigned)d) atomicAdd(acc + f, v);\n"
         "      });\n  __syncthreads();")
 EVERY_BIN = ("    if (v != 0.f) atomicAdd(out + f, v);",
              "    atomicAdd(out + f, v);")
-LOADS = "        a[u] = __ldcs(iv + v);\n        b[u] = __ldcs(vv + v);"
+LOADS = "      a = __ldcs(iv + v);\n      b = __ldcs(vv + v);"
 
 
 def source_span(kind, first, last):
@@ -150,8 +150,8 @@ def source_span(kind, first, last):
 ROW_OF = source_span("svm_scatter_add", "  long long r = (long long)((double)",
                      "  return r;")
 ROW_SUMS = source_span("svm_margin_gather",
-                       "        const unsigned e = (unsigned)(l0 + u)",
-                       "        carry_row = __shfl_sync(")
+                       "      const unsigned e = (unsigned)l * kLine",
+                       "      carry_row = __shfl_sync(")
 SVM_NEW = {
     "svm_scatter_add": [
         ("base", []),
@@ -169,10 +169,10 @@ SVM_NEW = {
         # hashed bins below RCV1's d and a contribution of 1 for the loads
         ("no_loads", [
             (LOADS,
-             "        a[u] = make_int4((int)((unsigned)v * 2654435761u >> 17),"
+             "      a = make_int4((int)((unsigned)v * 2654435761u >> 17),"
              " (int)((unsigned)v * 2246822519u >> 17), (int)((unsigned)v * "
              "3266489917u >> 17), (int)((unsigned)v * 668265263u >> 17));\n"
-             "        b[u] = make_float4(1.f, 1.f, 1.f, 1.f);"),
+             "      b = make_float4(1.f, 1.f, 1.f, 1.f);"),
             EVERY_BIN]),
         # the row of each vector by a 32-bit division (exact below 2^32
         # entries, as at RCV1), and the row scale not loaded
@@ -182,12 +182,11 @@ SVM_NEW = {
                              "float s = (float)(r & 7);"),
                             ("s = __ldg(scale + ++r);",
                              "s = (float)(++r & 7);")]),
-        ("vectors2", [("constexpr int kUnroll = 1;", "constexpr int kUnroll = 2;")]),
     ],
     "svm_margin_gather": [
         ("base", []),
-        ("no_gather", [("? (kSharedW ? ws[i] : __ldg(w + i)) * p[u][q]",
-                        "? p[u][q]")]),
+        ("no_gather", [("? (kSharedW ? ws[i] : __ldg(w + i)) * p[q]",
+                        "? p[q]")]),
         # w read through L1 and L2 although it fits shared memory
         ("w_in_l1", [("  if (shared_w)\n    e = vec",
                       f"  if (shared_w && {D_NEVER})\n    e = vec")]),
@@ -195,21 +194,15 @@ SVM_NEW = {
         ("no_rows", [
             ("  const unsigned uL = (unsigned)L;",
              "  const unsigned uL = (unsigned)L;\n  float sink = 0.f;"),
-            (ROW_SUMS, "        sink += p[u][0] + p[u][1] + p[u][2] + "
-                       "p[u][3];"),
+            (ROW_SUMS, "      sink += p[0] + p[1] + p[2] + p[3];"),
             ("  }\n}\n\ntemplate <bool kSharedW, bool kVec>",
              f"  }}\n  if ({D_NEVER}) out[0] = sink;\n}}\n\n"
              "template <bool kSharedW, bool kVec>")]),
-        # 16 warps per SM, two lines per stage
-        ("warps16", [("constexpr int kThreads = 1024;",
-                      "constexpr int kThreads = 512;"),
-                     ("constexpr int kLines = 1;", "constexpr int kLines = 2;")]),
-        # the next stage's loads issued after this stage's row sums
-        ("no_prefetch", [("      load(l0 + kLines, nf, np);\n", ""),
-                         ("        for (int q = 0; q < 4; ++q) f[u][q] = "
-                          "nf[u][q], p[u][q] = np[u][q];",
-                          "        for (int q = 0; q < 4; ++q) {}\n"
-                          "      load(l0 + kLines, f, p);")]),
+        # the next line's loads issued after this line's row sums
+        ("no_prefetch", [("      load_line(l + 1, nf, np);\n", ""),
+                         ("#pragma unroll\n      for (int q = 0; q < 4; ++q) "
+                          "f[q] = nf[q], p[q] = np[q];",
+                          "      load_line(l + 1, f, p);")]),
     ],
 }
 
@@ -227,8 +220,8 @@ ENTRY = {"gather_assembly": "gather_assembly_f32",
          "svm_margin_gather": "margin_gather_f32"}
 # the SVM C entries (ops/svm_kernels.py), and the earlier ones
 ARGTYPES_NEW = {
-    "svm_scatter_add": [_P, _P, _P, _LL, _I, _LL, _I, _I, _P, _P],
-    "svm_margin_gather": [_P, _LL, _P, _P, _LL, _I, _I, _I, _I, _P, _P]}
+    "svm_scatter_add": [_P, _P, _P, _LL, _I, _LL, _I, _I, _I, _P, _P],
+    "svm_margin_gather": [_P, _LL, _P, _P, _LL, _I, _I, _I, _I, _I, _P, _P]}
 ARGTYPES_OLD = {"svm_scatter_add": [_P, _P, _LL, _LL, _P, _P],
                 "svm_margin_gather": [_P, _LL, _P, _P, _LL, _I, _P, _P]}
 
@@ -244,8 +237,9 @@ def build(kind, name, cuts, csrc=_build.CSRC, tag=""):
     with open(path + ".cu", "w") as f:
         f.write(src)
     return subprocess.Popen(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-         path + ".so", path + ".cu"], stderr=subprocess.PIPE, text=True)
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I",
+         str(_build.CSRC), "-o", path + ".so", path + ".cu"],
+        stderr=subprocess.PIPE, text=True)
 
 
 def finish(procs, argtypes):
@@ -355,18 +349,18 @@ def svm_call(kind, tag, fn, stream, w, idx, val, contrib, dalpha, rows, n,
         if kind == "svm_scatter_add":
             return {"": checked(fn, p[1], p[3], n, d, p[5], stream)}
         return {"": checked(fn, p[0], d, p[1], p[2], rows, L, p[6], stream)}
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    max_d = SK.scatter_shared_max_d()
+    limits = SK._device_limits(w.get_device())
     if kind == "svm_scatter_add":
-        plan = SK.scatter_plan(n, d, sms, max_d)
+        plan = SK.scatter_plan(n, d, *limits)
         return {f"[{form}]": checked(fn, p[1], src, scale, n, L, d,
-                                     int(plan.shared), plan.blocks, p[5],
-                                     stream)
+                                     int(plan.shared), plan.blocks,
+                                     plan.threads, p[5], stream)
                 for form, src, scale in (("contrib", p[3], None),
                                          ("row_scale", p[2], p[4]))}
-    plan = SK.margin_plan(rows, L, d, sms, max_d)
+    plan = SK.margin_plan(rows, L, d, *limits)
     return {"": checked(fn, p[0], d, p[1], p[2], rows, L, plan.tile_rows,
-                        int(plan.shared_w), plan.blocks, p[6], stream)}
+                        int(plan.shared_w), plan.blocks, plan.threads, p[6],
+                        stream)}
 
 
 def svm_cuts(old_csrc) -> None:

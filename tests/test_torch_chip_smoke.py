@@ -117,9 +117,18 @@ def test_scatter_plan_branch_and_grid(n, d):
     if plan.shared:
         # each block zeroes and flushes all d bins: at most one per SM and
         # none without a step of entries
-        per_step = plan.threads * 4 * SK.SCATTER_VECTORS
+        per_step = plan.threads * 4  # one 16-byte vector a thread
         assert plan.blocks <= SMS
         assert (plan.blocks - 1) * per_step < n
         assert plan.smem_bytes == 4 * d <= 4 * MAX_D
     else:
         assert plan.blocks <= 16 * SMS and plan.smem_bytes == 0
+
+
+def test_margin_plan_refuses_a_tile_past_32_bits():
+    from flink_ms_tpu_torch.ops import svm_kernels as SK
+
+    # the kernel counts a tile's entries in 32 bits: 128 rows of an odd L
+    assert SK.margin_plan(1, (1 << 25) - 1, 10, SMS, MAX_D).tile_rows == 128
+    with pytest.raises(ValueError, match="too long"):
+        SK.margin_plan(1, (1 << 25) + 1, 10, SMS, MAX_D)

@@ -98,3 +98,15 @@ def test_svm_entry_points_raise_without_cuda(no_cuda, tmp_path):
     assert TS.svm_fit(data, cfg, device="cpu").weights.shape == (4,)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         svm_train.run(Params.from_args(["--training", path]))
+
+
+def test_svm_wrapper_times_refuses_without_cuda(no_cuda, capsys):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "svm_wrapper_times", os.path.join(ROOT, "scripts",
+                                          "svm_wrapper_times.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    assert script.main([]) == 2
+    assert capsys.readouterr().out == ""
