@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA card: blocked ALS training and
-CoCoA SVM training, each through its hand-written CUDA kernels.
+CoCoA SVM training, each through its hand-written CUDA kernels, and top-k
+serving of the trained ALS model.
 
 Run from the repository root, on a machine with one CUDA card:
 
@@ -60,7 +61,31 @@ Phases, each printing lines of its own (``[smoke] ...``):
 9. SVM times — each SVM kernel at the RCV1 shape beside its bound, its
             plain version and a library yardstick: the margin gather, the
             scatter-add on a materialised contribution and in its
-            row-scale form, and the elementwise pass that form replaces.
+            row-scale form, and the elementwise pass that form replaces;
+10. serve — phase 4's ML-20M model in the port's ``ModelTable`` and served
+            through ``make_als_topk_handler`` (no new kernel: a matrix
+            product and a top-k): the first TOPK and its build, 256 TOPK
+            (k 10, seed 0) unbatched with p50/p99 against a float64 top-k
+            (one of them under torch.profiler), how a score's rounding
+            depends on the rows of its product, the same queries through
+            the batcher from 32 threads (equal replies, queries/s), 16
+            TOPKV equal to their TOPK twins, 1,000 item rows rewritten in
+            place (no rebuild), one new item through a background rebuild
+            within 30 s, and the offline MSE of the model on its 20M
+            ratings equal to phase 4's RMSE^2 at rtol 1e-4;
+11. serve scale — the reference's retrieval benchmark arms at full size
+            on the clustered catalog of ``scripts/ann_profile.py``, width
+            16, k 100: 1M rows on the exact tier (p50 at B = 1, queries/s
+            at B = 32, 64 lists against float64) and 10M rows on the IVF
+            tier (nlist 4096, nprobe 64; it must be built) beside the
+            exact tier: build seconds, dropped rows, recall probe, recall
+            of 512 mixture queries (printed beside the 0.95 contract, not
+            gated), p50 and queries/s, the IVF ids of 64 queries against a
+            float64 re-rank of the same shortlists (the gate), and the auto
+            tier serving exact under its recall gate and IVF above it.
+            Every p50 is printed beside the exact scan's bytes bound, and
+            one frame of each tier at B = 1 and 32 runs under
+            torch.profiler.
 
 Each kernel's ``ms`` is the median over calls timed one CUDA event pair
 each, the wrapper's host work included where it outlasts the device's;
@@ -149,6 +174,41 @@ def synth_rcv1(n, d, nnz_row, seed=0, flip_p=SVM_FLIP):
         values=val.ravel(),
         n_features=d,
     )
+
+
+def make_catalog(n: int, d: int, seed: int = 0):
+    """Clustered item factors and user-like queries: a copy of
+    ``scripts/ann_profile.py`` ``make_catalog``.  Items are a mixture of
+    gaussians (items cluster by taste dimension); the 512 queries are
+    smooth mixtures of cluster directions (users straddle tastes)."""
+    rng = np.random.default_rng(seed)
+    n_clusters = max(16, min(256, n // 2000))
+    cents = rng.normal(size=(n_clusters, d)).astype(np.float32) * 3.0
+    assign = rng.integers(0, n_clusters, size=n)
+    rows = cents[assign] + rng.normal(size=(n, d)).astype(np.float32) * 0.6
+    w = rng.dirichlet(np.ones(4), size=512).astype(np.float32)
+    picks = rng.integers(0, n_clusters, size=(512, 4))
+    queries = np.einsum("qm,qmd->qd", w, cents[picks]).astype(np.float32)
+    queries += rng.normal(size=queries.shape).astype(np.float32) * 0.2
+    return rows, queries
+
+
+def topk_agrees(cols, s64, k: int, rtol: float = 1e-5):
+    """Whether a served top-k list, as the columns `cols` of the float64
+    scores `s64` of its query, is their float64 top-k: k distinct columns
+    whose scores, rank by rank, equal the float64 order statistics within
+    `rtol` of the largest of them.  So the ids equal the float64 ones
+    except where float64 scores lie that close together, as the k-th and
+    (k+1)-th may.  -> (agrees, ids exactly equal)."""
+    k = min(k, len(s64))
+    top = np.argpartition(-s64, k - 1)[:k]
+    want = top[np.lexsort((top, -s64[top]))]
+    cols = list(cols)
+    if len(cols) != k or len(set(cols)) != k:
+        return False, False
+    tol = rtol * np.abs(s64[want]).max()
+    agrees = bool(np.all(np.abs(s64[cols] - s64[want]) <= tol))
+    return agrees, cols == want.tolist()
 
 
 def margin_gather_bytes(rows: int, L: int, d: int) -> int:
@@ -1047,6 +1107,363 @@ def svm_times(torch, SK, main):
     return entries
 
 
+TOPK_K = 10          # phase 10's replies
+UPDATE_ROWS = 1000   # item rows phase 10 rewrites in place
+SCALE_K = 100        # phase 11's, as the reference's retrieval benchmark
+SCALE_D = 16
+SCALE_EXACT_ROWS, SCALE_IVF_ROWS = 1_000_000, 10_000_000
+IVF_ENV = {"TPUMS_TOPK_TIER": "ivf", "TPUMS_ANN_NLIST": "4096",
+           "TPUMS_ANN_NPROBE": "64"}
+RECALL_CONTRACT = 0.95  # the reference's TPUMS_ANN_RECALL_MIN default
+
+
+def parse_reply(reply: str):
+    """``item:score;...`` -> ([item, ...], [score, ...])."""
+    pairs = [tok.rpartition(":") for tok in reply.split(";") if tok]
+    return [p[0] for p in pairs], [float(p[2]) for p in pairs]
+
+
+def payload_of(row) -> str:
+    """A factor row as the table stores it, ``f1;f2;...``; each float32
+    written as the shortest decimal of its double, so it parses back to
+    the same float32."""
+    return ";".join(map(repr, row.tolist()))
+
+
+def with_env(env: dict, fn):
+    """fn() with the environment variables `env` set, restored after."""
+    prior = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return fn()
+    finally:
+        for k, v in prior.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def latency_ms(fn, calls: int):
+    """(p50, p99) in ms of `calls` calls of fn(), each timed on the host
+    clock; every call ends with its results on the host."""
+    times = []
+    for j in range(calls):
+        t0 = time.perf_counter()
+        fn(j)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.percentile(times, 50)), float(np.percentile(times, 99))
+
+
+def serve_phase(torch, run, ratings_t, rmse3, dev):
+    """Phase 10: the ML-20M model of phase 4 served through the normal
+    entry point, ``make_als_topk_handler``, its replies held against a
+    float64 top-k of the same factors; the batcher, TOPKV, in-place row
+    updates, a background rebuild for a new item, and the offline MSE."""
+    import tempfile
+    import threading
+
+    from flink_ms_tpu_torch.core import formats as F
+    from flink_ms_tpu_torch.eval import mse as MSE
+    from flink_ms_tpu_torch.serve.table import ModelTable
+    from flink_ms_tpu_torch.serve.topk import make_als_topk_handler
+
+    model = run["model"]
+    uf = model.user_factors.cpu().numpy()
+    itf = model.item_factors.cpu().numpy().copy()  # rewritten below
+    u_ids = [str(u) for u in model.user_ids]
+    i_ids = [str(i) for i in model.item_ids]
+    col_of = {i: c for c, i in enumerate(i_ids)}
+    t0 = time.perf_counter()
+    table = ModelTable()
+    table.put_many([(f"{u}-U", payload_of(r)) for u, r in zip(u_ids, uf)]
+                   + [(f"{i}-I", payload_of(r)) for i, r in zip(i_ids, itf)])
+    fill_s = time.perf_counter() - t0
+    handler = make_als_topk_handler(table, device=dev)
+    index = handler.index
+    handler.batching = False
+    rng = np.random.default_rng(0)
+    qu = rng.integers(0, len(u_ids), 256)
+    t0 = time.perf_counter()
+    handler(u_ids[qu[0]], TOPK_K)
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index._snapshot_rows()
+    parse_s = time.perf_counter() - t0
+    check(index.full_builds == 1 and index._ann is None
+          and index.device == dev, "the first TOPK did not build one exact "
+          "index on the card")
+
+    replies = [None] * len(qu)
+
+    def unbatched(j):
+        replies[j] = handler(u_ids[qu[j]], TOPK_K)
+
+    p50, p99 = latency_ms(unbatched, len(qu))
+    s64 = uf[qu].astype(np.float64) @ itf.astype(np.float64).T
+    agree = exact = 0
+    for j, reply in enumerate(replies):
+        ok, same = topk_agrees([col_of[i] for i in parse_reply(reply)[0]],
+                               s64[j], TOPK_K)
+        agree += ok
+        exact += same
+    bound = itf.nbytes / PEAK_BYTES_PER_S * 1e3
+    log(f"serve ML-20M ({len(u_ids)} users x {len(i_ids)} items, rank "
+        f"{itf.shape[1]}): table filled in {fill_s:.2f}s; first TOPK "
+        f"{first_s:.3f}s (build: table snapshot parse {parse_s:.3f}s + "
+        f"upload); {len(qu)} TOPK k={TOPK_K} unbatched p50 {p50:.4f} ms, "
+        f"p99 {p99:.4f} ms (exact scan bytes bound {bound:.6f} ms); "
+        f"against a float64 top-k: {agree} agree, {exact} with equal ids")
+    check(agree == len(qu), f"{len(qu) - agree} TOPK replies off the float64 "
+          f"top-k")
+    if dev.type == "cuda":
+        device_busy(torch, "one unbatched TOPK, ML-20M",
+                    lambda: handler(u_ids[qu[1]], TOPK_K))
+
+    # why the exact tier scores every query in a product of at least 8
+    # rows: the rounding of a row's scores by the product's row count
+    m = index._matrix
+    qs = torch.from_numpy(uf[qu[:32]]).to(dev)
+    by_frame = {b: torch.cat([qs[lo:lo + b] @ m.T for lo in range(0, 32, b)])
+                for b in (1, 2, 4, 8, 16, 32)}
+    log("serve score rounding by rows per product, elements of 32 x "
+        f"{m.shape[0]} scores that differ from the 8-row product's: "
+        + ", ".join(f"{b} rows {(s != by_frame[8]).sum().item()}"
+                    for b, s in by_frame.items()))
+    del by_frame
+
+    handler.batching = True
+    batched = [None] * len(qu)
+    n_threads = 32
+    barrier = threading.Barrier(n_threads)
+
+    def worker(t):
+        barrier.wait()
+        for j in range(t, len(qu), n_threads):
+            batched[j] = handler(u_ids[qu[j]], TOPK_K)
+
+    threads = [threading.Thread(target=worker, args=(t,))
+               for t in range(n_threads)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    wall = time.perf_counter() - t0
+    b = handler.batcher
+    same = sum(x == y for x, y in zip(batched, replies))
+    log(f"serve batched, {n_threads} threads: {len(qu) / wall:.1f} queries/s "
+        f"({wall * 1e3:.1f} ms for {len(qu)}); {b.dispatches} dispatches, "
+        f"largest batch {b.max_batch_seen}, {b.inline_singles} inline; "
+        f"{same} of {len(qu)} replies equal the unbatched ones")
+    check(not any(t.is_alive() for t in threads), "a batched query hung")
+    check(same == len(qu), "batched replies differ from the unbatched ones")
+
+    vec_same = sum(handler.by_vector(table.get(f"{u_ids[qu[j]]}-U"), TOPK_K)
+                   == replies[j] for j in range(16))
+    log(f"serve TOPKV: {vec_same} of 16 equal their TOPK twins")
+    check(vec_same == 16, "TOPKV replies differ from TOPK")
+
+    # UPDATE_ROWS item rows rewritten, one of them made the best for user 0
+    handler.batching = False
+    u0 = qu[0]
+    check(UPDATE_ROWS < index.apply_cap, "the update must fit one query's cap")
+    rows = rng.choice(len(i_ids), UPDATE_ROWS, replace=False)
+    new = (rng.normal(size=(UPDATE_ROWS, itf.shape[1])) * 0.05).astype(
+        np.float32)
+    new[0] = uf[u0] * 4.0
+    itf[rows] = new
+    builds, inplace = index.full_builds, index.inplace_updates
+    table.put_many([(f"{i_ids[r]}-I", payload_of(v))
+                    for r, v in zip(rows, new)])
+    t0 = time.perf_counter()
+    ids = parse_reply(handler(u_ids[u0], TOPK_K))[0]
+    upd_ms = (time.perf_counter() - t0) * 1e3
+    s64 = uf[qu[:16]].astype(np.float64) @ itf.astype(np.float64).T
+    after = sum(topk_agrees([col_of[i] for i in parse_reply(
+        handler(u_ids[u], TOPK_K))[0]], s64[j], TOPK_K)[0]
+        for j, u in enumerate(qu[:16]))
+    log(f"serve updates: {UPDATE_ROWS} item rows put; the next TOPK took "
+        f"{upd_ms:.3f} ms, in-place updates "
+        f"+{index.inplace_updates - inplace}, full builds "
+        f"+{index.full_builds - builds}; top item {ids[0]} (the "
+        f"rewritten best {i_ids[rows[0]]}); {after} of 16 replies agree with "
+        f"a float64 top-k of the new factors")
+    check(ids[0] == i_ids[rows[0]] and index.full_builds == builds
+          and index.inplace_updates - inplace == UPDATE_ROWS and after == 16,
+          "the row updates were not applied in place")
+
+    new_id = "99999999"
+    table.put(f"{new_id}-I", payload_of(uf[u0] * 8.0))
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 30:
+        ids = parse_reply(handler(u_ids[u0], TOPK_K))[0]
+        if ids[0] == new_id:
+            break
+        time.sleep(0.01)
+    swap_s = time.perf_counter() - t0
+    log(f"serve new item: visible after {swap_s:.3f}s, full builds "
+        f"+{index.full_builds - builds}")
+    check(ids[0] == new_id and index.full_builds == builds + 1,
+          "the new item did not land through one background rebuild in 30 s")
+    handler.close()
+
+    users, items, ratings = ratings_t
+    with tempfile.TemporaryDirectory() as d:
+        paths = (os.path.join(d, "uf"), os.path.join(d, "itf"))
+        F.write_als_model(paths[0], model.user_ids, F.USER, uf)
+        F.write_als_model(paths[1], model.item_ids, F.ITEM,
+                          model.item_factors.cpu().numpy())
+        t0 = time.perf_counter()
+        mse, n_scored, n_skipped = MSE._compute_mse_offline_batched(
+            users, items, ratings, MSE._load_model_tables(",".join(paths)),
+            device=dev)
+        mse_s = time.perf_counter() - t0
+    gap = abs(mse - rmse3 ** 2) / rmse3 ** 2
+    log(f"serve offline MSE of the trained model on its {n_scored} training "
+        f"ratings ({n_skipped} skipped): {mse!r} in {mse_s:.2f}s, phase 4's "
+        f"RMSE^2 {rmse3 ** 2!r}, relative gap {gap:.3e} (limit 1e-4)")
+    check(n_scored == len(ratings) and gap <= 1e-4,
+          "the offline MSE is not phase 4's train RMSE^2")
+    return {"p50_ms": p50, "p99_ms": p99, "qps": len(qu) / wall}
+
+
+def scale_index(torch, rows, ids, dev, env):
+    """A bulk-loaded ``DeviceFactorIndex`` under `env` -> (index, build
+    seconds)."""
+    from flink_ms_tpu_torch.serve.table import ModelTable
+    from flink_ms_tpu_torch.serve.topk import DeviceFactorIndex
+
+    def build():
+        t0 = time.perf_counter()
+        index = DeviceFactorIndex(ModelTable(), "-I", device=dev)
+        index.bulk_load(ids, rows)
+        return index, time.perf_counter() - t0
+
+    return with_env(env, build)
+
+
+def scale_times(torch, index, queries, label, bytes_ms):
+    """p50 at B = 1 and queries per second at B = 32, through the index's
+    own entry points."""
+    p50, _ = latency_ms(lambda j: index.topk(queries[j % len(queries)],
+                                             SCALE_K), 200)
+    frames = [queries[(32 * j) % 480:][:32] for j in range(33)]
+    index.topk_many(frames[0], SCALE_K)
+    t0 = time.perf_counter()
+    for f in frames[1:]:
+        index.topk_many(f, SCALE_K)
+    qps = 32 * 32 / (time.perf_counter() - t0)
+    log(f"scale {label}: p50 at B=1 {p50:.4f} ms (exact scan bytes bound "
+        f"{bytes_ms:.6f} ms), {qps:.1f} queries/s at B=32")
+    if index.device.type == "cuda":
+        for b in (1, 32):
+            device_busy(torch, f"{label} one frame of B={b}",
+                        lambda: index.topk_many(frames[1][:b], SCALE_K))
+    return p50, qps
+
+
+def exact_check(rows, queries, results, label):
+    """Each served top-k list against a float64 top-k of the catalog."""
+    agree = exact = 0
+    rows64 = rows.astype(np.float64)
+    for lo in range(0, len(queries), 8):
+        s64 = queries[lo:lo + 8].astype(np.float64) @ rows64.T
+        for j in range(s64.shape[0]):
+            ok, same = topk_agrees([int(i) for i, _ in results[lo + j]],
+                                   s64[j], SCALE_K)
+            agree += ok
+            exact += same
+    log(f"scale {label}: {len(queries)} top-{SCALE_K} lists against a float64 "
+        f"top-k: {agree} agree, {exact} with equal ids")
+    check(agree == len(queries), f"{label}: top-k off the float64 top-k")
+
+
+def serve_scale_phase(torch, dev):
+    """Phase 11: the two arms of the reference's retrieval benchmark at full
+    size on its clustered catalog, factor width 16: 1M rows on the exact
+    tier, 10M on the IVF tier beside the exact one."""
+    from flink_ms_tpu_torch.serve.topk import topk_lowest_first
+
+    rows, queries = make_catalog(SCALE_EXACT_ROWS, SCALE_D)
+    ids = [str(i) for i in range(len(rows))]
+    index, build_s = scale_index(torch, rows, ids, dev,
+                                 {"TPUMS_TOPK_TIER": "exact"})
+    check(index._ann is None, "the exact arm built an IVF tier")
+    log(f"scale exact {len(rows)} x {SCALE_D}: bulk_load {build_s:.3f}s")
+    out = {"exact_1m": scale_times(torch, index, queries,
+                                   f"exact {len(rows)}",
+                                   rows.nbytes / PEAK_BYTES_PER_S * 1e3)}
+    exact_check(rows, queries[:64], index.topk_many(queries[:64], SCALE_K),
+                f"exact {len(rows)}")
+    del index
+
+    rows, queries = make_catalog(SCALE_IVF_ROWS, SCALE_D)
+    ids = [str(i) for i in range(len(rows))]
+    bytes_ms = rows.nbytes / PEAK_BYTES_PER_S * 1e3
+    ivf, build_s = scale_index(torch, rows, ids, dev, IVF_ENV)
+    ann = ivf._ann
+    check(ann is not None, "the IVF tier was not built at 10M rows")
+    log(f"scale ivf {len(rows)} x {SCALE_D}: build {build_s:.3f}s (upload, "
+        f"k-means, assignment, lists, recall probe), nlist {ann.nlist}, "
+        f"nprobe {ann.nprobe}, list_len {ann.list_len}, dropped "
+        f"{ann.dropped}, recall_probe {ann.recall_probe}")
+    exact, exact_build_s = scale_index(torch, rows, ids, dev,
+                                       {"TPUMS_TOPK_TIER": "exact"})
+    log(f"scale exact {len(rows)}: bulk_load {exact_build_s:.3f}s")
+    hits = 0
+    for lo in range(0, len(queries), 32):
+        for r, g in zip(exact.topk_many(queries[lo:lo + 32], SCALE_K),
+                        ivf.topk_many(queries[lo:lo + 32], SCALE_K)):
+            hits += len({i for i, _ in r} & {i for i, _ in g})
+    recall = hits / (len(queries) * SCALE_K)
+    log(f"scale ivf recall@{SCALE_K} of {len(queries)} mixture queries "
+        f"against the exact scan: {recall} (the reference's contract "
+        f"{RECALL_CONTRACT}; printed, not gated)")
+    out["ivf_10m"] = scale_times(torch, ivf, queries, f"ivf {len(rows)}",
+                                 bytes_ms)
+    out["exact_10m"] = scale_times(torch, exact, queries,
+                                   f"exact {len(rows)}", bytes_ms)
+    exact_check(rows, queries[:64], exact.topk_many(queries[:64], SCALE_K),
+                f"exact {len(rows)}")
+    del exact
+
+    # the correctness gate: the IVF ids against a float64 re-rank of the
+    # same shortlists, from the same postings and probes
+    q = queries[:64]
+    got = ivf.topk_many(q, SCALE_K)
+    probe = topk_lowest_first(
+        torch.from_numpy(q).to(dev) @ ann.centroids.T, ann.nprobe)[1]
+    cand = ann.postings[probe].reshape(len(q), -1).cpu().numpy()
+    agree = exact_ids = 0
+    for j in range(len(q)):
+        c = cand[j][cand[j] >= 0]
+        s64 = rows[c].astype(np.float64) @ q[j].astype(np.float64)
+        pos = {int(r): p for p, r in enumerate(c)}
+        ok, same = topk_agrees([pos[int(i)] for i, _ in got[j]], s64, SCALE_K)
+        agree += ok
+        exact_ids += same
+    log(f"scale ivf: {len(q)} top-{SCALE_K} lists against a float64 re-rank "
+        f"of the same shortlists: {agree} agree, {exact_ids} with equal ids")
+    check(agree == len(q), "IVF ids off the float64 re-rank of the shortlists")
+    recall_probe = ann.recall_probe
+    del ivf, ann
+
+    for gate, want_ivf in ((recall_probe + 0.01, False),
+                           (recall_probe - 0.01, True)):
+        auto, _ = scale_index(torch, rows, ids, dev, {
+            **IVF_ENV, "TPUMS_TOPK_TIER": "auto",
+            "TPUMS_ANN_RECALL_MIN": repr(gate)})
+        log(f"scale auto tier, recall gate {gate:.4f}: serves "
+            f"{'ivf' if auto._ann is not None else 'exact'} (recall probe "
+            f"{auto._obs_ann_recall.value})")
+        check((auto._ann is not None) == want_ivf,
+              f"auto tier at gate {gate} did not serve "
+              f"{'ivf' if want_ivf else 'exact'}")
+        del auto
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1125,6 +1542,9 @@ def main() -> int:
         e["launches"] = svm_launches[e["name"]]
         e["launches_by_path"] = {"svm_rcv1": svm_launches[e["name"]]}
         entries.append(e)
+
+    serve_phase(torch, final, (users, items, ratings), final["rmse"][2], dev)
+    serve_scale_phase(torch, dev)
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "device_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

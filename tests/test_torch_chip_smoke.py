@@ -132,3 +132,94 @@ def test_margin_plan_refuses_a_tile_past_32_bits():
     assert SK.margin_plan(1, (1 << 25) - 1, 10, SMS, MAX_D).tile_rows == 128
     with pytest.raises(ValueError, match="too long"):
         SK.margin_plan(1, (1 << 25) + 1, 10, SMS, MAX_D)
+
+
+# -- phases 10 and 11, rehearsed on the CPU at small sizes --------------------
+
+
+def test_make_catalog_equals_the_ann_profile_copy(monkeypatch):
+    import importlib.util
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "ann_profile", os.path.join(root, "scripts", "ann_profile.py"))
+    script = importlib.util.module_from_spec(spec)
+    with monkeypatch.context() as m:
+        # the script pins these at import; keep its pins out of the session
+        m.setenv("TPUMS_TOPK_PLATFORM", "cpu")
+        m.setenv("JAX_PLATFORMS", "cpu")
+        spec.loader.exec_module(script)
+    for n, d in ((5000, 16), (40_000, 8)):
+        got, want = chip_smoke.make_catalog(n, d), script.make_catalog(n, d)
+        assert all(np.array_equal(a, b) for a, b in zip(got, want))
+
+
+def test_topk_agrees_allows_only_near_ties():
+    s64 = np.array([5.0, 9.0, 7.0, 7.0 + 1e-7, 1.0, 3.0])
+    assert chip_smoke.topk_agrees([1, 3, 2], s64, 3) == (True, True)
+    # the near-tied pair in either order, and at the k-th place
+    assert chip_smoke.topk_agrees([1, 2, 3], s64, 3) == (True, False)
+    assert chip_smoke.topk_agrees([1, 2], s64, 2) == (True, False)
+    assert chip_smoke.topk_agrees([1, 0, 2], s64, 3)[0] is False
+    assert chip_smoke.topk_agrees([1, 3, 3], s64, 3)[0] is False
+    assert chip_smoke.topk_agrees([1, 3], s64, 3)[0] is False
+
+
+@pytest.fixture
+def small_model():
+    from flink_ms_tpu_torch.ops import als as TA
+
+    rng = np.random.default_rng(0)
+    ratings = (rng.integers(0, 300, 20_000), rng.integers(0, 1_500, 20_000),
+               rng.uniform(1, 5, 20_000))
+    model = TA.als_fit(*ratings, TA.ALSConfig(num_factors=8, iterations=3,
+                                              lambda_=0.1), "cpu")
+    return model, ratings, TA.rmse(model, *ratings, "cpu")
+
+
+def test_serve_phase_rehearsal(small_model, capsys):
+    import torch
+
+    model, ratings, rmse = small_model
+    out = chip_smoke.serve_phase(torch, {"model": model}, ratings, rmse,
+                                 torch.device("cpu"))
+    assert out["p50_ms"] > 0 and out["qps"] > 0
+    logs = capsys.readouterr().out
+    assert "256 agree" in logs and "256 of 256 replies equal" in logs
+    assert "in-place updates +1000, full builds +0" in logs
+    assert "relative gap" in logs
+
+
+@pytest.fixture
+def small_scale(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "SCALE_EXACT_ROWS", 20_000)
+    monkeypatch.setattr(chip_smoke, "SCALE_IVF_ROWS", 60_000)
+    monkeypatch.setattr(chip_smoke, "IVF_ENV", {
+        "TPUMS_TOPK_TIER": "ivf", "TPUMS_ANN_NLIST": "128",
+        "TPUMS_ANN_NPROBE": "16", "TPUMS_ANN_MIN_ROWS": "1000"})
+
+
+def test_serve_scale_phase_rehearsal(small_scale, capsys):
+    import torch
+
+    out = chip_smoke.serve_scale_phase(torch, torch.device("cpu"))
+    assert set(out) == {"exact_1m", "ivf_10m", "exact_10m"}
+    logs = capsys.readouterr().out
+    assert "64 top-100 lists against a float64 re-rank" in logs
+    assert "serves exact" in logs and "serves ivf" in logs
+
+
+def test_serve_scale_phase_fails_without_the_ivf_tier(small_scale,
+                                                      monkeypatch):
+    import torch
+
+    from flink_ms_tpu_torch.serve.ann import IVFIndex
+
+    def broken(*a, **kw):
+        raise RuntimeError("out of memory")
+
+    monkeypatch.setattr(IVFIndex, "build", broken)
+    with pytest.raises(chip_smoke.SmokeFailure, match="IVF tier was not "
+                                                      "built"):
+        chip_smoke.serve_scale_phase(torch, torch.device("cpu"))

@@ -29,6 +29,12 @@ def test_port_and_chip_smoke_load_no_jax():
         for name in names:
             importlib.import_module(name)
         import chip_smoke
+        assert {"flink_ms_tpu_torch.obs.metrics",
+                "flink_ms_tpu_torch.serve.table",
+                "flink_ms_tpu_torch.serve.topk",
+                "flink_ms_tpu_torch.serve.ann",
+                "flink_ms_tpu_torch.serve.microbatch",
+                "flink_ms_tpu_torch.eval.mse"} <= set(names)
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
                      or m == "flink_ms_tpu" or m.startswith("flink_ms_tpu."))
@@ -39,7 +45,7 @@ def test_port_and_chip_smoke_load_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 17  # every module of the port was imported
+    assert int(n) >= 26  # every module of the port was imported
     assert bad == "[]"
 
 
@@ -110,3 +116,29 @@ def test_svm_wrapper_times_refuses_without_cuda(no_cuda, capsys):
     spec.loader.exec_module(script)
     assert script.main([]) == 2
     assert capsys.readouterr().out == ""
+
+
+def test_serving_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    from flink_ms_tpu_torch.eval import mse
+    from flink_ms_tpu_torch.serve.ann import IVFIndex
+    from flink_ms_tpu_torch.serve.table import ModelTable
+    from flink_ms_tpu_torch.serve.topk import (DeviceFactorIndex,
+                                               make_als_topk_handler)
+
+    table = ModelTable()
+    table.put("1-I", "1.0;2.0")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DeviceFactorIndex(table)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_als_topk_handler(table)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        IVFIndex.build(np.ones((16, 2), np.float32), nlist=2)
+    F.write_lines(str(tmp_path / "m"), ["1,U,1.0;2.0", "1,I,0.5;0.5"])
+    F.write_lines(str(tmp_path / "r"), ["u\ti\tr", "1\t1\t3.0"])
+    args = ["--input", str(tmp_path / "r"), "--model", str(tmp_path / "m")]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mse.run(Params.from_args(args))
+    assert mse.run(Params.from_args(args + ["--device", "cpu"])) == 2.25
+    handler = make_als_topk_handler(table, device="cpu")
+    assert handler.by_vector("1.0;1.0", 1) == "1:3.0"
+    handler.close()
