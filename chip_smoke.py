@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA card: blocked ALS training and
-CoCoA SVM training, each through its hand-written CUDA kernels, and top-k
-serving of the trained ALS model.
+CoCoA SVM training, each through its hand-written CUDA kernels, top-k
+serving of the trained ALS model, staged ALS with resume, the SVM's opt-in
+modes, the model generators and the autopilot's retrain.
 
 Run from the repository root, on a machine with one CUDA card:
 
@@ -85,7 +86,33 @@ Phases, each printing lines of its own (``[smoke] ...``):
             tier serving exact under its recall gate and IVF above it.
             Every p50 is printed beside the exact scan's bytes bound, and
             one frame of each tier at B = 1 and 32 runs under
-            torch.profiler.
+            torch.profiler;
+12. staged ALS — ``als_fit(temporary_path=...)`` at phase 4's ML-20M shape
+            and init: 2 staged iterations, then a 3-iteration call that
+            must print the resume line and run one, equal to phase 4's
+            straight 3-iteration fit at rtol 1e-3 / atol 1e-5; each staged
+            iteration's wall time (``StepTimer``) beside the unstaged
+            sec/iter, the snapshot's bytes, its write and the factors'
+            copy to the host alone, and both kernels' launches;
+13. SVM modes — at phase 7's RCV1 shape, on data made anew,
+            ``FLINK_MS_SVM_STEP=onehot`` (run as the dynamic step),
+            ``FLINK_MS_SVM_DW=sorted`` and ``presorted`` (one presorted
+            layout, built on the card): ms/round (1 vs 10 rounds, median of
+            3) beside the default's, set-up, the objective after 10 rounds,
+            the launches per mode (no scatter-add in a sorted mode), two
+            rounds of each under torch.profiler; the one-hot step bit for
+            bit the dynamic step's, the sorted modes within rtol 2e-4 /
+            atol 1e-6 of direct Δw and of each other;
+14. generators — the ALS model generator at the ML-20M model's shape on
+            the card (one process) and in 4 worker processes: rows/s, ids,
+            every row parsed, the one-process rows equal to the card's
+            draws replayed and num's moments; the SVM model generator at
+            RCV1's 47,236 features: zero share and the weights' range;
+15. retrain — the autopilot's retrain on phase 4's 20M ratings, rank 50, 4
+            iterations, cold and warm from phase 4's model: seconds, rows,
+            the candidate journal's bytes, write seconds and read-back, the
+            held-out MSE of each (the warm one must be lower), and both
+            kernels' launches.
 
 Each kernel's ``ms`` is the median over calls timed one CUDA event pair
 each, the wrapper's host work included where it outlasts the device's;
@@ -360,6 +387,13 @@ def device_busy(torch, label, fn, top=5) -> list:
     return [e.key for e in every]
 
 
+def sync(torch) -> None:
+    """Wait for the card, where there is one (the phases' CPU rehearsals
+    run without)."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
 def rel_err(got, want) -> float:
     """max |got - want| / max |want| (0 when both are 0)."""
     scale = want.abs().max().item()
@@ -532,6 +566,23 @@ def time_fit(torch, fit_fn, dev_args, iters=5, repeats=3):
     return float(np.median(samples)), ran, out
 
 
+def reset_als_launches(CH, GA) -> None:
+    CH.LAUNCHES = 0
+    CH.BATCH_MAJOR_LAUNCHES = 0
+    GA.LAUNCHES = 0
+
+
+def als_launches(CH, GA) -> dict:
+    return {"cholesky": CH.LAUNCHES, "assembly": GA.LAUNCHES,
+            "cholesky_batch_major": CH.BATCH_MAJOR_LAUNCHES}
+
+
+def factors_off(a, b) -> float:
+    """max over components of |a - b| / (1e-5 + 1e-3 |b|): at most 1 is
+    within the parity contract's rtol 1e-3 / atol 1e-5."""
+    return ((a - b).abs() / (1e-5 + 1e-3 * b.abs())).max().item()
+
+
 FUSED_ENV = {"FLINK_MS_ALS_FUSED": "1",
              # 512 MiB of (C, k, k) systems per chunk: the big buckets of
              # both sides are cut, so the solve's per-chunk entry runs
@@ -551,9 +602,7 @@ def main_path(torch, TA, CH, GA, problem, fit, ratings_t, init, dev):
     for label, env in (("default", {}), ("fused", FUSED_ENV)):
         os.environ.update(env)
         try:
-            CH.LAUNCHES = 0
-            CH.BATCH_MAJOR_LAUNCHES = 0
-            GA.LAUNCHES = 0
+            reset_als_launches(CH, GA)
             sec, ran, (uf, itf) = time_fit(torch, fit_fn, dev_args)
             rmses, models = [], []
             for it in (1, 2, 3):
@@ -564,11 +613,12 @@ def main_path(torch, TA, CH, GA, problem, fit, ratings_t, init, dev):
                 rmses.append(TA.rmse(models[-1], users, items, ratings, dev))
                 ran += it
             torch.cuda.synchronize()
-            n_chol, n_asm = CH.LAUNCHES, GA.LAUNCHES
-            n_bm = CH.BATCH_MAJOR_LAUNCHES
+            launches = als_launches(CH, GA)
         finally:
             for key in env:
                 del os.environ[key]
+        n_chol, n_asm = launches["cholesky"], launches["assembly"]
+        n_bm = launches["cholesky_batch_major"]
         log(f"main {label}: {sec:.6f} sec/iter (median of 3, 1 vs N "
             f"iterations); train RMSE after 1,2,3 iterations {rmses}; "
             f"launches over {ran} iterations: cholesky {n_chol} (of them "
@@ -591,15 +641,13 @@ def main_path(torch, TA, CH, GA, problem, fit, ratings_t, init, dev):
         check(bool((uf[-1] == 0).all()) and bool((itf[-1] == 0).all()),
               f"{label}: a dummy slot's factor row is not zero")
         runs[label] = {"sec_per_iter": sec, "rmse": rmses, "uf": uf,
-                       "itf": itf, "model": models[-1],
-                       "launches": {"cholesky": n_chol, "assembly": n_asm,
-                                    "cholesky_batch_major": n_bm}}
+                       "itf": itf, "model": models[-1], "launches": launches}
     # Chunks split the row axis only and each row is its own system, so
     # the two paths must agree entry by entry
     a, b = runs["fused"]["model"], runs["default"]["model"]
     for name, x, y in (("user", a.user_factors, b.user_factors),
                        ("item", a.item_factors, b.item_factors)):
-        elem = ((x - y).abs() / (1e-5 + 1e-3 * y.abs())).max().item()
+        elem = factors_off(x, y)
         log(f"main: {name} factors after 3 iterations, fused vs default: "
             f"component-wise {elem:.4f} of rtol 1e-3 / atol 1e-5, max "
             f"|diff| {(x - y).abs().max().item():.3e}")
@@ -890,7 +938,7 @@ def time_rounds(torch, fit, dev_args, rounds, repeats=3):
         nonlocal ran
         t0 = time.perf_counter()
         fit(trip, *dev_args)
-        torch.cuda.synchronize()
+        sync(torch)
         ran += trip
         return time.perf_counter() - t0
 
@@ -910,16 +958,22 @@ def svm_config(TS, problem, **kw):
                         sigma_prime=SVM_SIGMA, **kw)
 
 
-def svm_main(torch, TS, SK, dev):
-    """Phase 7: CoCoA at the RCV1 shape through both kernels.  The launch
-    counts are set to 0 just before the path and read just after it.
-    -> (the path's launch counts, the inputs of phase 9)."""
+def svm_inputs(TS):
+    """The RCV1-shaped data and its blocked problem, made anew by each
+    phase that trains on them.  -> (data, problem, synth s, prepare s)."""
     t0 = time.perf_counter()
     data = synth_rcv1(SVM_N, SVM_D, SVM_NNZ, seed=0)
     synth_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     problem = TS.prepare_svm_blocked(data, SVM_K)
-    prep_s = time.perf_counter() - t0
+    return data, problem, synth_s, time.perf_counter() - t0
+
+
+def svm_main(torch, TS, SK, dev):
+    """Phase 7: CoCoA at the RCV1 shape through both kernels.  The launch
+    counts are set to 0 just before the path and read just after it.
+    -> (the path's launch counts, the inputs of phase 9)."""
+    data, problem, synth_s, prep_s = svm_inputs(TS)
     cfg = svm_config(TS, problem)
     inner = TS._resolve_inner(problem, cfg)
     log(f"svm setup: {data.n_examples} x {data.n_features}, "
@@ -971,9 +1025,12 @@ def svm_main(torch, TS, SK, dev):
           f"its row scale")
     device_busy(torch, "svm 2 rounds", lambda: fit(2, *dev_args))
     w, alpha = fit(SVM_ROUNDS, *dev_args)
+    alpha1 = fit(1, *dev_args)[1]
+    repeat = torch.equal(fit(SVM_ROUNDS, *dev_args)[0], w)
     return launches, {"sec_per_round": sec, "objective": objs,
                       "idx": dev_args[1], "val": dev_args[2], "w": w,
-                      "alpha": alpha}
+                      "alpha": alpha, "alpha1": alpha1,
+                      "w_repeat_equal": repeat}
 
 
 def svm_cross_checks(torch, TS, dev):
@@ -1464,6 +1521,403 @@ def serve_scale_phase(torch, dev):
     return out
 
 
+RETRAIN_ITERS = 4  # the reference autopilot's TPUMS_AUTOPILOT_ITERS default
+RESUME_LINE = "[ALS] staging: resuming from iteration"
+
+
+def median_s(torch, fn, reps=3) -> float:
+    times = []
+    for _ in range(reps):
+        sync(torch)
+        t0 = time.perf_counter()
+        fn()
+        sync(torch)
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))
+
+
+def staged_phase(torch, TA, CH, GA, problem, ratings_t, init, straight,
+                 unstaged_sec, dev):
+    """Phase 12: staged ALS (``temporary_path``) at the ML-20M shape of
+    phase 4, from its init: 2 staged iterations, then a 3-iteration call
+    that must resume from the second snapshot and run one; the result
+    against phase 4's straight 3-iteration fit from the same init.
+    -> the path's launch counts."""
+    import contextlib
+    import io
+    import tempfile
+
+    from flink_ms_tpu_torch.utils.profiling import StepTimer
+
+    users, items, ratings = ratings_t
+    n_buckets = len(problem.u.widths) + len(problem.i.widths)
+    timer = StepTimer("als-iteration")
+
+    def cfg(iterations):
+        return TA.ALSConfig(num_factors=RANK, iterations=iterations,
+                            lambda_=LAMBDA)
+
+    with tempfile.TemporaryDirectory() as d:
+        stage = os.path.join(d, "stage")
+        reset_als_launches(CH, GA)
+        TA.als_fit(users, items, ratings, cfg(2), dev, problem=problem,
+                   init=init, temporary_path=stage, step_timer=timer)
+        first = sorted(os.listdir(stage))
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            model = TA.als_fit(users, items, ratings, cfg(3), dev,
+                               problem=problem, init=init,
+                               temporary_path=stage, step_timer=timer)
+        sys.stdout.write(buf.getvalue())
+        sync(torch)
+        launches = als_launches(CH, GA)
+        last = sorted(os.listdir(stage))
+        snap_bytes = os.path.getsize(os.path.join(stage, "iter_00003.npz"))
+        uf = model.user_factors.cpu().numpy()
+        itf = model.item_factors.cpu().numpy()
+        meta = TA._staging_meta(problem, cfg(3), init)
+        n = iter(range(10, 100))
+        write_s = median_s(torch, lambda: TA.save_staged(
+            os.path.join(d, "write"), next(n), uf, itf, meta))
+        copy_s = median_s(torch, lambda: (model.user_factors.cpu(),
+                                          model.item_factors.cpu()))
+    ms = [t * 1e3 for t in timer.durations_s]
+    log(f"staged ALS at the ML-20M shape: 2 staged iterations left {first}; "
+        f"the 3-iteration call printed the resume line: "
+        f"{RESUME_LINE in buf.getvalue()}; staged iterations (StepTimer, "
+        f"sweep + copy to the host + snapshot write) "
+        f"{', '.join(f'{t:.3f}' for t in ms)} ms, against phase 4's "
+        f"unstaged {unstaged_sec * 1e3:.3f} ms/iter; {timer.summary()}")
+    log(f"staged ALS snapshot: {snap_bytes} bytes ({uf.shape[0]} + "
+        f"{itf.shape[0]} rows x {RANK} f32); save_staged alone "
+        f"{write_s * 1e3:.3f} ms, the factors' copy to the host alone "
+        f"{copy_s * 1e3:.3f} ms (medians of 3); left {last}; launches "
+        f"over 3 iterations: cholesky {launches['cholesky']} (batch-major "
+        f"{launches['cholesky_batch_major']}), assembly "
+        f"{launches['assembly']}")
+    check(f"{RESUME_LINE} 2 ({stage})" in buf.getvalue(),
+          "the staged 3-iteration call did not resume from iteration 2")
+    check(first == ["iter_00001.npz", "iter_00002.npz"]
+          and last == ["iter_00002.npz", "iter_00003.npz"],
+          f"staging left {first}, then {last}")
+    check(len(timer.durations_s) == 3, f"{len(timer.durations_s)} staged "
+          "iterations timed for 2 + 1")
+    check(launches == {"cholesky": 6, "assembly": 3 * n_buckets,
+                       "cholesky_batch_major": 0},
+          f"staged launches {launches} for 3 iterations of {n_buckets} "
+          f"buckets")
+    for name, x, y in (("user", model.user_factors, straight.user_factors),
+                       ("item", model.item_factors, straight.item_factors)):
+        off = factors_off(x, y)
+        log(f"staged ALS: {name} factors, resumed 2 + 1 vs straight 3 "
+            f"iterations: component-wise {off:.4f} of rtol 1e-3 / atol 1e-5")
+        check(off <= 1.0, f"the staged {name} factors are off the straight "
+              f"fit's")
+    return launches
+
+
+SVM_MODES = (("onehot", {"FLINK_MS_SVM_STEP": "onehot"}),
+             ("sorted", {"FLINK_MS_SVM_DW": "sorted"}),
+             ("presorted", {"FLINK_MS_SVM_DW": "presorted"}))
+
+
+def svm_modes_phase(torch, TS, SK, run, dev):
+    """Phase 13: the gram engine's opt-in modes at the RCV1 shape of phase
+    7, on data made anew here, each compiled through ``compile_svm_fit``
+    under its variable: sec/round, set-up, the objective after 10 rounds
+    and the launches of each kernel.  The port runs the one-hot step as
+    the dynamic step and both sorted modes over the presorted layout
+    (``ops/svm.py``).  The one-hot step is held bit for bit to the dynamic
+    step (alpha after one round with the direct Δw; w and alpha after 10
+    rounds with the presorted Δw, whose segment sum runs in a fixed
+    order); the sorted modes to direct Δw and to each other at rtol 2e-4
+    / atol 1e-6, and they must launch no scatter-add.  Two rounds of each
+    mode run under torch.profiler on the card.  -> {mode: launches}."""
+    data, problem = svm_inputs(TS)[:2]
+    cfg = svm_config(TS, problem)
+
+    def over(got, want):
+        return ((got - want).abs() / (SVM_ATOL + SVM_RTOL * want.abs())
+                ).max().item()
+
+    out, res = {}, {}
+    for label, env in SVM_MODES:
+        def drive():
+            runs_as = (TS._step_choice(), TS._dw_choice())
+            for key in SK.LAUNCHES:
+                SK.LAUNCHES[key] = 0
+            t0 = time.perf_counter()
+            fit, dev_args = TS.compile_svm_fit(problem, cfg, dev)
+            sync(torch)
+            setup_s = time.perf_counter() - t0
+            sec, ran = time_rounds(torch, fit, dev_args, SVM_ROUNDS)
+            w, alpha = fit(SVM_ROUNDS, *dev_args)
+            alpha1 = fit(1, *dev_args)[1]
+            sync(torch)
+            launches = dict(SK.LAUNCHES)
+            ran += SVM_ROUNDS + 1
+            if dev.type == "cuda":
+                device_busy(torch, f"svm {label} 2 rounds",
+                            lambda: fit(2, *dev_args))
+            return {"fit": fit, "dev_args": dev_args, "sec": sec, "ran": ran,
+                    "w": w, "alpha": alpha, "alpha1": alpha1,
+                    "launches": launches, "setup_s": setup_s,
+                    "runs_as": runs_as}
+
+        r = with_env(env, drive)
+        model = TS.SVMModel(weights=r["w"].cpu().numpy().astype(np.float64))
+        r["objective"] = model.hinge_loss(data, SVM_LAMBDA)
+        sort = label != "onehot"
+        log(f"svm mode {label} (runs as step {r['runs_as'][0]}, Δw "
+            f"{r['runs_as'][1]}): {r['sec'] * 1e3:.3f} ms/round (median of "
+            f"3, 1 vs {SVM_ROUNDS} rounds) against the default's "
+            f"{run['sec_per_round'] * 1e3:.3f}; set-up (upload, Gram build"
+            f"{', sorted layout on the card' if sort else ''}) "
+            f"{r['setup_s']:.3f}s; "
+            f"objective after {SVM_ROUNDS} rounds {r['objective']!r} (default "
+            f"{run['objective'][1]!r}); w vs the default's "
+            f"{over(r['w'], run['w']):.4f} of rtol {SVM_RTOL} / atol "
+            f"{SVM_ATOL}, max |diff| {(r['w'] - run['w']).abs().max().item():.3e}"
+            f"; launches over {r['ran']} rounds: {r['launches']}")
+        out[label] = r["launches"]
+        want_scatter = r["ran"] if label == "onehot" else 0
+        check(r["launches"] == {"margin_gather": r["ran"],
+                                "scatter_add_dw": 0,
+                                "scatter_add_dw[row_scale]": want_scatter},
+              f"svm mode {label}: {r['launches']} launches for {r['ran']} "
+              f"rounds; expected one margin gather a round and "
+              f"{want_scatter} row-scale scatter-adds")
+        check(np.isfinite(r["objective"]) and over(r["w"], run["w"]) <= 1.0
+              and over(r["alpha"], run["alpha"]) <= 1.0,
+              f"svm mode {label}: w or alpha off the default's")
+        if label == "onehot":
+            check(torch.equal(r["alpha1"], run["alpha1"]),
+                  "the one-hot step's alpha after one round is not the "
+                  "dynamic step's bit for bit")
+            # w after 10 rounds goes through the scatter-add's float
+            # atomics; the bit-for-bit check of w is made below, over the
+            # presorted Δw's segment sum
+            log("svm mode onehot: alpha after one round equal to the "
+                "dynamic step's bit for bit; phase 7's default fit run "
+                f"twice gives w equal bit for bit: {run['w_repeat_equal']}")
+        res[label] = r
+        if label != "presorted":
+            del r["fit"], r["dev_args"]
+    off = max(over(res["sorted"]["w"], res["presorted"]["w"]),
+              over(res["sorted"]["alpha"], res["presorted"]["alpha"]))
+    log(f"svm sorted vs presorted (w and alpha): {off:.4f} of rtol "
+        f"{SVM_RTOL} / atol {SVM_ATOL}")
+    check(off <= 1.0, "the sorted and the presorted Δw disagree")
+    # the one-hot step over the presorted layout, from the same arguments
+    pre = res["presorted"]
+    fit_o = with_env({"FLINK_MS_SVM_STEP": "onehot",
+                      "FLINK_MS_SVM_DW": "presorted"},
+                     lambda: TS._make_fit(problem, cfg, dev)[0])
+    w_o, a_o = fit_o(SVM_ROUNDS, *pre["dev_args"])
+    w_p, a_p = pre["fit"](SVM_ROUNDS, *pre["dev_args"])
+    same = (torch.equal(w_o, pre["w"]) and torch.equal(a_o, pre["alpha"]),
+            torch.equal(w_p, pre["w"]) and torch.equal(a_p, pre["alpha"]))
+    log(f"svm one-hot vs dynamic step, presorted Δw, {SVM_ROUNDS} rounds: w "
+        f"and alpha equal bit for bit {same[0]} (the dynamic step run again: "
+        f"{same[1]})")
+    check(all(same), "the one-hot step is not the dynamic step bit for bit")
+    del pre["fit"], pre["dev_args"]
+    return out
+
+
+def gen_phase(torch, dev):
+    """Phase 14: the model generators on the card.  ALS at the ML-20M
+    model's shape (138,493 users, 26,744 items, rank 50, ratio, seed 0),
+    one process (drawn on the card) and then 4 (numpy workers): rows,
+    ids, every row parsed, and for the one-process file its values against
+    the same draws replayed (ratio num / den * 50) and the moments of num
+    against the uniform's; the SVM model at RCV1's 47,236 features, range
+    1,000: the zero share and the weights' range."""
+    import tempfile
+
+    from flink_ms_tpu_torch.core import formats as F
+    from flink_ms_tpu_torch.core.params import Params
+    from flink_ms_tpu_torch.gen import als_model_generator as AG
+    from flink_ms_tpu_torch.gen import svm_model_generator as SG
+
+    n_rows = N_USERS + N_ITEMS
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        for p in (1, 4):
+            path = os.path.join(d, f"als_p{p}")
+            t0 = time.perf_counter()
+            AG.run(Params.from_args([
+                "--device", dev.type, "--numUsers", str(N_USERS), "--numItems",
+                str(N_ITEMS), "--latentFactors", str(RANK), "--parallelism",
+                str(p), "--seed", "0", "--output", path]))
+            gen_s = time.perf_counter() - t0
+            rows = [F.parse_als_row(ln) for ln in F.iter_lines(path)]
+            ids = {t: sorted(int(i) for i, typ, _ in rows if typ == t)
+                   for t in (F.USER, F.ITEM)}
+            mat = np.stack([v for _, _, v in rows])
+            nbytes = sum(os.path.getsize(os.path.join(path, f))
+                         for f in os.listdir(path)) if p > 1 else \
+                os.path.getsize(path)
+            log(f"gen ALS --parallelism {p}: {len(rows)} rows ({nbytes} "
+                f"bytes) in {gen_s:.3f}s, {len(rows) / gen_s:.1f} rows/s")
+            check(len(rows) == n_rows
+                  and ids[F.USER] == list(range(1, N_USERS + 1))
+                  and ids[F.ITEM] == list(range(1, N_ITEMS + 1))
+                  and mat.shape == (n_rows, RANK) and np.isfinite(mat).all(),
+                  f"gen ALS p={p}: rows, ids or widths off the contract")
+            if p == 1:
+                # the same draws replayed: users from seed 0, items seed 1
+                nums, want = [], []
+                for seed, n in ((0, N_USERS), (1, N_ITEMS)):
+                    gen = torch.Generator(device=dev).manual_seed(seed)
+                    for lo in range(0, n, AG._BATCH):
+                        m = min(AG._BATCH, n - lo)
+                        num = torch.rand((m, RANK), generator=gen, device=dev)
+                        den = torch.rand((m, RANK), generator=gen, device=dev)
+                        nums.append(num.cpu().numpy())
+                        want.append((num / torch.clamp_min(den, 1e-12) * RANK)
+                                    .double().cpu().numpy())
+                nums = np.concatenate(nums).astype(np.float64)
+                equal = np.array_equal(mat, np.concatenate(want))
+                se = 1 / np.sqrt(12 * nums.size)
+                log(f"gen ALS p=1: rows equal the replayed draws: {equal}; "
+                    f"num mean {nums.mean():.6f} (uniform 0.5, 4 s.e. "
+                    f"{4 * se:.6f}), variance {nums.var():.6f} (uniform "
+                    f"{1 / 12:.6f})")
+                check(equal, "gen ALS p=1: rows are not the card's draws")
+                check(abs(nums.mean() - 0.5) <= 4 * se
+                      and abs(nums.var() - 1 / 12) <= 1e-3,
+                      "gen ALS p=1: num is not uniform on [0, 1)")
+            else:
+                q = np.percentile(mat, [25, 50, 75]) / RANK
+                log(f"gen ALS p=4: quartiles / {RANK} {q.tolist()} (the "
+                    f"ratio of uniforms: 0.5, 1, 2)")
+                check(np.allclose(q, [0.5, 1.0, 2.0], rtol=0.01),
+                      "gen ALS p=4: not the ratio of uniforms")
+            out[f"als_p{p}_rows_per_s"] = len(rows) / gen_s
+            del rows, mat
+        path = os.path.join(d, "svm")
+        t0 = time.perf_counter()
+        SG.run(Params.from_args([
+            "--device", dev.type, "--numFeatures", str(SVM_D), "--range",
+            "1000", "--parallelism", "1", "--seed", "0", "--output", path]))
+        gen_s = time.perf_counter() - t0
+        rows = [F.parse_svm_range_row(ln) for ln in F.iter_lines(path)]
+    w = np.array([v for _, es in rows for _, v in es])
+    keys = [i for _, es in rows for i, _ in es]
+    zero = float((w == 0).mean())
+    nz = w[w != 0]
+    log(f"gen SVM: {len(rows)} buckets of 1000 ({w.size} weights) in "
+        f"{gen_s:.3f}s, {len(rows) / gen_s:.1f} rows/s; zero share {zero:.4f} "
+        f"(0.5 +- 0.01); nonzero weights in [{nz.min():.6f}, {nz.max():.6f}]")
+    check(len(rows) == SVM_D // 1000 + 1
+          and [b for b, _ in rows] == list(range(len(rows)))
+          and keys == list(range(len(keys))), "gen SVM: buckets or keys off")
+    check(abs(zero - 0.5) <= 0.01, f"gen SVM: zero share {zero}")
+    check(bool((np.abs(nz) < 10).all()), "gen SVM: a weight outside (-10, 10)")
+    out["svm_rows_per_s"] = len(rows) / gen_s
+    return out
+
+
+def retrain_phase(torch, CH, GA, model, ratings_t, dev):
+    """Phase 15: the autopilot's retrain on phase 4's 20M ratings as one
+    window, at rank 50 and the reference's default 4 iterations: cold, and
+    warm from phase 4's trained model as the incumbent.  The warm
+    candidate must have the lower held-out MSE (the port's offline MSE
+    over the whole held-out slice; ``compute_mse``, the reference's
+    grouping, on the slice's first 1,000 users agrees with it at rtol
+    1e-5, float32 sums in two orders); each
+    candidate's journal is read back and equals its tables.  -> the
+    path's launch counts."""
+    import tempfile
+
+    from flink_ms_tpu_torch.core import formats as F
+    from flink_ms_tpu_torch.eval import mse as MSE
+    from flink_ms_tpu_torch.serve import autopilot as AP
+    from flink_ms_tpu_torch.serve.journal import Journal
+
+    users, items, ratings = ratings_t
+    incumbent = ({int(u): v for u, v in zip(
+        model.user_ids, model.user_factors.cpu().numpy())},
+        {int(i): v for i, v in zip(
+            model.item_ids, model.item_factors.cpu().numpy())})
+    mses = {}
+    with tempfile.TemporaryDirectory() as work:
+        reset_als_launches(CH, GA)
+        for seq, (label, inc) in enumerate((("cold", ({}, {})),
+                                            ("warm", incumbent))):
+            t0 = time.perf_counter()
+            cand = AP.retrain_candidate(
+                work, "models", seq, 1, users, items, ratings, inc,
+                num_factors=RANK, iterations=RETRAIN_ITERS, lambda_=LAMBDA,
+                holdout_fraction=0.2, seed=42, device=dev)
+            wall = time.perf_counter() - t0
+            sync(torch)
+            hu, hi, hr = cand["heldout"]
+            tables = cand["tables"]
+            t0 = time.perf_counter()
+            mse, n_scored, skipped = MSE._compute_mse_offline_batched(
+                hu, hi, hr, tables, device=dev)
+            mse_s = time.perf_counter() - t0
+            sub = np.isin(hu, np.unique(hu)[:1000])
+            ref_mse, ref_n, _ = MSE.compute_mse(
+                hu[sub], hi[sub], hr[sub], tables.get,
+                lookup_many=lambda ks: [tables.get(k) for k in ks])
+            sub_mse = MSE._compute_mse_offline_batched(
+                hu[sub], hi[sub], hr[sub], tables, device=dev)[0]
+            jd = cand["journal_dir"]
+            jbytes = sum(os.path.getsize(os.path.join(jd, f))
+                         for f in os.listdir(jd))
+            t0 = time.perf_counter()
+            back_u, back_i = AP.read_model_tables(jd, "models")
+            read_s = time.perf_counter() - t0
+            back = {f"{k}-{F.USER}": v for k, v in back_u.items()}
+            back.update({f"{k}-{F.ITEM}": v for k, v in back_i.items()})
+            equal = back.keys() == tables.keys() and all(
+                np.array_equal(back[k], v) for k, v in tables.items())
+            # the journal write alone: the same rows through a new journal
+            t0 = time.perf_counter()
+            j = Journal(os.path.join(work, f"rewrite-{label}"), "models")
+            j.append([F.format_als_row(k.split("-")[0], k.split("-")[1], v)
+                      for k, v in tables.items()])
+            j.sync()
+            write_s = time.perf_counter() - t0
+            log(f"retrain {label} ({cand['model_id']}, warm {cand['warm']}): "
+                f"{wall:.3f}s in all, train_s {cand['train_s']:.3f}s "
+                f"({RETRAIN_ITERS} iterations, rank {RANK}, the train "
+                f"slice's host layout included); {cand['rows']} rows; "
+                f"journal {jbytes} bytes, its write alone (format, append, "
+                f"sync) {write_s:.3f}s, read back in {read_s:.3f}s equal to "
+                f"the tables: {equal}; held-out MSE {mse!r} over {n_scored} "
+                f"ratings ({skipped} skipped) in {mse_s:.3f}s; on the first "
+                f"1000 users' {ref_n}: compute_mse {float(ref_mse)!r}, offline "
+                f"{float(sub_mse)!r}")
+            check(equal, f"retrain {label}: the journal read back differs")
+            check(cand["rows"] == N_USERS + N_ITEMS and skipped == 0
+                  and n_scored == len(hr) and np.isfinite(mse),
+                  f"retrain {label}: {cand['rows']} rows, {skipped} held-out "
+                  f"ratings skipped")
+            check(abs(ref_mse - sub_mse) <= 1e-5 * ref_mse,
+                  f"retrain {label}: compute_mse and the offline MSE differ")
+            check(cand["warm"] is (label == "warm"), "warm flag off")
+            mses[label] = mse
+            del cand, tables, back
+        sync(torch)
+        launches = als_launches(CH, GA)
+    log(f"retrain: held-out MSE warm {mses['warm']!r} vs cold "
+        f"{mses['cold']!r}; launches over 2 x {RETRAIN_ITERS} iterations: "
+        f"cholesky {launches['cholesky']} (batch-major "
+        f"{launches['cholesky_batch_major']}), assembly "
+        f"{launches['assembly']}")
+    check(mses["warm"] < mses["cold"], "the warm retrain did not beat the "
+          "cold one on held-out MSE")
+    check(launches["cholesky"] == 4 * RETRAIN_ITERS
+          and launches["assembly"] >= 4 * RETRAIN_ITERS
+          and launches["cholesky_batch_major"] == 0,
+          f"retrain launches {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1545,6 +1999,20 @@ def main() -> int:
 
     serve_phase(torch, final, (users, items, ratings), final["rmse"][2], dev)
     serve_scale_phase(torch, dev)
+
+    staged = staged_phase(torch, TA, CH, GA, problem, (users, items, ratings),
+                          init, final["model"], final["sec_per_iter"], dev)
+    modes = svm_modes_phase(torch, TS, SK, svm_run, dev)
+    gen_phase(torch, dev)
+    retrain = retrain_phase(torch, CH, GA, final["model"],
+                            (users, items, ratings), dev)
+    for e, key in zip(entries[:3], ("cholesky", "cholesky_batch_major",
+                                    "assembly")):
+        e["launches_by_path"]["als_staged"] = staged[key]
+        e["launches_by_path"]["autopilot_retrain"] = retrain[key]
+    for e in entries[3:]:
+        for label, launches in modes.items():
+            e["launches_by_path"][f"svm_{label}"] = launches[e["name"]]
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "device_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

@@ -13,7 +13,9 @@ ops/       blocked ALS, the batched Cholesky solve and bucket assembly;
            CoCoA SVM, its round-boundary margin gather and Δw scatter-add
 csrc/      CUDA C++ sources of the kernels, built with nvcc at first use
 train/     the ALS and SVM training CLIs
-serve/     the model table, the top-k index with its IVF tier, the batcher
+gen/       the synthetic ALS and SVM model generators
+serve/     the model table, the top-k index with its IVF tier, the batcher,
+           the model journal's writer, the autopilot's retrain
 eval/      offline MSE evaluation
 obs/       the metrics the serving path records
 utils/     step timing and profiler traces

@@ -30,9 +30,13 @@ weighted-λ (ALS-WR) or plain λ, and implicit feedback
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import hashlib
+import json
 import math
 import os
+import re
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -521,6 +525,119 @@ def _make_sweep(problem: BlockedProblem, config: ALSConfig):
 
 
 # ---------------------------------------------------------------------------
+# iteration-boundary staging (the reference's setTemporaryPath,
+# ALSImpl.scala:42-44): the factors go to disk at every iteration boundary,
+# and a rerun resumes from the latest matching snapshot
+# ---------------------------------------------------------------------------
+
+_STAGE_RE = re.compile(r"^iter_(\d+)\.npz$")
+
+
+def _staging_meta(problem: BlockedProblem, config: ALSConfig, init) -> dict:
+    """Identity of a training run, key for key and value for value the
+    JAX package's (``flink_ms_tpu/ops/als.py`` ``_staging_meta``), so a
+    snapshot written by either package resumes in the other.  A snapshot
+    from other data, another config, dtype or starting point is not
+    resumed.
+
+    ``init`` is None for a start drawn from ``config.seed`` (``"seed"``),
+    else the SHA-1 of the init pair's bytes.  The two packages draw a
+    seeded start differently (threefry against ``torch.Generator``), yet
+    their metas agree: the snapshot, not the seed, is the state, so a
+    seed-started run of one package resumes in the other from the saved
+    factors.  The port's products are full f32, the reference's
+    ``assembly_precision="highest"``; ``"auto"`` exchange resolves to full
+    precision (None) off the TPU."""
+    if init is None:
+        init_id = "seed"
+    else:
+        h = hashlib.sha1()
+        h.update(np.ascontiguousarray(init[0]).tobytes())
+        h.update(np.ascontiguousarray(init[1]).tobytes())
+        init_id = h.hexdigest()
+    # the rating data itself: same-shaped fresh data retrains
+    hd = hashlib.sha1()
+    for a in ([problem.u.perm, problem.user_ids, problem.item_ids]
+              + problem.u.idx + problem.u.val):
+        hd.update(np.ascontiguousarray(a).tobytes())
+    exchange = config.exchange_dtype
+    return {
+        "data": hd.hexdigest(),
+        "num_factors": config.num_factors,
+        "lambda": config.lambda_,
+        "implicit": config.implicit,
+        "alpha": config.alpha,
+        "weighted_reg": config.weighted_reg,
+        "assembly_precision": "highest",
+        "exchange_dtype": None if exchange in (None, "auto") else exchange,
+        "seed": config.seed,
+        "dtype": str(_np_dtype(config.dtype)),
+        "init": init_id,
+        "n_users": problem.n_users,
+        "n_items": problem.n_items,
+        "nnz": problem.nnz,
+        "n_blocks": problem.n_blocks,
+    }
+
+
+def save_staged(path: str, iteration: int, uf: np.ndarray, itf: np.ndarray,
+                meta: dict, keep: int = 2) -> str:
+    """Atomically write one iteration snapshot under `path`
+    (``iter_%05d.npz``: a ``.tmp`` file, then ``os.replace``).
+
+    The staging dir is scratch space for the current run, so everything
+    outside the trailing `keep` window ending at `iteration` is pruned,
+    stale higher-numbered snapshots of a longer run and orphaned ``.tmp``
+    files of a killed write included."""
+    os.makedirs(path, exist_ok=True)
+    out = os.path.join(path, f"iter_{iteration:05d}.npz")
+    tmp = out + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, user_factors=uf, item_factors=itf,
+                 meta=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8))
+    os.replace(tmp, out)
+    for name in os.listdir(path):
+        m = _STAGE_RE.match(name)
+        if m and iteration - keep < int(m.group(1)) <= iteration:
+            continue
+        if not (m or name.endswith(".npz.tmp")):
+            continue
+        try:
+            os.remove(os.path.join(path, name))
+        except OSError:
+            pass
+    return out
+
+
+def load_staged(path: str, meta: dict, max_iteration: Optional[int] = None):
+    """Latest matching snapshot -> (iteration, uf, itf) as numpy, else None.
+    Corrupt or mismatching snapshots are skipped, newest first; snapshots
+    beyond `max_iteration` are ignored, so a rerun with fewer iterations
+    does not return an over-trained model."""
+    if not os.path.isdir(path):
+        return None
+    snaps = sorted(
+        (int(m.group(1)), m.string) for m in
+        (_STAGE_RE.match(n) for n in os.listdir(path)) if m
+    )
+    for iteration, name in reversed(snaps):
+        if max_iteration is not None and iteration > max_iteration:
+            continue
+        try:
+            with np.load(os.path.join(path, name)) as z:
+                saved = json.loads(bytes(z["meta"]).decode())
+                # the reference's snapshots from before these two fields
+                saved.setdefault("assembly_precision", "highest")
+                saved.setdefault("exchange_dtype", None)
+                if saved != meta:
+                    continue
+                return iteration, z["user_factors"], z["item_factors"]
+        except Exception:
+            continue
+    return None
+
+
+# ---------------------------------------------------------------------------
 # public API
 # ---------------------------------------------------------------------------
 
@@ -649,6 +766,8 @@ def als_fit(
     init: Optional[Tuple[np.ndarray, np.ndarray]] = None,
     init_user_factors: Optional[np.ndarray] = None,
     init_item_factors: Optional[np.ndarray] = None,
+    temporary_path: Optional[str] = None,
+    step_timer=None,
 ) -> ALSModel:
     """Train ALS factors for the given rating triples on `device`.
 
@@ -659,7 +778,18 @@ def als_fit(
     `init_user_factors` / `init_item_factors`: the warm-start override
     (given together, exclusive with `init`), as built by
     ``warm_start_factors``.  A zero-iteration warm-started fit returns the
-    init verbatim (modulo dtype)."""
+    init verbatim (modulo dtype).
+
+    `temporary_path` (the reference's setTemporaryPath): run the
+    iterations one at a time, copy the factors to the host at every
+    iteration boundary and write them there as a snapshot
+    (``save_staged``), and resume from the latest matching snapshot if
+    one exists (``load_staged``), printing
+    ``[ALS] staging: resuming from iteration N (<path>)``.
+
+    `step_timer`: optional ``utils.profiling.StepTimer``; in staged mode
+    each iteration (the sweep, the copy to the host and the snapshot
+    write) is timed as one step."""
     dev = resolve_device(device)
     if problem is None:
         problem = prepare_blocked(users, items, ratings, num_blocks())
@@ -685,12 +815,44 @@ def als_fit(
             )
         init = (uf_w, itf_w)
     fit_fn, dev_args = compile_fit(problem, config, dev, init=init)
-    uf, itf = fit_fn(config.iterations, *dev_args)
+    u_perm = torch.from_numpy(problem.u.perm).to(dev)
+    i_perm = torch.from_numpy(problem.i.perm).to(dev)
+    if temporary_path is None:
+        uf, itf = fit_fn(config.iterations, *dev_args)
+        user_factors, item_factors = uf[u_perm], itf[i_perm]
+    else:
+        meta = _staging_meta(problem, config, init)
+        snap = load_staged(temporary_path, meta,
+                           max_iteration=config.iterations)
+        start = 0 if snap is None else snap[0]
+        if start > 0:
+            # operational marker: a genuine resume and a cold rerun leave
+            # the same staging dir behind, so the line tells them apart
+            print(f"[ALS] staging: resuming from iteration {start} "
+                  f"({temporary_path})", flush=True)
+            padded = _pad_factors(problem, k, np_dtype, snap[1], snap[2])
+            dev_args[0], dev_args[1] = (torch.from_numpy(a).to(dev)
+                                        for a in padded)
+        uf, itf = dev_args[0], dev_args[1]
+        # the loop carries its own factor tables from here on
+        dev_args[0] = dev_args[1] = None
+        timer = step_timer if step_timer is not None \
+            else contextlib.nullcontext()
+        for it in range(start, config.iterations):
+            with timer:
+                uf, itf = fit_fn(1, uf, itf, *dev_args[2:])
+                user_factors, item_factors = uf[u_perm], itf[i_perm]
+                # the one device-to-host copy of each table per iteration
+                save_staged(temporary_path, it + 1,
+                            user_factors.cpu().numpy(),
+                            item_factors.cpu().numpy(), meta)
+        if start == config.iterations:  # fully resumed: nothing left to run
+            user_factors, item_factors = uf[u_perm], itf[i_perm]
     return ALSModel(
         user_ids=problem.user_ids,
         item_ids=problem.item_ids,
-        user_factors=uf[torch.from_numpy(problem.u.perm).to(dev)],
-        item_factors=itf[torch.from_numpy(problem.i.perm).to(dev)],
+        user_factors=user_factors,
+        item_factors=item_factors,
     )
 
 

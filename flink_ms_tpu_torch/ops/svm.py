@@ -37,9 +37,21 @@ and the model does not depend on the device.  ``fit`` also takes the table
 injected (``steps=``), which is how the tests run the reference's own
 draws through the port.
 
-Not ported yet (ROADMAP.md, Queue 1): the one-hot Gram step
-(``FLINK_MS_SVM_STEP=onehot``) and the sorted and presorted Δw modes
-(``FLINK_MS_SVM_DW=sorted|presorted``); asking for one raises.
+The gram engine's opt-in modes, read when a fit is compiled, as in the
+reference:
+
+- ``FLINK_MS_SVM_STEP=auto|dynamic|onehot``: one path here, the dynamic
+  step.  The reference's one-hot step writes every read and write of
+  chain state as a dense one-hot contraction, a layout for the TPU's
+  matrix unit; its products are exact 0s and 1s, so it gives the dynamic
+  step's bits, and on the card it was only slower;
+- ``FLINK_MS_SVM_DW=auto|direct|sorted|presorted|pallas``: auto, direct
+  and pallas are the scatter-add kernel; sorted and presorted make Δw a
+  sorted segment sum (plain torch, no kernel) over a feature-sorted layout
+  built on the device at compile time, whose values are stored already
+  sorted so a round gathers only Δα.  The reference's ``sorted`` gathers
+  the round's whole contribution through the sort permutation instead;
+  it forms the same products, so here it is the presorted layout.
 """
 
 from __future__ import annotations
@@ -171,28 +183,41 @@ def prepare_svm_blocked(
     )
 
 
-def _check_modes() -> None:
-    """Refuse the reference's unported selections rather than run another
-    path in their place."""
-    step = os.environ.get("FLINK_MS_SVM_STEP", "auto")
-    if step == "onehot":
+def _step_choice() -> str:
+    """FLINK_MS_SVM_STEP: auto, dynamic and onehot all run the dynamic
+    step (see the module docstring); any other value raises rather than
+    run another path."""
+    choice = os.environ.get("FLINK_MS_SVM_STEP", "auto")
+    if choice not in ("auto", "dynamic", "onehot"):
         raise ValueError(
-            "FLINK_MS_SVM_STEP=onehot (the one-hot Gram step) is not ported "
-            "yet: ROADMAP.md, Queue 1, item 'SVM modes'"
-        )
-    if step not in ("auto", "dynamic"):
+            f"FLINK_MS_SVM_STEP={choice!r} must be auto|dynamic|onehot")
+    return "dynamic"
+
+
+def _dw_choice() -> str:
+    """FLINK_MS_SVM_DW -> "direct" | "sorted".  auto, direct and pallas
+    are the reference's direct scatter and its Pallas kernel, one path
+    here, the scatter-add kernel; sorted and presorted are the sorted
+    segment sum over the presorted layout; a typo raises."""
+    choice = os.environ.get("FLINK_MS_SVM_DW", "auto")
+    if choice not in ("auto", "direct", "sorted", "presorted", "pallas"):
         raise ValueError(
-            f"FLINK_MS_SVM_STEP={step!r} must be auto|dynamic|onehot")
-    dw = os.environ.get("FLINK_MS_SVM_DW", "auto")
-    if dw in ("sorted", "presorted"):
-        raise ValueError(
-            f"FLINK_MS_SVM_DW={dw} is not ported yet: ROADMAP.md, Queue 1, "
-            "item 'SVM modes'; on the card Δw is always the scatter kernel"
-        )
-    if dw not in ("auto", "direct", "pallas"):
-        raise ValueError(
-            f"FLINK_MS_SVM_DW={dw!r} must be "
+            f"FLINK_MS_SVM_DW={choice!r} must be "
             "auto|direct|sorted|presorted|pallas")
+    return "sorted" if choice in ("sorted", "presorted") else "direct"
+
+
+def sorted_layout(idx: torch.Tensor, val: torch.Tensor, d: int):
+    """The feature-sorted layout of the flattened (C, H, L) entries that
+    the sorted Δw modes read (the reference's presorted layout,
+    ``flink_ms_tpu/ops/svm.py`` ``compile_svm_fit``), built where ``idx``
+    lies: a stable sort of the ids, the values in sorted order, the flat
+    (C·H) row of each, and the (d,) segment lengths of the sorted ids.
+    -> [val_s, src, lengths]."""
+    flat = idx.reshape(-1)
+    order = torch.sort(flat, stable=True).indices
+    lengths = torch.bincount(flat.long(), minlength=d)
+    return [val.reshape(-1)[order], order // idx.shape[-1], lengths]
 
 
 def _resolve_inner(problem: BlockedSVMProblem, config: SVMConfig) -> str:
@@ -269,6 +294,8 @@ def _make_fit(problem: BlockedSVMProblem, config: SVMConfig,
     rows_pb = problem.rows_per_block
     d = problem.n_features
     inner = _resolve_inner(problem, config)
+    _step_choice()
+    dw_mode = _dw_choice() if inner == "gram" else "direct"
     chains = torch.arange(K, device=dev)
 
     def dual_step(a_j, y, wx_j, qii):
@@ -302,33 +329,43 @@ def _make_fit(problem: BlockedSVMProblem, config: SVMConfig,
         dw = ((w_loc - w) / sigma_p).sum(0)
         return w + gamma * dw, alpha + gamma * (a - alpha)
 
-    def gram_round(w, idx, val, label, sq_norm, alpha, gram, j_all):
+    def dynamic_steps(wx, label, sq_norm, alpha, gram, j_all):
         """H serial SDCA steps of every chain on a running (C, rows) margin
-        vector: each update enters through one Gram row, and w is read
-        once (``margin_gather``) and written once (``scatter_add_dw``,
-        which forms each entry's val * Δα itself)."""
-        wx = margin_gather(w, idx, val)
+        vector: each update enters through one Gram row.  -> Δα."""
         y_all = torch.gather(label, 1, j_all)
         q_all = torch.gather(sq_norm, 1, j_all)
         a = alpha.clone()
         for h in range(H):
             j = j_all[:, h]
             a_j = a[chains, j]
-            y = y_all[:, h]
-            delta = dual_step(a_j, y, wx[chains, j], q_all[:, h])
+            delta = dual_step(a_j, y_all[:, h], wx[chains, j], q_all[:, h])
             a[chains, j] = a_j + delta
             wx = wx + (sigma_p * delta / lam_n)[:, None] * gram[chains, j]
-        dalpha = a - alpha
-        dw = scatter_add_dw(idx, val, d, row_scale=dalpha) / lam_n
-        return w + gamma * dw, alpha + gamma * dalpha
+        return a - alpha
 
-    def fit(rounds, w, idx, val, label, sq_norm, alpha, seed, gram=None, *,
-            start=0, steps=None):
+    def gram_round(w, idx, val, label, sq_norm, alpha, gram, j_all, *dw_args):
+        """One round of the gram engine: w is read once (``margin_gather``)
+        and written once, by ``scatter_add_dw`` with Δα as its row scale
+        (direct), or by a sorted segment sum over ``sorted_layout``'s
+        arrays (sorted)."""
+        wx = margin_gather(w, idx, val)
+        dalpha = dynamic_steps(wx, label, sq_norm, alpha, gram, j_all)
+        if dw_mode == "direct":
+            dw = scatter_add_dw(idx, val, d, row_scale=dalpha)
+        else:
+            val_s, src, lengths = dw_args
+            contrib = val_s * torch.index_select(dalpha.reshape(-1), 0, src)
+            dw = torch.segment_reduce(contrib, "sum", lengths=lengths)
+        return w + gamma * (dw / lam_n), alpha + gamma * dalpha
+
+    def fit(rounds, w, idx, val, label, sq_norm, alpha, seed, gram=None,
+            *dw_args, start=0, steps=None):
         """Rounds [start, start + rounds) from (w, alpha) -> (w, alpha).
         ``fit(rounds, *dev_args)`` runs from scratch; ``start=r0`` with the
         w and alpha of a previous call continues it exactly, because each
         round's step table depends on its absolute index.  ``steps``, when
-        given, is the (rounds, C, H) table of row indices to use instead."""
+        given, is the (rounds, C, H) table of row indices to use instead.
+        ``dw_args``: the sorted modes' layout (``sorted_layout``)."""
         rounds = int(rounds)
         if steps is not None:
             if not isinstance(steps, torch.Tensor):
@@ -354,27 +391,28 @@ def _make_fit(problem: BlockedSVMProblem, config: SVMConfig,
                     j_all = j_all.pin_memory().to(dev, non_blocking=True)
             if inner == "gram":
                 w, alpha = gram_round(w, idx, val, label, sq_norm, alpha,
-                                      gram, j_all)
+                                      gram, j_all, *dw_args)
             else:
                 w, alpha = scatter_round(w, idx, val, label, sq_norm, alpha,
                                          j_all)
         return w, alpha
 
-    return fit, inner
+    return fit, inner, dw_mode
 
 
 def compile_svm_fit(problem: BlockedSVMProblem, config: SVMConfig,
                     device="cuda"):
     """-> (fit_fn, dev_args): the CoCoA fit plus its device-resident
     inputs [w0, idx, val, label, sq_norm, alpha0, seed] and, on the gram
-    engine, the Gram tensor built here once.  ``fit_fn(rounds, *dev_args)``
-    -> (w, alpha) device tensors, leaving ``dev_args`` as they were.
-    Benchmarks call ``fit_fn`` directly so host-to-device copies and the
-    Gram build stay out of the timed region."""
+    engine, the Gram tensor built here once, followed in a sorted Δw mode
+    by the arrays of ``sorted_layout``, also built here once.
+    ``fit_fn(rounds, *dev_args)`` -> (w, alpha) device tensors, leaving
+    ``dev_args`` as they were.  Benchmarks call ``fit_fn`` directly so
+    host-to-device copies and the Gram build stay out of the timed
+    region."""
     dev = resolve_device(device)
-    _check_modes()
     dtype = config.dtype
-    fit, inner = _make_fit(problem, config, dev)
+    fit, inner, dw_mode = _make_fit(problem, config, dev)
 
     def put(a, dt):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dt)
@@ -392,6 +430,9 @@ def compile_svm_fit(problem: BlockedSVMProblem, config: SVMConfig,
     if inner == "gram":
         dev_args.append(build_gram(dev_args[1], dev_args[2],
                                    problem.n_features, dtype))
+    if dw_mode != "direct":
+        dev_args += sorted_layout(dev_args[1], dev_args[2],
+                                  problem.n_features)
     return fit, dev_args
 
 

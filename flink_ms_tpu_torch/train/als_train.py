@@ -15,10 +15,16 @@ Flags beyond the reference:
   --profileDir DIR     write a torch.profiler trace of the fit
                        (DIR/trace.json, Chrome/Perfetto format)
 
+``--temporaryPath DIR`` (the reference's setTemporaryPath,
+ALSImpl.scala:42-44) runs the iterations one at a time, writes the
+factors under DIR at every iteration boundary, resumes from the latest
+matching snapshot on a rerun, prints the per-iteration ``StepTimer``
+summary, and also writes a copy of the final factors under DIR.
+
 ``--blocks`` is accepted and runs as one block: the solve is exact per row,
 so the block count does not change the result.  Not in the port yet (see
-ROADMAP.md): ``--temporaryPath`` staging and resume, and ``--devices``
-above 1 (multi-GPU).  Both are refused with an error.
+ROADMAP.md): ``--devices`` above 1 (multi-GPU), which is refused with an
+error.
 """
 
 from __future__ import annotations
@@ -37,11 +43,6 @@ def run(params: Params) -> ALSModel | None:
     if not params.has("input"):
         print("Use --input to specify file input.")
         return None
-    if params.has("temporaryPath"):
-        raise ValueError(
-            "--temporaryPath (staged training with resume) is not ported "
-            "yet: ROADMAP.md, Queue 1, item 'Staging'"
-        )
     devices = params.get_int("devices")
     if devices is not None and devices != num_blocks():
         raise ValueError(
@@ -66,11 +67,23 @@ def run(params: Params) -> ALSModel | None:
         alpha=params.get_float("alpha", 40.0),
     )
 
+    # get_required raises on a present but valueless flag
+    tmp = (
+        params.get_required("temporaryPath").rstrip("/")
+        if params.has("temporaryPath")
+        else None
+    )
+    if tmp == "":  # "--temporaryPath /" (or all slashes) is not a usable dir
+        raise ValueError("--temporaryPath must name a directory, got a bare '/'")
     t0 = time.time()
+    step_timer = profiling.StepTimer("als-iteration") if tmp else None
     with profiling.trace(params.get("profileDir")):
-        model = als_fit(users, items, ratings, config, device=device)
+        model = als_fit(users, items, ratings, config, device=device,
+                        temporary_path=tmp, step_timer=step_timer)
         profiling.hard_sync(model.user_factors)
     train_s = time.time() - t0
+    if step_timer is not None and step_timer.durations_s:
+        print(step_timer.summary())
     print(
         f"[ALS] model-training: {len(users)} ratings, "
         f"{len(model.user_ids)} users x {len(model.item_ids)} items, "
@@ -82,6 +95,11 @@ def run(params: Params) -> ALSModel | None:
 
     user_factors = model.user_factors.cpu().numpy()
     item_factors = model.item_factors.cpu().numpy()
+    if tmp:
+        F.write_als_model(f"{tmp}/userFactors", model.user_ids, F.USER,
+                          user_factors)
+        F.write_als_model(f"{tmp}/itemFactors", model.item_ids, F.ITEM,
+                          item_factors)
     if params.has("itemFactors") and params.has("userFactors"):
         F.write_als_model(
             params.get_required("itemFactors"), model.item_ids, F.ITEM, item_factors

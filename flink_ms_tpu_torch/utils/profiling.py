@@ -1,16 +1,18 @@
-"""Tracing and device sync.
+"""Tracing, device sync and per-step timing.
 
 Counterpart of ``flink_ms_tpu/utils/profiling.py``: ``hard_sync`` waits
-for the card with ``torch.cuda.synchronize``, and ``trace`` records a
+for the card with ``torch.cuda.synchronize``, ``trace`` records a
 ``torch.profiler`` trace (host and CUDA activity) in place of the XLA
-profiler.
+profiler, and ``StepTimer`` is the reference's, copied.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 import os
-from typing import Optional
+import time
+from typing import Dict, List, Optional
 
 import torch
 
@@ -46,3 +48,64 @@ def trace(trace_dir: Optional[str]):
     os.makedirs(trace_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
 
+
+
+class StepTimer:
+    """Wall-clock timer for repeated steps with percentile reporting.
+
+    Usage::
+
+        timer = StepTimer("als_iter")
+        for _ in range(iters):
+            with timer:
+                step()
+        print(timer.summary())
+
+    The timer reads the host clock and does not wait for the card.  A
+    step must end in a device-to-host copy for its time to cover the
+    device work: a staged ALS iteration (``ops/als.py``) does, since it
+    copies the factors to the host for its snapshot."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.durations_s: List[float] = []
+        self._t0: Optional[float] = None
+
+    def __enter__(self) -> "StepTimer":
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        assert self._t0 is not None
+        self.durations_s.append(time.perf_counter() - self._t0)
+        self._t0 = None
+
+    def percentile(self, q: float) -> float:
+        if not self.durations_s:
+            return float("nan")
+        xs = sorted(self.durations_s)
+        # nearest-rank: smallest value with cumulative share >= q
+        idx = max(math.ceil(q / 100.0 * len(xs)) - 1, 0)
+        return xs[min(idx, len(xs) - 1)]
+
+    def stats(self) -> Dict[str, float]:
+        n = len(self.durations_s)
+        total = sum(self.durations_s)
+        return {
+            "name": self.name,
+            "steps": n,
+            "total_s": total,
+            "mean_s": total / n if n else float("nan"),
+            "p50_s": self.percentile(50),
+            "p90_s": self.percentile(90),
+            "p99_s": self.percentile(99),
+            "p999_s": self.percentile(99.9),
+        }
+
+    def summary(self) -> str:
+        s = self.stats()
+        return (
+            f"[{self.name}] {s['steps']} steps, {s['total_s']:.3f}s total, "
+            f"mean {s['mean_s'] * 1e3:.2f}ms, p50 {s['p50_s'] * 1e3:.2f}ms, "
+            f"p99 {s['p99_s'] * 1e3:.2f}ms"
+        )

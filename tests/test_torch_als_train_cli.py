@@ -98,7 +98,7 @@ def test_no_input_prints_usage(capsys):
 
 
 @pytest.mark.parametrize("flag,value,match", [
-    ("--temporaryPath", "stage", "Staging"),
+    ("--temporaryPath", "/", "must name a directory"),
     ("--devices", "2", "Multi-GPU"),
 ])
 def test_unported_flags_are_refused(ratings_file, flag, value, match):

@@ -1,8 +1,10 @@
-"""The byte and operation counts behind ``chip_smoke.py``'s bounds, and
-its copy of the RCV1-shaped workload."""
+"""The byte and operation counts behind ``chip_smoke.py``'s bounds, its
+copies of the benchmark workloads, and rehearsals of its phases 10 to 15
+on the CPU at small sizes."""
 
 import numpy as np
 import pytest
+import torch
 
 import chip_smoke
 
@@ -179,8 +181,6 @@ def small_model():
 
 
 def test_serve_phase_rehearsal(small_model, capsys):
-    import torch
-
     model, ratings, rmse = small_model
     out = chip_smoke.serve_phase(torch, {"model": model}, ratings, rmse,
                                  torch.device("cpu"))
@@ -201,8 +201,6 @@ def small_scale(monkeypatch):
 
 
 def test_serve_scale_phase_rehearsal(small_scale, capsys):
-    import torch
-
     out = chip_smoke.serve_scale_phase(torch, torch.device("cpu"))
     assert set(out) == {"exact_1m", "ivf_10m", "exact_10m"}
     logs = capsys.readouterr().out
@@ -212,8 +210,6 @@ def test_serve_scale_phase_rehearsal(small_scale, capsys):
 
 def test_serve_scale_phase_fails_without_the_ivf_tier(small_scale,
                                                       monkeypatch):
-    import torch
-
     from flink_ms_tpu_torch.serve.ann import IVFIndex
 
     def broken(*a, **kw):
@@ -223,3 +219,239 @@ def test_serve_scale_phase_fails_without_the_ivf_tier(small_scale,
     with pytest.raises(chip_smoke.SmokeFailure, match="IVF tier was not "
                                                       "built"):
         chip_smoke.serve_scale_phase(torch, torch.device("cpu"))
+
+
+# -- phases 12 to 15, rehearsed on the CPU at small sizes ---------------------
+
+
+@pytest.fixture
+def counted(monkeypatch):
+    """On the CPU no kernel launches, so the wrappers' counts stay 0: the
+    fits' wrappers are replaced by fakes that count as each wrapper does
+    where it launches its kernel, then run the plain versions."""
+    from flink_ms_tpu_torch.ops import als as TA
+    from flink_ms_tpu_torch.ops import cholesky as CH
+    from flink_ms_tpu_torch.ops import gather_assembly as GA
+    from flink_ms_tpu_torch.ops import svm as TS
+    from flink_ms_tpu_torch.ops import svm_kernels as SK
+
+    def assembly(*a, **kw):
+        GA.LAUNCHES += 1
+        return GA.fused_bucket_assembly(*a, **kw)
+
+    def solve(A, b, layout=None):
+        CH.LAUNCHES += 1
+        CH.BATCH_MAJOR_LAUNCHES += int(layout == "batch_major")
+        return CH.cholesky_solve_batched(A, b, layout=layout)
+
+    def margin(*a, **kw):
+        SK.LAUNCHES["margin_gather"] += 1
+        return SK.margin_gather(*a, **kw)
+
+    def scatter(idx, val, d, row_scale=None):
+        SK.LAUNCHES["scatter_add_dw" if row_scale is None
+                    else "scatter_add_dw[row_scale]"] += 1
+        return SK.scatter_add_dw(idx, val, d, row_scale=row_scale)
+
+    monkeypatch.setattr(TA, "fused_bucket_assembly", assembly)
+    monkeypatch.setattr(TA, "cholesky_solve_batched", solve)
+    monkeypatch.setattr(TS, "margin_gather", margin)
+    monkeypatch.setattr(TS, "scatter_add_dw", scatter)
+    monkeypatch.setattr(chip_smoke, "RANK", 8)
+    return TA, CH, GA, TS, SK
+
+
+@pytest.fixture
+def als_run(counted):
+    TA = counted[0]
+    users, items, ratings = chip_smoke.synth_ratings(400, 250, 30_000, seed=0)
+    problem = TA.prepare_blocked(users, items, ratings, 1)
+    gen = torch.Generator().manual_seed(42)
+    init = (TA.init_factors(problem.n_users, 8, gen).numpy(),
+            TA.init_factors(problem.n_items, 8, gen).numpy())
+    straight = TA.als_fit(users, items, ratings, TA.ALSConfig(
+        num_factors=8, iterations=3, lambda_=chip_smoke.LAMBDA), "cpu",
+        problem=problem, init=init)
+    return problem, (users, items, ratings), init, straight
+
+
+def test_staged_phase_rehearsal(counted, als_run, capsys):
+    TA, CH, GA = counted[:3]
+    problem, ratings_t, init, straight = als_run
+    n_buckets = len(problem.u.widths) + len(problem.i.widths)
+    launches = chip_smoke.staged_phase(torch, TA, CH, GA, problem, ratings_t,
+                                       init, straight, 0.001,
+                                       torch.device("cpu"))
+    assert launches == {"cholesky": 6, "assembly": 3 * n_buckets,
+                        "cholesky_batch_major": 0}
+    logs = capsys.readouterr().out
+    assert "[ALS] staging: resuming from iteration 2 (" in logs
+    assert "printed the resume line: True" in logs
+    assert "[als-iteration] 3 steps" in logs
+
+
+def test_staged_phase_fails_when_the_snapshot_does_not_resume(
+        counted, als_run, monkeypatch):
+    TA, CH, GA = counted[:3]
+    problem, ratings_t, init, straight = als_run
+    monkeypatch.setattr(TA, "load_staged", lambda *a, **kw: None)
+    with pytest.raises(chip_smoke.SmokeFailure, match="did not resume"):
+        chip_smoke.staged_phase(torch, TA, CH, GA, problem, ratings_t, init,
+                                straight, 0.001, torch.device("cpu"))
+
+
+@pytest.fixture
+def svm_run(counted, monkeypatch):
+    TS = counted[3]
+    for name, value in (("SVM_N", 3000), ("SVM_D", 400), ("SVM_NNZ", 9),
+                        ("SVM_K", 32)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    data, problem = chip_smoke.svm_inputs(TS)[:2]
+    cfg = chip_smoke.svm_config(TS, problem)
+    fit, args = TS.compile_svm_fit(problem, cfg, "cpu")
+    w, alpha = fit(chip_smoke.SVM_ROUNDS, *args)
+    model = TS.SVMModel(weights=w.numpy().astype(np.float64))
+    return {"w": w, "alpha": alpha,
+            "alpha1": fit(1, *args)[1], "sec_per_round": 0.01,
+            "w_repeat_equal": True,
+            "objective": [1.0, model.hinge_loss(data, chip_smoke.SVM_LAMBDA)]}
+
+
+def test_svm_modes_phase_rehearsal(counted, svm_run, capsys):
+    TS, SK = counted[3:]
+    out = chip_smoke.svm_modes_phase(torch, TS, SK, svm_run,
+                                     torch.device("cpu"))
+    # time_rounds: a warm-up and 3 samples of 1 and 10 rounds; then 10 and 1
+    ran = 4 * (1 + chip_smoke.SVM_ROUNDS) + chip_smoke.SVM_ROUNDS + 1
+    assert out["onehot"] == {"margin_gather": ran, "scatter_add_dw": 0,
+                             "scatter_add_dw[row_scale]": ran}
+    for mode in ("sorted", "presorted"):
+        assert out[mode] == {"margin_gather": ran, "scatter_add_dw": 0,
+                             "scatter_add_dw[row_scale]": 0}
+    logs = capsys.readouterr().out
+    assert "equal bit for bit True (the dynamic step run again: True)" in logs
+    assert "svm mode onehot (runs as step dynamic, Δw direct)" in logs
+    for mode in ("sorted", "presorted"):
+        assert f"svm mode {mode} (runs as step dynamic, Δw sorted)" in logs
+
+
+def test_svm_modes_phase_fails_if_a_sorted_mode_scatters(counted, svm_run,
+                                                         monkeypatch):
+    """A sorted mode that ran the scatter-add kernel instead of its
+    segment sum: the same numbers, but phase 13 fails on the launches."""
+    TS, SK = counted[3:]
+    monkeypatch.setattr(TS, "_dw_choice", lambda: "direct")
+    with pytest.raises(chip_smoke.SmokeFailure,
+                       match="svm mode sorted: .* row-scale scatter-adds"):
+        chip_smoke.svm_modes_phase(torch, TS, SK, svm_run,
+                                   torch.device("cpu"))
+
+
+def test_gen_phase_rehearsal(monkeypatch, capsys):
+    monkeypatch.setattr(chip_smoke, "N_USERS", 20_000)
+    monkeypatch.setattr(chip_smoke, "N_ITEMS", 5_000)
+    monkeypatch.setattr(chip_smoke, "RANK", 8)
+    out = chip_smoke.gen_phase(torch, torch.device("cpu"))
+    assert set(out) == {"als_p1_rows_per_s", "als_p4_rows_per_s",
+                        "svm_rows_per_s"}
+    logs = capsys.readouterr().out
+    assert "rows equal the replayed draws: True" in logs
+    assert "gen SVM: 48 buckets of 1000 (48000 weights)" in logs
+
+
+def test_gen_phase_fails_on_rows_off_the_draws(monkeypatch):
+    from flink_ms_tpu_torch.gen import als_model_generator as AG
+
+    monkeypatch.setattr(chip_smoke, "N_USERS", 300)
+    monkeypatch.setattr(chip_smoke, "N_ITEMS", 200)
+    monkeypatch.setattr(chip_smoke, "RANK", 4)
+    real = AG.generate_rows
+    monkeypatch.setattr(AG, "generate_rows",
+                        lambda n, c, latent, seed, *a: real(n, c, latent,
+                                                            seed + 7, *a))
+    with pytest.raises(chip_smoke.SmokeFailure, match="not the card's draws"):
+        chip_smoke.gen_phase(torch, torch.device("cpu"))
+
+
+def test_retrain_phase_rehearsal(counted, monkeypatch, capsys):
+    TA, CH, GA = counted[:3]
+    ratings_t = chip_smoke.synth_ratings(300, 200, 20_000, seed=0)
+    model = TA.als_fit(*ratings_t, TA.ALSConfig(
+        num_factors=8, iterations=3, lambda_=chip_smoke.LAMBDA), "cpu")
+    monkeypatch.setattr(chip_smoke, "N_USERS", len(model.user_ids))
+    monkeypatch.setattr(chip_smoke, "N_ITEMS", len(model.item_ids))
+    launches = chip_smoke.retrain_phase(torch, CH, GA, model, ratings_t,
+                                        torch.device("cpu"))
+    assert launches["cholesky"] == 4 * chip_smoke.RETRAIN_ITERS
+    assert launches["cholesky_batch_major"] == 0
+    logs = capsys.readouterr().out
+    assert "retrain cold (auto-v000001, warm False)" in logs
+    assert "retrain warm (auto-v000002, warm True)" in logs
+    assert logs.count("equal to the tables: True") == 2
+
+
+def _serve_phase_ab():
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts", "serve_phase_ab.py")
+    spec = importlib.util.spec_from_file_location("serve_phase_ab", path)
+    ab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ab)
+    return ab
+
+
+def test_serve_phase_ab_reads_every_number_of_a_log():
+    """``scripts/serve_phase_ab.py`` reads its numbers from the lines
+    ``chip_smoke.py`` prints; a line that changes shape drops its key."""
+    ab = _serve_phase_ab()
+    log = "\n".join([
+        "[smoke] main default: 0.008662 sec/iter (median of 3)",
+        "[smoke] svm main: 0.046318 sec/round (median of 3)",
+        "[smoke] serve ML-20M (x): 256 TOPK k=10 unbatched p50 0.7852 ms, "
+        "p99 1.5935 ms (exact scan bytes bound 0.1 ms)",
+        "[smoke] serve batched, 32 threads: 2530.5 queries/s (101.2 ms)",
+        "[smoke] scale exact 1000000: p50 at B=1 1.3692 ms (exact scan "
+        "bytes bound 0.019104 ms), 4610.1 queries/s at B=32",
+        "[smoke] scale exact 10000000: p50 at B=1 1.8974 ms (bound "
+        "0.191045 ms), 1929.5 queries/s at B=32",
+        "[smoke] scale ivf 10000000 x 16: build 9.339s (upload)",
+        "[smoke] scale ivf 10000000: p50 at B=1 2.4116 ms (bound 0.19 ms), "
+        "2204.2 queries/s at B=32"])
+    got = ab.numbers(log)
+    assert got == {
+        "als": {"sec_per_iter": 0.008662},
+        "svm": {"sec_per_round": 0.046318},
+        "topk_ml20m": {"p50_ms": 0.7852, "p99_ms": 1.5935},
+        "batcher_ml20m": {"qps": 2530.5},
+        "exact_1m": {"p50_ms": 1.3692, "qps": 4610.1},
+        "exact_10m": {"p50_ms": 1.8974, "qps": 1929.5},
+        "ivf_10m": {"p50_ms": 2.4116, "qps": 2204.2},
+        "ivf_build": {"s": 9.339}}
+    assert "exact_1m" not in ab.numbers(log.replace("p50 at B=1", "p50"))
+    samples = "\n".join(
+        [f"[smoke] [ab] batcher sample {n}: {q} queries/s"
+         for n, q in enumerate((3000.5, 2000.0, 2500.0))]
+        + ["[smoke] [ab] exact 1M sample 0: p50 0.6000 ms, 7000.0 queries/s"])
+    got = ab.numbers(samples)
+    assert got["samples_batcher_qps"] == {"n": 3, "median": 2500.0,
+                                          "min": 2000.0, "max": 3000.5}
+    assert got["samples_exact_1m_p50_ms"]["median"] == 0.6
+    assert got["samples_exact_1m_qps"]["n"] == 1
+
+
+def test_serve_phase_ab_samples_run_on_the_cpu(small_model):
+    """The repeated measurements drive the port's own entry points: the
+    batcher over a trained model, the exact tier over a catalog."""
+    ab = _serve_phase_ab()
+    dev = torch.device("cpu")
+    handler, u_ids, qu = ab.batcher_handler(chip_smoke, small_model[0], dev)
+    assert handler.batching and len(qu) == 256
+    assert ab.batcher_qps(chip_smoke, handler, u_ids, qu) > 0
+    rows, queries = chip_smoke.make_catalog(3000, chip_smoke.SCALE_D)
+    index, _ = chip_smoke.scale_index(
+        torch, rows, [str(i) for i in range(len(rows))], dev,
+        {"TPUMS_TOPK_TIER": "exact"})
+    p50, qps = ab.exact_1m(chip_smoke, torch, index, queries)
+    assert p50 > 0 and qps > 0

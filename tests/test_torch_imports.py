@@ -34,7 +34,11 @@ def test_port_and_chip_smoke_load_no_jax():
                 "flink_ms_tpu_torch.serve.topk",
                 "flink_ms_tpu_torch.serve.ann",
                 "flink_ms_tpu_torch.serve.microbatch",
-                "flink_ms_tpu_torch.eval.mse"} <= set(names)
+                "flink_ms_tpu_torch.eval.mse",
+                "flink_ms_tpu_torch.gen.als_model_generator",
+                "flink_ms_tpu_torch.gen.svm_model_generator",
+                "flink_ms_tpu_torch.serve.journal",
+                "flink_ms_tpu_torch.serve.autopilot"} <= set(names)
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
                      or m == "flink_ms_tpu" or m.startswith("flink_ms_tpu."))
@@ -45,7 +49,7 @@ def test_port_and_chip_smoke_load_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 26  # every module of the port was imported
+    assert int(n) >= 31  # every module of the port was imported
     assert bad == "[]"
 
 
@@ -142,3 +146,68 @@ def test_serving_entry_points_raise_without_cuda(no_cuda, tmp_path):
     handler = make_als_topk_handler(table, device="cpu")
     assert handler.by_vector("1.0;1.0", 1) == "1:3.0"
     handler.close()
+
+
+def test_generators_and_retrain_raise_without_cuda(no_cuda, tmp_path, rng):
+    from flink_ms_tpu_torch.gen import als_model_generator as AG
+    from flink_ms_tpu_torch.gen import svm_model_generator as SG
+    from flink_ms_tpu_torch.serve.autopilot import retrain_candidate
+
+    als = ["--numUsers", "3", "--numItems", "2", "--latentFactors", "2",
+           "--parallelism", "1", "--output", str(tmp_path / "als")]
+    svm = ["--numFeatures", "5", "--range", "2", "--parallelism", "1",
+           "--output", str(tmp_path / "svm")]
+    for mod, args in ((AG, als), (SG, svm)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            mod.run(Params.from_args(args))
+        # the parallel path draws with numpy, and still asks for the device
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            mod.run(Params.from_args(args + ["--parallelism", "2"]))
+        assert not os.path.exists(args[-1])
+        mod.run(Params.from_args(args + ["--device", "cpu"]))
+        assert os.path.exists(args[-1])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        AG.generate_rows(3, "U", 2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SG.generate_bucket_rows(5, 2)
+    u = rng.integers(1, 10, 80)
+    i = rng.integers(1, 8, 80)
+    r = rng.uniform(1, 5, 80)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        retrain_candidate(str(tmp_path / "work"), "models", 0, 1, u, i, r)
+    assert not os.path.exists(tmp_path / "work")
+    cand = retrain_candidate(str(tmp_path / "work"), "models", 0, 1, u, i, r,
+                             device="cpu")
+    assert cand["model_id"] == "auto-v000001"
+
+
+def test_staged_fit_raises_without_cuda(no_cuda, tmp_path, rng):
+    u = rng.integers(0, 10, 50)
+    i = rng.integers(0, 8, 50)
+    r = rng.uniform(1, 5, 50)
+    cfg = TA.ALSConfig(num_factors=3, iterations=2)
+    stage = str(tmp_path / "stage")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TA.als_fit(u, i, r, cfg, temporary_path=stage)
+    assert not os.path.exists(stage)
+    TA.als_fit(u, i, r, cfg, device="cpu", temporary_path=stage)
+    assert sorted(os.listdir(stage)) == ["iter_00001.npz", "iter_00002.npz"]
+
+
+def test_chip_smoke_alone_exits_nonzero_and_prints_no_result(tmp_path):
+    """Run from a directory that holds chip_smoke.py and nothing else of
+    the repo, with CUDA made to look available, the script stops at its
+    import of the port (exit 1) before it prints any result."""
+    import shutil
+
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path)
+    code = ("import runpy, sys, torch\n"
+            "torch.cuda.is_available = lambda: True\n"
+            "sys.argv = ['chip_smoke.py']\n"
+            "runpy.run_path('chip_smoke.py', run_name='__main__')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 1
+    assert out.stdout == ""
+    assert "No module named 'flink_ms_tpu_torch'" in out.stderr
