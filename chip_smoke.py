@@ -2,11 +2,17 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card: blocked ALS training and
 CoCoA SVM training, each through its hand-written CUDA kernels, top-k
 serving of the trained ALS model, staged ALS with resume, the SVM's opt-in
-modes, the model generators and the autopilot's retrain.
+modes, the model generators, the autopilot's retrain, and the multi-rank
+paths over ``torch.distributed``.
 
 Run from the repository root, on a machine with one CUDA card:
 
     python3 chip_smoke.py
+
+or, on a machine with two or more cards, for phase 16 (d) alone (the
+kernels' build, then the NCCL runs):
+
+    python3 chip_smoke.py --multi-gpu
 
 Phases, each printing lines of its own (``[smoke] ...``):
 
@@ -112,7 +118,27 @@ Phases, each printing lines of its own (``[smoke] ...``):
             iterations, cold and warm from phase 4's model: seconds, rows,
             the candidate journal's bytes, write seconds and read-back, the
             held-out MSE of each (the warm one must be lower), and both
-            kernels' launches.
+            kernels' launches;
+16. multi-GPU — (a) a process group of one rank over NCCL: ALS at the
+            ML-20M shape through ``all_gather`` and SVM at the RCV1 shape
+            through ``all_reduce``, bit for bit phases 4 and 7; (b) 2 ranks
+            over gloo, both on this card (NCCL refuses two ranks on one
+            GPU), spawned by ``launch_local``: ALS at the ML-20M shape, 3
+            iterations, against phase 4's fit at rtol 3e-3 / atol 3e-5
+            (``D_RTOL``), each rank's half-sweeps against float64, the fused
+            path, a staged run cut after 1 iteration and resumed with rank 0
+            the one writer, the routed exchange on a sparse catalog (1M x 1M,
+            2M ratings, where auto routes) bit for bit the gathered one, SVM
+            at the RCV1 shape with 4,096 of the 8,192 chains a rank against
+            phase 7's w at rtol 2e-4 / atol 1e-6, and each rank's launches;
+            its times are labelled "gloo, one card shared", a check and not
+            a speed figure; (c) the sharded exact tier on phase 11's 1M
+            catalog as 2 row slices on this card: the exact tier's ids on 64
+            queries, scores within 1e-5, p50 and queries/s; (d) with two or
+            more cards only, over NCCL on 1, 2 and 4 ranks of one card each:
+            ALS ML-20M sec/iter and SVM RCV1 ms/round with each fit against
+            D = 1's, and the sharded tier on the 10M catalog over 2 and 4
+            cards; with one card it prints that (d) needs more.
 
 Each kernel's ``ms`` is the median over calls timed one CUDA event pair
 each, the wrapper's host work included where it outlasts the device's;
@@ -577,10 +603,21 @@ def als_launches(CH, GA) -> dict:
             "cholesky_batch_major": CH.BATCH_MAJOR_LAUNCHES}
 
 
-def factors_off(a, b) -> float:
-    """max over components of |a - b| / (1e-5 + 1e-3 |b|): at most 1 is
-    within the parity contract's rtol 1e-3 / atol 1e-5."""
-    return ((a - b).abs() / (1e-5 + 1e-3 * b.abs())).max().item()
+def factors_off(a, b, rtol=1e-3, atol=1e-5) -> float:
+    """max over components of |a - b| / (atol + rtol |b|): at most 1 is
+    within the tolerance, by default the parity contract's rtol 1e-3 /
+    atol 1e-5."""
+    return ((a - b).abs() / (atol + rtol * b.abs())).max().item()
+
+
+# the limit between ALS fits over D ranks and over one: D changes the
+# order of each row's sums and nothing else.  Set from the H100 reading
+# of 3 iterations at the ML-20M shape over 2 ranks, 1.2949 of rtol 1e-3 /
+# atol 1e-5 (PERF.md §5), so that it reads about 0.43 of this limit; the
+# reference's own multiblock tolerance (rtol 5e-2 / atol 5e-3,
+# tests/test_als.py:195-208) read 0.0030 to 0.0032 there, and would pass
+# an exchange that drops or misplaces rows
+D_RTOL, D_ATOL = 3e-3, 3e-5
 
 
 FUSED_ENV = {"FLINK_MS_ALS_FUSED": "1",
@@ -657,8 +694,9 @@ def main_path(torch, TA, CH, GA, problem, fit, ratings_t, init, dev):
 
 def f64_check(torch, TA, GA, flat, y, side, rows=2000):
     """One half-sweep's solutions, with the plain and the kernel assembly,
-    against float64 assembly and solve of the same systems, on the first
-    `rows` rows of each bucket; also the systems' condition numbers."""
+    against float64 assembly and solve of the same systems, on the real
+    rows among the first `rows` rows of each bucket; also the systems'
+    condition numbers."""
     counts = flat[-1]
     off = 0
     worst = {"plain": 0.0, "kernel": 0.0}
@@ -667,6 +705,12 @@ def f64_check(torch, TA, GA, flat, y, side, rows=2000):
         idx, val = flat[2 * j][:rows], flat[2 * j + 1][:rows]
         cnt = counts[off:off + idx.shape[0]]
         off += int(flat[2 * j].shape[0])
+        # a block's buckets hold as many rows as the fullest block's: its
+        # pad rows (count 0) have no system to solve
+        real = torch.nonzero(cnt > 0).flatten()
+        if not real.numel():
+            continue
+        idx, val, cnt = idx[real], val[real], cnt[real]
         A64, b64 = GA.bucket_assembly_plain(y.double(), idx, val.double(),
                                             torch.float64)
         A64.diagonal(dim1=-2, dim2=-1).add_(LAMBDA * cnt.double()[:, None])
@@ -1385,7 +1429,7 @@ def serve_phase(torch, run, ratings_t, rmse3, dev):
     return {"p50_ms": p50, "p99_ms": p99, "qps": len(qu) / wall}
 
 
-def scale_index(torch, rows, ids, dev, env):
+def scale_index(torch, rows, ids, dev, env, shard_devices=None):
     """A bulk-loaded ``DeviceFactorIndex`` under `env` -> (index, build
     seconds)."""
     from flink_ms_tpu_torch.serve.table import ModelTable
@@ -1393,7 +1437,8 @@ def scale_index(torch, rows, ids, dev, env):
 
     def build():
         t0 = time.perf_counter()
-        index = DeviceFactorIndex(ModelTable(), "-I", device=dev)
+        index = DeviceFactorIndex(ModelTable(), "-I", device=dev,
+                                  shard_devices=shard_devices)
         index.bulk_load(ids, rows)
         return index, time.perf_counter() - t0
 
@@ -1918,11 +1963,497 @@ def retrain_phase(torch, CH, GA, model, ratings_t, dev):
     return launches
 
 
-def main() -> int:
+# -- phase 16: multi-GPU ------------------------------------------------------
+
+MULTI_ITERS = 3  # the ALS iterations of every multi-rank fit, phase 4's 3
+# a sparse catalog where the auto exchange routes both half-sweeps at D = 2
+ROUTED_USERS, ROUTED_ITEMS, ROUTED_NNZ = 1_000_000, 1_000_000, 2_000_000
+GLOO_LABEL = "gloo, one card shared"
+# the CPU rehearsal of phase 16 (tests/test_torch_chip_smoke.py) sets
+# this: a rank then counts its kernels' plain versions as the wrappers
+# count their launches on the card
+REHEARSE_COUNTS = False
+# the module's sizes a rank job reads: sent with the job, since a spawned
+# rank imports this module afresh
+JOB_SIZES = ("N_USERS", "N_ITEMS", "NNZ", "RANK", "ROUTED_USERS",
+             "ROUTED_ITEMS", "ROUTED_NNZ", "SVM_N", "SVM_D", "SVM_NNZ",
+             "SVM_K", "FUSED_ENV", "REHEARSE_COUNTS")
+
+
+def job_spec(**kw) -> dict:
+    return {"sizes": {name: globals()[name] for name in JOB_SIZES}, **kw}
+
+
+def rank_time_fit(torch, fit_fn, dev_args, iters=5, repeats=3):
+    """``time_fit`` with a fixed schedule: each iteration is a collective,
+    so every rank runs the same iterations, none sized by its own clock.
+    -> (sec_per_iter, iterations run, the last run's factor blocks)."""
+    ran = 0
+    out = None
+
+    def run(trip):
+        nonlocal ran, out
+        sync(torch)
+        t0 = time.perf_counter()
+        out = fit_fn(trip, *dev_args)
+        sync(torch)
+        ran += trip
+        return time.perf_counter() - t0
+
+    run(1), run(iters)  # warm-up
+    samples = []
+    for _ in range(repeats):
+        t1 = run(1)
+        samples.append(max((run(iters) - t1) / (iters - 1), 1e-9))
+    return float(np.median(samples)), ran, out
+
+
+def count_plain_versions(TA, CH, GA, TS, SK, set_attr=setattr) -> None:
+    """The CPU rehearsal's counting: each fit-side wrapper name counts as
+    the wrapper counts where it launches its kernel, then runs it (its
+    plain version, on CPU tensors).  ``set_attr`` installs each counting
+    name (a test passes ``monkeypatch.setattr``)."""
+    assembly, solve = TA.fused_bucket_assembly, TA.cholesky_solve_batched
+    margin, scatter = TS.margin_gather, TS.scatter_add_dw
+
+    def counted_assembly(*a, **kw):
+        GA.LAUNCHES += 1
+        return assembly(*a, **kw)
+
+    def counted_solve(A, b, layout=None):
+        CH.LAUNCHES += 1
+        CH.BATCH_MAJOR_LAUNCHES += int(layout == "batch_major")
+        return solve(A, b, layout=layout)
+
+    def counted_margin(*a, **kw):
+        SK.LAUNCHES["margin_gather"] += 1
+        return margin(*a, **kw)
+
+    def counted_scatter(idx, val, d, row_scale=None):
+        SK.LAUNCHES["scatter_add_dw" if row_scale is None
+                    else "scatter_add_dw[row_scale]"] += 1
+        return scatter(idx, val, d, row_scale=row_scale)
+
+    set_attr(TA, "fused_bucket_assembly", counted_assembly)
+    set_attr(TA, "cholesky_solve_batched", counted_solve)
+    set_attr(TS, "margin_gather", counted_margin)
+    set_attr(TS, "scatter_add_dw", counted_scatter)
+
+
+def multi_rank_job(spec: dict) -> dict:
+    """One rank of a phase-16 job (``launch_local`` spawns it; this module
+    imports no JAX): ALS at the ML-20M shape over the ranks' blocks and
+    CoCoA SVM at the RCV1 shape over their chains, each timed and trained,
+    with each path's launch counts on this rank.  With ``spec["checks"]``
+    also each half-sweep of this rank's block against float64, the fused
+    path, a staged run cut after 1 iteration and resumed, and the routed
+    exchange against the gathered one on a sparse catalog.  -> host
+    numbers and, on rank 0, the trained factors and w."""
+    import contextlib
+    import io
+
     import torch
 
+    from flink_ms_tpu_torch.ops import als as TA
+    from flink_ms_tpu_torch.ops import cholesky as CH
+    from flink_ms_tpu_torch.ops import gather_assembly as GA
+    from flink_ms_tpu_torch.ops import svm as TS
+    from flink_ms_tpu_torch.ops import svm_kernels as SK
+    from flink_ms_tpu_torch.parallel import distributed as pdist
+
+    globals().update(spec["sizes"])
+    if REHEARSE_COUNTS:
+        count_plain_versions(TA, CH, GA, TS, SK)
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if torch.cuda.is_available() else torch.device("cpu")
+    D, r = pdist.world_size(), pdist.rank()
+    out = {"rank": r, "device": str(dev)}
+
+    def cfg(iterations):
+        return TA.ALSConfig(num_factors=RANK, iterations=iterations,
+                            lambda_=LAMBDA)
+
+    users, items, ratings = synth_ratings(N_USERS, N_ITEMS, NNZ, seed=0)
+    t0 = time.perf_counter()
+    problem = TA.prepare_blocked(users, items, ratings, D)
+    prepare_s = time.perf_counter() - t0
+    gen = torch.Generator().manual_seed(42)
+    init = (TA.init_factors(problem.n_users, RANK, gen).numpy(),
+            TA.init_factors(problem.n_items, RANK, gen).numpy())
+    n_buckets = len(problem.u.widths) + len(problem.i.widths)
+    reset_als_launches(CH, GA)
+    fit_fn, dev_args = TA.compile_fit(problem, cfg(MULTI_ITERS), dev,
+                                      init=init)
+    sec, ran, (uf_l, itf_l) = rank_time_fit(torch, fit_fn, dev_args)
+    model = TA.als_fit(users, items, ratings, cfg(MULTI_ITERS), dev,
+                       problem=problem, init=init)
+    sync(torch)
+    out["als"] = {"sec_per_iter": sec, "prepare_s": prepare_s,
+                  "iterations": ran + MULTI_ITERS, "buckets": n_buckets,
+                  "launches": als_launches(CH, GA)}
+    if r == 0:
+        out["als"]["factors"] = (model.user_factors.cpu().numpy(),
+                                 model.item_factors.cpu().numpy())
+    if spec["checks"]:
+        n_u = 2 * len(problem.u.widths) + 1
+        check(TA._exchange_plan(problem, D) == {"u": None, "i": None},
+              "ML-20M's auto exchange should gather")
+        for side, flat, y in (
+                ("user", dev_args[2:2 + n_u], pdist.gather_blocks(itf_l)),
+                ("item", dev_args[2 + n_u:], pdist.gather_blocks(uf_l))):
+            f64_check(torch, TA, GA, flat, y, f"{side} block {r} of {D}")
+        reset_als_launches(CH, GA)
+        fused = with_env(FUSED_ENV, lambda: TA.als_fit(
+            users, items, ratings, cfg(MULTI_ITERS), dev, problem=problem,
+            init=init))
+        sync(torch)
+        out["fused"] = {"launches": als_launches(CH, GA), "off": max(
+            factors_off(fused.user_factors, model.user_factors),
+            factors_off(fused.item_factors, model.item_factors))}
+        # staged: a run cut after its first iteration, then the full run,
+        # which resumes; rank 0 alone writes
+        writes = []
+        save = TA.save_staged
+        TA.save_staged = lambda *a, **kw: writes.append(a[1]) or save(*a,
+                                                                      **kw)
+        try:
+            TA.als_fit(users, items, ratings, cfg(1), dev, problem=problem,
+                       init=init, temporary_path=spec["stage"])
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                staged = TA.als_fit(users, items, ratings, cfg(MULTI_ITERS),
+                                    dev, problem=problem, init=init,
+                                    temporary_path=spec["stage"])
+        finally:
+            TA.save_staged = save
+        out["staged"] = {
+            "writes": writes, "resumed": f"{RESUME_LINE} 1 (" in
+            buf.getvalue(), "off": max(
+                factors_off(staged.user_factors, model.user_factors),
+                factors_off(staged.item_factors, model.item_factors))}
+        del model, fused, staged, fit_fn, dev_args, uf_l, itf_l
+        # the routed exchange, on a catalog where auto routes
+        u2, i2, r2 = synth_ratings(ROUTED_USERS, ROUTED_ITEMS, ROUTED_NNZ,
+                                   seed=1)
+        sparse = TA.prepare_blocked(u2, i2, r2, D)
+        auto = TA._exchange_plan(sparse, D)
+        fits = {}
+        for mode in ("routed", "gather"):
+            reset_als_launches(CH, GA)
+            fits[mode] = with_env(
+                {"FLINK_MS_ALS_EXCHANGE_MODE": mode},
+                lambda: TA.als_fit(u2, i2, r2, cfg(2), dev, problem=sparse))
+            sync(torch)
+            if mode == "routed":
+                routed_launches = als_launches(CH, GA)
+        out["routed"] = {
+            "auto_routes": all(auto[s] is not None for s in "ui"),
+            "net_rows": {s: auto[s].net_rows for s in "ui"
+                         if auto[s] is not None},
+            "gather_rows": {"u": (D - 1) * sparse.i.per_block,
+                            "i": (D - 1) * sparse.u.per_block},
+            "equal": torch.equal(fits["routed"].user_factors,
+                                 fits["gather"].user_factors)
+            and torch.equal(fits["routed"].item_factors,
+                            fits["gather"].item_factors),
+            "launches": routed_launches,
+            "buckets": len(sparse.u.widths) + len(sparse.i.widths)}
+        del fits
+    del problem
+    # CoCoA SVM at the RCV1 shape, K chains split over the ranks
+    data, sproblem = svm_inputs(TS)[:2]
+    scfg = svm_config(TS, sproblem)
+    for key in SK.LAUNCHES:
+        SK.LAUNCHES[key] = 0
+    fit, sargs = TS.compile_svm_fit(sproblem, scfg, dev)
+    sec_r, ran_r = time_rounds(torch, fit, sargs, SVM_ROUNDS)
+    w = fit(SVM_ROUNDS, *sargs)[0]
+    sync(torch)
+    out["svm"] = {"sec_per_round": sec_r, "rounds": ran_r + SVM_ROUNDS,
+                  "chains": sargs[1].shape[0], "launches": dict(SK.LAUNCHES)}
+    if r == 0:
+        out["svm"]["w"] = w.cpu().numpy()
+    return out
+
+
+def check_rank_launches(outs, label) -> None:
+    """Each rank's path launched every kernel it runs, once per solve,
+    bucket assembly and round."""
+    for o in outs:
+        a, s = o["als"], o["svm"]
+        check(a["launches"] == {"cholesky": 2 * a["iterations"],
+                                "assembly": a["buckets"] * a["iterations"],
+                                "cholesky_batch_major": 0},
+              f"{label} rank {o['rank']}: ALS launches {a['launches']} for "
+              f"{a['iterations']} iterations of {a['buckets']} buckets")
+        check(s["launches"] == {"margin_gather": s["rounds"],
+                                "scatter_add_dw": 0,
+                                "scatter_add_dw[row_scale]": s["rounds"]},
+              f"{label} rank {o['rank']}: SVM launches {s['launches']} for "
+              f"{s['rounds']} rounds")
+
+
+def multi_world1_phase(torch, TA, CH, GA, TS, SK, problem, ratings_t, init,
+                       runs, svm_w, dev):
+    """Phase 16 (a): a process group of one rank, over NCCL on the card:
+    ALS at the ML-20M shape through ``all_gather``, bit for bit phase 4's
+    fit from the same start, and SVM at the RCV1 shape through
+    ``all_reduce``.  The scatter-add kernel sums with float atomics, whose
+    order varies from run to run (phase 7's own fit run twice differs), so
+    the SVM is held bit for bit on the presorted Δw, which has none,
+    against the same fit outside a group, and on the kernel path against
+    phase 7's w at rtol 2e-4 / atol 1e-6."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    data, sproblem = svm_inputs(TS)[:2]
+    scfg = svm_config(TS, sproblem)
+
+    def presorted_w():
+        fit, sargs = with_env({"FLINK_MS_SVM_DW": "presorted"},
+                              lambda: TS.compile_svm_fit(sproblem, scfg,
+                                                         dev))
+        return fit(SVM_ROUNDS, *sargs)[0]
+
+    alone = presorted_w()
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group(
+            backend, init_method="file://" + os.path.join(d, "rendezvous"),
+            world_size=1, rank=0,
+            **({"device_id": dev} if backend == "nccl" else {}))
+        try:
+            reset_als_launches(CH, GA)
+            model = TA.als_fit(*ratings_t, TA.ALSConfig(
+                num_factors=RANK, iterations=MULTI_ITERS, lambda_=LAMBDA),
+                dev, problem=problem, init=init)
+            sync(torch)
+            als = als_launches(CH, GA)
+            for key in SK.LAUNCHES:
+                SK.LAUNCHES[key] = 0
+            fit, sargs = TS.compile_svm_fit(sproblem, scfg, dev)
+            w = fit(SVM_ROUNDS, *sargs)[0]
+            sync(torch)
+            svm = dict(SK.LAUNCHES)
+            grouped = presorted_w()
+        finally:
+            dist.destroy_process_group()
+    want = runs["default"]["model"]
+    same_als = torch.equal(model.user_factors, want.user_factors) and \
+        torch.equal(model.item_factors, want.item_factors)
+    same_svm = torch.equal(grouped, alone)
+    w_off = ((w - svm_w).abs() / (SVM_ATOL + SVM_RTOL * svm_w.abs())
+             ).max().item()
+    log(f"multi (a) world 1 over {backend}: ALS {MULTI_ITERS} iterations "
+        f"bit for bit phase 4's: {same_als} (launches {als}); SVM "
+        f"{SVM_ROUNDS} rounds: presorted Δw bit for bit the same fit "
+        f"outside a group: {same_svm}; the kernel path's w vs phase 7's "
+        f"{w_off:.4f} of rtol {SVM_RTOL} / atol {SVM_ATOL}, bit for bit "
+        f"{torch.equal(w, svm_w)} (launches {svm})")
+    check(same_als, "world-1 ALS differs from phase 4's fit")
+    check(same_svm, "world-1 presorted SVM differs from the one-process fit")
+    check(w_off <= 1.0, "world-1 SVM w off phase 7's")
+    check(svm["margin_gather"] == svm["scatter_add_dw[row_scale]"]
+          == SVM_ROUNDS, f"world-1 SVM launches {svm}")
+
+
+def multi_gloo_phase(torch, runs, svm_w, dev) -> dict:
+    """Phase 16 (b): 2 ranks over gloo, both on this card: ALS at the
+    ML-20M shape against phase 4's fit, the float64 half-sweep checks of
+    each rank's block, the fused path, a staged run resumed with one
+    writer, the routed exchange against the gathered one, and SVM at the
+    RCV1 shape, K 8,192 as 2 x 4,096 chains, against phase 7's w.  ->
+    rank 0's launches per path."""
+    import tempfile
+
+    from flink_ms_tpu_torch.parallel.distributed import launch_local
+
+    with tempfile.TemporaryDirectory() as d:
+        spec = job_spec(checks=True, stage=os.path.join(d, "stage"))
+        t0 = time.perf_counter()
+        outs = launch_local(multi_rank_job, 2, (spec,), device=dev.type,
+                            backend="gloo", devices=[dev, dev],
+                            timeout=900)
+        job_s = time.perf_counter() - t0
+        left = sorted(os.listdir(spec["stage"]))
+    check_rank_launches(outs, "multi (b)")
+    r0 = outs[0]
+    want = runs["default"]["model"]
+    uf, itf = (torch.from_numpy(a).to(dev) for a in r0["als"]["factors"])
+    pairs = ((uf, want.user_factors), (itf, want.item_factors))
+    off = max(factors_off(a, b, D_RTOL, D_ATOL)
+              for a, b in pairs)
+    strict = max(factors_off(a, b) for a, b in pairs)
+    w = torch.from_numpy(r0["svm"]["w"]).to(dev)
+    w_off = ((w - svm_w).abs() / (SVM_ATOL + SVM_RTOL * svm_w.abs())
+             ).max().item()
+    for o in outs:
+        log(f"multi (b) rank {o['rank']} of 2 on {o['device']} "
+            f"({GLOO_LABEL}): ALS ML-20M {o['als']['sec_per_iter']:.6f} "
+            f"sec/iter, prepare_blocked {o['als']['prepare_s']:.2f}s; SVM "
+            f"RCV1 {o['svm']['chains']} chains a rank "
+            f"{o['svm']['sec_per_round'] * 1e3:.3f} ms/round; fused vs "
+            f"default {o['fused']['off']:.4f}, staged vs straight "
+            f"{o['staged']['off']:.4f} of rtol 1e-3 / atol 1e-5; snapshot "
+            f"writes {o['staged']['writes']}, resumed {o['staged']['resumed']}"
+            f"; routed: auto routes {o['routed']['auto_routes']}, rows/rank "
+            f"{o['routed']['net_rows']} vs all_gather "
+            f"{o['routed']['gather_rows']}, equal to gathered bit for bit "
+            f"{o['routed']['equal']}")
+    log(f"multi (b) job {job_s:.1f}s ({GLOO_LABEL}; a check, not a speed "
+        f"figure): ALS {MULTI_ITERS} iterations vs phase 4's D=1 fit "
+        f"{off:.4f} of rtol {D_RTOL} / atol {D_ATOL} ({strict:.4f} of "
+        f"rtol 1e-3 / atol 1e-5); SVM "
+        f"{SVM_ROUNDS} rounds w vs "
+        f"phase 7's {w_off:.4f} of rtol {SVM_RTOL} / atol {SVM_ATOL}; "
+        f"staging left {left}")
+    check(off <= 1.0, "2-rank ALS off phase 4's fit")
+    check(w_off <= 1.0, "2-rank SVM w off phase 7's")
+    check(all(o["fused"]["off"] <= 1.0 and o["staged"]["off"] <= 1.0
+              and o["staged"]["resumed"] for o in outs),
+          "a rank's fused or staged fit is off, or it did not resume")
+    check(outs[0]["staged"]["writes"] == [1, 2, 3]
+          and all(not o["staged"]["writes"] for o in outs[1:]),
+          "staged snapshots not written by rank 0 alone")
+    check(left == ["iter_00002.npz", "iter_00003.npz"],
+          f"staging left {left}")
+    check(all(o["routed"]["auto_routes"] and o["routed"]["equal"]
+              for o in outs), "the routed sweep differs from the gathered "
+          "one, or auto did not route")
+    for o in outs:
+        rl, nb = o["routed"]["launches"], o["routed"]["buckets"]
+        check(rl["cholesky"] == 4 and rl["assembly"] == 2 * nb,
+              f"routed rank {o['rank']}: launches {rl} for 2 iterations "
+              f"of {nb} buckets")
+        check(o["fused"]["launches"]["cholesky_batch_major"] > 0,
+              f"fused rank {o['rank']}: no batch-major solve")
+    return {"als_d2": r0["als"]["launches"],
+            "als_d2_fused": r0["fused"]["launches"],
+            "als_routed": r0["routed"]["launches"],
+            "svm_d2": r0["svm"]["launches"]}
+
+
+def multi_shard_phase(torch, dev, shard_devices, n_rows, label,
+                      time_exact=False):
+    """The sharded exact tier over ``shard_devices`` on the clustered
+    catalog of phase 11: ids of 64 top-k lists equal the exact tier's,
+    scores within 1e-5; then p50 at B = 1 and queries/s at B = 32 (with
+    `time_exact`, the one-device exact tier's beside them first)."""
+    from flink_ms_tpu_torch.serve.topk import ShardedMatrix
+
+    rows, queries = make_catalog(n_rows, SCALE_D)
+    ids = [str(i) for i in range(len(rows))]
+    exact, _ = scale_index(torch, rows, ids, dev, {"TPUMS_TOPK_TIER":
+                                                    "exact"})
+    sharded, build_s = scale_index(
+        torch, rows, ids, dev, {"TPUMS_TOPK_TIER": "exact",
+                                "TPUMS_TOPK_SHARDED": "1"},
+        shard_devices=shard_devices)
+    check(isinstance(sharded._matrix, ShardedMatrix),
+          f"{label}: the index did not shard")
+    q = queries[:64]
+    got, want = sharded.topk_many(q, SCALE_K), exact.topk_many(q, SCALE_K)
+    bytes_ms = rows.nbytes / PEAK_BYTES_PER_S * 1e3
+    if time_exact:
+        scale_times(torch, exact, queries, f"{label}: the exact tier on "
+                    f"{dev} alone", bytes_ms)
+    del exact
+    same = sum([i for i, _ in a] == [i for i, _ in b]
+               for a, b in zip(got, want))
+    err = max(abs(sa - sb) for a, b in zip(got, want)
+              for (_, sa), (_, sb) in zip(a, b))
+    log(f"multi {label}: {len(rows)} rows in {len(shard_devices)} slices of "
+        f"{sharded._matrix.per} on {[str(d) for d in shard_devices]}, "
+        f"bulk_load {build_s:.3f}s; {same} of {len(q)} top-{SCALE_K} lists "
+        f"with the exact tier's ids, max |score diff| {err:.3e} (limit "
+        f"1e-5)")
+    check(same == len(q) and err <= 1e-5,
+          f"{label}: the sharded tier is off the exact tier")
+    return scale_times(torch, sharded, queries, label, bytes_ms)
+
+
+def multi_nccl_phase(torch, dev, counts=(1, 2, 4)) -> dict:
+    """Phase 16 (d), with two or more cards: ALS at the ML-20M shape and
+    SVM at the RCV1 shape over NCCL on D = 1, 2, 4 ranks of one card each
+    (as many as there are cards), each fit against D = 1's; the sharded
+    tier on the 10M catalog over 2 and 4 cards."""
+    from flink_ms_tpu_torch.parallel.distributed import launch_local
+
+    cards = torch.cuda.device_count()
+    spec = job_spec(checks=False, stage=None)
+    out = {}
+    for D in [c for c in counts if c <= cards]:
+        t0 = time.perf_counter()
+        outs = launch_local(multi_rank_job, D, (spec,), device="cuda",
+                            backend="nccl", timeout=900)
+        job_s = time.perf_counter() - t0
+        check_rank_launches(outs, f"multi (d) D={D}")
+        r0 = outs[0]
+        out[D] = {"als_sec_per_iter": [o["als"]["sec_per_iter"]
+                                       for o in outs],
+                  "svm_sec_per_round": [o["svm"]["sec_per_round"]
+                                        for o in outs],
+                  "factors": r0["als"]["factors"], "w": r0["svm"]["w"]}
+        fit_off = strict = w_off = 0.0
+        if D > 1:
+            base = out[counts[0]]
+            pairs = [(torch.from_numpy(a), torch.from_numpy(b))
+                     for a, b in zip(r0["als"]["factors"], base["factors"])]
+            fit_off = max(factors_off(a, b, D_RTOL, D_ATOL) for a, b in pairs)
+            strict = max(factors_off(a, b) for a, b in pairs)
+            w_off = float(np.max(np.abs(r0["svm"]["w"] - base["w"]) / (
+                SVM_ATOL + SVM_RTOL * np.abs(base["w"]))))
+        log(f"multi (d) D={D} over NCCL, one card a rank: ALS ML-20M "
+            f"sec/iter by rank {out[D]['als_sec_per_iter']}, SVM RCV1 "
+            f"{r0['svm']['chains']} chains a rank, ms/round by rank "
+            f"{[t * 1e3 for t in out[D]['svm_sec_per_round']]}; fit vs D=1 "
+            f"ALS {fit_off:.4f} of rtol {D_RTOL} / atol {D_ATOL} "
+            f"({strict:.4f} of rtol 1e-3 / atol 1e-5), SVM w {w_off:.4f} "
+            f"of rtol {SVM_RTOL} / atol {SVM_ATOL}; job {job_s:.1f}s")
+        check(fit_off <= 1.0 and w_off <= 1.0,
+              f"D={D} fit off the D=1 fit")
+    for D in (2, 4):
+        if D <= cards:
+            out[f"shard_{D}"] = multi_shard_phase(
+                torch, dev, [torch.device("cuda", i) for i in range(D)],
+                SCALE_IVF_ROWS, f"(d) sharded exact {D} cards",
+                time_exact=D == 2)
+    return out
+
+
+def multi_gpu_only(torch, dev) -> int:
+    """``--multi-gpu``: the kernels' build and phase 16 (d) alone, for a
+    machine with two or more cards."""
+    from flink_ms_tpu_torch.ops import _build
+
+    card = card_line()
+    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.device_count()} x {torch.cuda.get_device_name(0)}")
+    check(torch.cuda.device_count() >= 2,
+          "--multi-gpu needs two or more cards")
+    t0 = time.perf_counter()
+    _build.build_all()
+    log(f"build: {time.perf_counter() - t0:.2f}s")
+    multi_nccl_phase(torch, dev)
+    log(f"done in {time.perf_counter() - t0:.1f}s")
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main(argv=None) -> int:
+    import torch
+
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("[smoke] CUDA is not available: nothing to drive",
+              file=sys.stderr)
+        return 2
+    if argv not in ([], ["--multi-gpu"]):
+        print(f"[smoke] unknown arguments {argv} (none, or --multi-gpu)",
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -1934,6 +2465,8 @@ def main() -> int:
     from flink_ms_tpu_torch.ops import svm_kernels as SK
 
     dev = torch.device("cuda", 0)
+    if argv:
+        return multi_gpu_only(torch, dev)
     t_start = time.perf_counter()
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -2006,13 +2539,28 @@ def main() -> int:
     gen_phase(torch, dev)
     retrain = retrain_phase(torch, CH, GA, final["model"],
                             (users, items, ratings), dev)
+    multi_world1_phase(torch, TA, CH, GA, TS, SK, problem,
+                       (users, items, ratings), init, runs, svm_run["w"],
+                       dev)
+    multi = multi_gloo_phase(torch, runs, svm_run["w"], dev)
+    multi_shard_phase(torch, dev, [dev, dev], SCALE_EXACT_ROWS,
+                      "(c) sharded exact, 2 slices on one card")
+    if torch.cuda.device_count() >= 2:
+        multi_nccl_phase(torch, dev)
+    else:
+        log("multi (d): NCCL over 2 and 4 ranks needs two or more cards; "
+            f"this machine has {torch.cuda.device_count()} "
+            "(run python3 chip_smoke.py --multi-gpu on one that has them)")
     for e, key in zip(entries[:3], ("cholesky", "cholesky_batch_major",
                                     "assembly")):
         e["launches_by_path"]["als_staged"] = staged[key]
         e["launches_by_path"]["autopilot_retrain"] = retrain[key]
+        for label in ("als_d2", "als_d2_fused", "als_routed"):
+            e["launches_by_path"][label] = multi[label][key]
     for e in entries[3:]:
         for label, launches in modes.items():
             e["launches_by_path"][f"svm_{label}"] = launches[e["name"]]
+        e["launches_by_path"]["svm_d2"] = multi["svm_d2"][e["name"]]
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "device_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

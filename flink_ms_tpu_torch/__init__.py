@@ -8,7 +8,7 @@ NVIDIA Hopper card (``csrc/``).  Importing the package imports nothing.
 Package layout
 --------------
 core/      flags and the text-format contracts (own copies)
-parallel/  device selection (one card)
+parallel/  device selection and ranks over torch.distributed, one per GPU
 ops/       blocked ALS, the batched Cholesky solve and bucket assembly;
            CoCoA SVM, its round-boundary margin gather and Δw scatter-add
 csrc/      CUDA C++ sources of the kernels, built with nvcc at first use

@@ -1,4 +1,4 @@
-"""Blocked alternating least squares on one CUDA card.
+"""Blocked alternating least squares on CUDA cards, one block per rank.
 
 Counterpart of ``flink_ms_tpu/ops/als.py``.  Each half-sweep solves the
 per-ID regularized normal equations
@@ -7,11 +7,17 @@ per-ID regularized normal equations
 
 as a batched Cholesky solve over the degree-bucketed layout that
 ``prepare_blocked`` builds.  The host layout is the reference's, copied as
-numpy and equal to it array for array; the sweep is torch on one device
-with D = 1 block, so the reference's ``all_gather`` of the opposite factor
-table is the table itself and the implicit mode's ``psum`` of YᵀY is a
-plain product.  Two CUDA kernels carry every half-sweep on the card, in
-the unfused and the fused mode alike:
+numpy and equal to it array for array at any block count D.  The sweep
+runs in torch on D ranks (``parallel/distributed.py``, one process per
+GPU), rank d holding block d of both factor tables.  Per half-sweep each
+rank obtains the opposite table by one collective: a full-table
+``all_gather`` (the reference's ``all_gather``), or the routed exchange,
+one ``all_to_all`` of the rows its ratings reference
+(``build_routing``); the implicit mode's YᵀY is an ``all_reduce`` of the
+local products (the reference's ``psum``).  Outside a process group D = 1
+and the table is its own exchange.  Two CUDA kernels carry every
+half-sweep of every rank on the card, in the unfused and the fused mode
+alike:
 
 - ``ops/gather_assembly.py`` — the fused gather + assembly of each bucket
   (the reference's Pallas ``fused_bucket_assembly``);
@@ -42,7 +48,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..parallel.mesh import num_blocks, resolve_device
+from ..parallel import distributed as pdist
+from ..parallel.mesh import local_device, num_blocks, resolve_device
 from .cholesky import cholesky_solve_batched
 from .gather_assembly import fused_bucket_assembly
 
@@ -111,6 +118,8 @@ class BlockedProblem:
     nnz: int
     u: SideLayout             # user-major (solves user factors)
     i: SideLayout             # item-major (solves item factors)
+    # exchange plans per (D, mode), cached by _exchange_plan
+    routing: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def n_users(self) -> int:
@@ -323,6 +332,166 @@ def prepare_blocked(
 
 
 # ---------------------------------------------------------------------------
+# routed factor exchange (the reference's block routing tables,
+# ALSImpl.scala:39-41 [dep]: blocks exchange only the factor rows their
+# ratings reference, not the whole opposite table); copied, numpy
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class RoutedSide:
+    """Routed-exchange plan for one half-sweep.
+
+    Replaces the full-table ``all_gather`` (every rank receives the whole
+    opposite table, (D-1)·opp_pb rows, whatever it needs) with need-list
+    routing: block d receives only the opposite rows its ratings
+    reference, through one ``all_to_all`` of (D, r_max, k) send buffers.
+    The receive volume, D·r_max rows a rank, shrinks as D grows (per-block
+    nnz drops, so need-lists thin out); the all_gather's stays about
+    constant.
+    """
+
+    send_idx: np.ndarray   # (D, D, r_max) int32: LOCAL factor rows source
+    #                        block s sends to destination d; the diagonal
+    #                        (s == d) and pad entries point at s's
+    #                        guaranteed-zero dummy slot — self-owned rows
+    #                        never ride the collective
+    idx: list              # per bucket: (D, rows_j, w_j) int32 into the
+    #                        received table: off-block slots at
+    #                        s*r_max + pos, self-owned slots at
+    #                        D*r_max + local (the appended own shard)
+    r_max: int             # max OFF-DIAGONAL route length (self excluded)
+    recv_rows: int         # D*r_max + opp_pb (routed table incl. own shard)
+    net_rows: int          # (D-1)*r_max — rows that cross between ranks
+
+
+def build_routing(side: SideLayout, opp: SideLayout,
+                  n_blocks: int) -> RoutedSide:
+    """Host-side routing tables: per destination block, the sorted unique
+    opposite slots its ratings reference, split by owning source block.
+    Self-owned rows are read straight from the local shard (appended after
+    the exchanged stack), so the collective carries off-block needs only.
+    A pure layout transform: the gathered VALUES equal the gather path's
+    (same rows, same per-rating order), so routed and gathered sweeps
+    agree bit for bit."""
+    D = n_blocks
+    opp_pb = opp.per_block
+    pad_local = opp_pb - 1  # every block's last slot is a guaranteed dummy
+    routes = [[None] * D for _ in range(D)]  # [src][dst] -> local rows
+    r_max = 1
+    for d in range(D):
+        parts = [b[d].ravel() for b in side.idx]
+        need = np.unique(np.concatenate(parts)) if parts else np.empty(
+            0, np.int64)
+        src = need // opp_pb
+        loc = need % opp_pb
+        for s in range(D):
+            if s == d:
+                continue  # self-owned rows come from the local shard
+            routes[s][d] = loc[src == s]  # sorted (need is sorted)
+            r_max = max(r_max, len(routes[s][d]))
+    send_idx = np.full((D, D, r_max), pad_local, np.int32)
+    for s in range(D):
+        for d in range(D):
+            if s == d:
+                continue
+            r = routes[s][d]
+            send_idx[s, d, : len(r)] = r
+    self_base = D * r_max  # own shard appended after the exchanged stack
+    remapped = []
+    for b in side.idx:
+        out = np.empty_like(b)
+        for d in range(D):
+            g = b[d].astype(np.int64)
+            s = g // opp_pb
+            loc = g % opp_pb
+            pos = np.empty_like(loc)
+            for sb in range(D):
+                m = s == sb
+                if not m.any():
+                    continue
+                if sb == d:
+                    # net of the s*r_max term added below
+                    pos[m] = self_base + loc[m] - sb * r_max
+                else:
+                    pos[m] = np.searchsorted(routes[sb][d], loc[m])
+            out[d] = (s * r_max + pos).astype(np.int32)
+        remapped.append(out)
+    return RoutedSide(send_idx=send_idx, idx=remapped, r_max=r_max,
+                      recv_rows=D * r_max + opp_pb,
+                      net_rows=(D - 1) * r_max)
+
+
+_EXCHANGE_MODE_ENV = "FLINK_MS_ALS_EXCHANGE_MODE"
+
+
+def _exchange_mode_choice() -> str:
+    mode = os.environ.get(_EXCHANGE_MODE_ENV, "auto")
+    if mode not in ("auto", "gather", "routed"):
+        raise ValueError(
+            f"{_EXCHANGE_MODE_ENV}={mode!r} must be auto|gather|routed"
+        )
+    return mode
+
+
+def _exchange_plan(problem: BlockedProblem, D: int) -> dict:
+    """-> {"u": RoutedSide|None, "i": RoutedSide|None} for D blocks (None
+    = full-table all_gather for that half-sweep).
+
+    "auto" routes a half-sweep only when its need-lists receive fewer rows
+    than the all_gather would; the dense regime (ML-20M: every block
+    references nearly the whole item catalog) skips the routing build on
+    an nnz-density estimate.  Each half-sweep decides on its own.  Plans
+    are cached on the problem; the primary rank prints the decision with
+    the rows a rank receives either way.  D = 1 never routes."""
+    choice = _exchange_mode_choice()
+    key = (D, choice)
+    if key in problem.routing:
+        return problem.routing[key]
+    say = print if pdist.is_primary() else (lambda *a: None)
+    plan = {}
+    for name, side, opp in (
+        ("u", problem.u, problem.i),
+        ("i", problem.i, problem.u),
+    ):
+        gather_rows = (D - 1) * opp.per_block
+        if D == 1 or choice == "gather":
+            plan[name] = None
+            continue
+        if choice == "auto" and problem.nnz / D >= 2.0 * opp.per_block * D:
+            # each block's ratings reference ~the whole opposite catalog
+            # (need saturates at 1-e^-x): routing can't beat the gather,
+            # so the host-side build is skipped
+            say(
+                f"[als] {name}-sweep exchange: gather ({gather_rows} "
+                f"rows/rank; need-lists saturated at nnz/D="
+                f"{problem.nnz // D} vs {opp.per_block * D} opposite slots)"
+            )
+            plan[name] = None
+            continue
+        routed = build_routing(side, opp, D)
+        # the all_to_all moves (D-1)*r_max rows a rank against the
+        # gather's (D-1)*opp_pb: route when the need-lists are thinner
+        # by a margin (for the extra take and concatenation)
+        if choice == "routed" or routed.r_max < 0.8 * opp.per_block:
+            say(
+                f"[als] {name}-sweep exchange: routed all_to_all — "
+                f"{routed.net_rows} rows/rank vs {gather_rows} "
+                f"all_gather (r_max={routed.r_max}, table "
+                f"{routed.recv_rows} rows)"
+            )
+            plan[name] = routed
+        else:
+            say(
+                f"[als] {name}-sweep exchange: gather ({gather_rows} "
+                f"rows/rank; routed would move {routed.net_rows})"
+            )
+            plan[name] = None
+    problem.routing[key] = plan
+    return plan
+
+
+# ---------------------------------------------------------------------------
 # the sweep
 # ---------------------------------------------------------------------------
 
@@ -455,19 +624,25 @@ def _solve_factors(A, b, counts, lam, weighted_reg, in_scan=False):
     return torch.where((counts > 0)[:, None], x, 0.0)
 
 
-def _flat_side_args(side: SideLayout, dtype):
-    """Device-arg flattening of one side (block 0): bucket (idx, val) pairs
-    then the count."""
+def _flat_side_args(side: SideLayout, dtype, d: int = 0, routed=None):
+    """Device-arg flattening of block d of one side: bucket (idx, val)
+    pairs then the count; a routed half-sweep swaps the idx arrays for
+    their received-table remapping and appends its send plan."""
     out = []
     for j in range(len(side.widths)):
-        out += [side.idx[j][0], side.val[j][0].astype(dtype)]
-    out.append(side.count[0].astype(dtype))
+        idx = routed.idx[j] if routed is not None else side.idx[j]
+        out += [idx[d], side.val[j][d].astype(dtype)]
+    out.append(side.count[d].astype(dtype))
+    if routed is not None:
+        out.append(routed.send_idx[d])
     return out
 
 
 def _make_sweep(problem: BlockedProblem, config: ALSConfig):
     """The full fit as a function ``fit_fn(iterations, uf, itf, *flat) ->
-    (uf, itf)``: per iteration the user half-sweep, then the item one."""
+    (uf, itf)`` over this rank's blocks: per iteration the user
+    half-sweep, then the item one.  In a process group every half-sweep
+    exchanges through a collective, a group of one included."""
     k = config.num_factors
     lam = config.lambda_
     implicit = config.implicit
@@ -475,16 +650,38 @@ def _make_sweep(problem: BlockedProblem, config: ALSConfig):
     weighted = config.weighted_reg and not implicit
     dtype = config.dtype
     exchange_dtype = resolve_exchange(config.exchange_dtype)
+    plan = _exchange_plan(problem, problem.n_blocks)
+    grouped = pdist.in_group()
 
-    def half_sweep(y_tab, flat):
-        # y_tab: (opp_pb, k) the opposite factors, the whole table on D = 1
-        *bucket_args, counts = flat
-        y_all = y_tab if exchange_dtype is None else y_tab.to(exchange_dtype)
+    def exchange(y_send, send_idx):
+        """The opposite table this rank's buckets index: every block
+        (all_gather, rank order = block order), or the routed rows each
+        source block sends here followed by the rank's own block."""
+        if send_idx is not None:
+            picked = y_send[send_idx.long()]  # (D, r_max, k)
+            recv = torch.empty_like(picked)
+            torch.distributed.all_to_all_single(recv, picked)
+            return torch.cat([recv.reshape(-1, k), y_send])
+        return pdist.gather_blocks(y_send) if grouped else y_send
+
+    def half_sweep(y_tab, flat, routed):
+        # y_tab: (opp_pb, k) this rank's block of the opposite factors
+        if routed:
+            *bucket_args, counts, send_idx = flat
+        else:
+            (*bucket_args, counts), send_idx = flat, None
+        # cast BEFORE the collective: the exchange moves the narrow type
+        y_send = y_tab if exchange_dtype is None else y_tab.to(exchange_dtype)
+        y_all = exchange(y_send, send_idx)
         buckets = [
             (bucket_args[2 * j], bucket_args[2 * j + 1])
             for j in range(len(bucket_args) // 2)
         ]
-        yty = y_tab.T @ y_tab if implicit else None
+        yty = None
+        if implicit:
+            yty = y_tab.T @ y_tab
+            if grouped:
+                pdist.all_reduce_sum(yty)
         if _fused_solve():
             # per-bucket fused assembly+solve: bucket outputs are contiguous
             # slot ranges, so each bucket's factor rows are solved straight
@@ -512,13 +709,13 @@ def _make_sweep(problem: BlockedProblem, config: ALSConfig):
             A += yty[None, :, :]
         return _solve_factors(A, b, counts, lam, weighted)
 
-    n_u_args = 2 * len(problem.u.widths) + 1
+    n_u_args = 2 * len(problem.u.widths) + 1 + (plan["u"] is not None)
 
     def fit_fn(iterations, uf, itf, *flat):
         u_flat, i_flat = flat[:n_u_args], flat[n_u_args:]
         for _ in range(int(iterations)):
-            uf = half_sweep(itf, u_flat)
-            itf = half_sweep(uf, i_flat)
+            uf = half_sweep(itf, u_flat, plan["u"] is not None)
+            itf = half_sweep(uf, i_flat, plan["i"] is not None)
         return uf, itf
 
     return fit_fn
@@ -684,13 +881,20 @@ def _np_dtype(dtype: torch.dtype):
 
 
 def _pad_factors(problem: BlockedProblem, k: int, dtype, uf_raw, itf_raw):
-    """Dense-id (n_users, k)/(n_items, k) factors -> slot layout
-    (per_block, k); dummy slots stay zero."""
-    uf0 = np.zeros((problem.u.per_block, k), dtype=dtype)
+    """Dense-id (n_users, k)/(n_items, k) factors -> the slot layout of all
+    D blocks, (D·per_block, k); dummy slots stay zero."""
+    D = problem.n_blocks
+    uf0 = np.zeros((problem.u.per_block * D, k), dtype=dtype)
     uf0[problem.u.perm] = uf_raw
-    itf0 = np.zeros((problem.i.per_block, k), dtype=dtype)
+    itf0 = np.zeros((problem.i.per_block * D, k), dtype=dtype)
     itf0[problem.i.perm] = itf_raw
     return uf0, itf0
+
+
+def _block_of(problem: BlockedProblem, padded, d: int):
+    """Block d's rows of the padded (user, item) tables."""
+    (uf0, itf0), u_pb, i_pb = padded, problem.u.per_block, problem.i.per_block
+    return uf0[d * u_pb:(d + 1) * u_pb], itf0[d * i_pb:(d + 1) * i_pb]
 
 
 def compile_fit(
@@ -699,30 +903,36 @@ def compile_fit(
     device="cuda",
     init: Optional[Tuple[np.ndarray, np.ndarray]] = None,
 ):
-    """-> (fit_fn, dev_args): the sweep plus its device-resident inputs.
-    ``fit_fn(iterations, *dev_args)`` returns the (user, item) factor
-    tables in slot order as device tensors and leaves ``dev_args`` as they
-    were.  ``als_fit`` drives this; benchmarks call ``fit_fn`` directly so
-    host-to-device copies stay out of the timed region."""
-    dev = resolve_device(device)
-    if problem.n_blocks != num_blocks():
+    """-> (fit_fn, dev_args): the sweep plus this rank's device-resident
+    inputs, block d = its rank.  ``fit_fn(iterations, *dev_args)`` returns
+    the rank's (user, item) factor blocks in slot order as device tensors
+    and leaves ``dev_args`` as they were.  ``als_fit`` drives this;
+    benchmarks call ``fit_fn`` directly so host-to-device copies stay out
+    of the timed region.  Every rank must call it (the exchange plan is
+    built on every rank alike)."""
+    dev = local_device(device)
+    D = num_blocks()
+    if problem.n_blocks != D:
         raise ValueError(
-            f"the port's sweep runs {num_blocks()} block on one device; "
-            f"prepare_blocked(..., n_blocks={num_blocks()}), got "
-            f"{problem.n_blocks}"
+            f"problem laid out for {problem.n_blocks} blocks, mesh has {D} "
+            f"rank(s): prepare_blocked(..., n_blocks={D})"
         )
+    d = pdist.rank()
     k = config.num_factors
     np_dtype = _np_dtype(config.dtype)
     if init is None:
+        # every rank draws the whole seeded start and keeps its rows, so D
+        # does not change the init
         gen = torch.Generator().manual_seed(config.seed)
         init = (
             init_factors(problem.n_users, k, gen, config.dtype).numpy(),
             init_factors(problem.n_items, k, gen, config.dtype).numpy(),
         )
-    uf0, itf0 = _pad_factors(problem, k, np_dtype, init[0], init[1])
-    host = [uf0, itf0]
-    for side in (problem.u, problem.i):
-        host += _flat_side_args(side, np_dtype)
+    host = list(_block_of(problem, _pad_factors(problem, k, np_dtype,
+                                                init[0], init[1]), d))
+    plan = _exchange_plan(problem, D)
+    for name, side in (("u", problem.u), ("i", problem.i)):
+        host += _flat_side_args(side, np_dtype, d, routed=plan[name])
     dev_args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                 for a in host]
     return _make_sweep(problem, config), dev_args
@@ -771,6 +981,10 @@ def als_fit(
 ) -> ALSModel:
     """Train ALS factors for the given rating triples on `device`.
 
+    In a process group (``parallel/distributed.py``) every rank calls this
+    with the same inputs; rank d trains block d, and every rank returns
+    the whole model, gathered in block order.  Outside one, D = 1.
+
     `init`, when given, is (user_factors (n_users, k), item_factors
     (n_items, k)) in dense-id order — the same numpy pair the JAX
     ``als_fit`` takes, which pins the starting point.
@@ -785,12 +999,15 @@ def als_fit(
     iteration boundary and write them there as a snapshot
     (``save_staged``), and resume from the latest matching snapshot if
     one exists (``load_staged``), printing
-    ``[ALS] staging: resuming from iteration N (<path>)``.
+    ``[ALS] staging: resuming from iteration N (<path>)``.  Over ranks,
+    rank 0 alone reads and writes snapshots: it broadcasts the resume
+    point and the resumed factors, and writes after every rank joined the
+    iteration's gather.
 
     `step_timer`: optional ``utils.profiling.StepTimer``; in staged mode
     each iteration (the sweep, the copy to the host and the snapshot
     write) is timed as one step."""
-    dev = resolve_device(device)
+    dev = local_device(device)
     if problem is None:
         problem = prepare_blocked(users, items, ratings, num_blocks())
     k = config.num_factors
@@ -817,22 +1034,44 @@ def als_fit(
     fit_fn, dev_args = compile_fit(problem, config, dev, init=init)
     u_perm = torch.from_numpy(problem.u.perm).to(dev)
     i_perm = torch.from_numpy(problem.i.perm).to(dev)
+
+    def to_dense(uf, itf):
+        # every block, in block order, then dense-id order: in a process
+        # group a collective that every rank joins
+        return (pdist.gather_blocks(uf)[u_perm],
+                pdist.gather_blocks(itf)[i_perm])
+
     if temporary_path is None:
-        uf, itf = fit_fn(config.iterations, *dev_args)
-        user_factors, item_factors = uf[u_perm], itf[i_perm]
+        user_factors, item_factors = to_dense(
+            *fit_fn(config.iterations, *dev_args))
     else:
         meta = _staging_meta(problem, config, init)
+        grouped = pdist.in_group()
+        # one writer: rank 0's snapshot is the resume point of every rank
+        # (local scans of per-host disks could disagree, and a divergent
+        # start would desynchronise the collectives below)
         snap = load_staged(temporary_path, meta,
-                           max_iteration=config.iterations)
+                           max_iteration=config.iterations) \
+            if pdist.is_primary() else None
         start = 0 if snap is None else snap[0]
+        if grouped:
+            start = int(pdist.broadcast_one_to_all(np.int64(start)))
+            if start > 0:
+                snap = (start, *(
+                    pdist.broadcast_one_to_all(
+                        snap[1 + j].astype(np_dtype) if snap is not None
+                        else np.zeros((n, k), np_dtype))
+                    for j, n in enumerate((problem.n_users,
+                                           problem.n_items))))
         if start > 0:
             # operational marker: a genuine resume and a cold rerun leave
             # the same staging dir behind, so the line tells them apart
             print(f"[ALS] staging: resuming from iteration {start} "
                   f"({temporary_path})", flush=True)
             padded = _pad_factors(problem, k, np_dtype, snap[1], snap[2])
-            dev_args[0], dev_args[1] = (torch.from_numpy(a).to(dev)
-                                        for a in padded)
+            dev_args[0], dev_args[1] = (
+                torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in _block_of(problem, padded, pdist.rank()))
         uf, itf = dev_args[0], dev_args[1]
         # the loop carries its own factor tables from here on
         dev_args[0] = dev_args[1] = None
@@ -841,19 +1080,35 @@ def als_fit(
         for it in range(start, config.iterations):
             with timer:
                 uf, itf = fit_fn(1, uf, itf, *dev_args[2:])
-                user_factors, item_factors = uf[u_perm], itf[i_perm]
-                # the one device-to-host copy of each table per iteration
-                save_staged(temporary_path, it + 1,
-                            user_factors.cpu().numpy(),
-                            item_factors.cpu().numpy(), meta)
+                user_factors, item_factors = to_dense(uf, itf)
+                if pdist.is_primary():
+                    # the one device-to-host copy of each table per
+                    # iteration, after every rank joined the gather
+                    save_staged(temporary_path, it + 1,
+                                user_factors.cpu().numpy(),
+                                item_factors.cpu().numpy(), meta)
         if start == config.iterations:  # fully resumed: nothing left to run
-            user_factors, item_factors = uf[u_perm], itf[i_perm]
+            user_factors, item_factors = to_dense(uf, itf)
     return ALSModel(
         user_ids=problem.user_ids,
         item_ids=problem.item_ids,
         user_factors=user_factors,
         item_factors=item_factors,
     )
+
+
+def model_to_host(model: ALSModel) -> tuple:
+    """(user_ids, item_ids, user_factors, item_factors), all numpy: the
+    model in the form a rank of ``parallel.distributed.launch_local``
+    hands back."""
+    return (model.user_ids, model.item_ids,
+            model.user_factors.cpu().numpy(),
+            model.item_factors.cpu().numpy())
+
+
+def als_fit_host(*args, **kwargs):
+    """``model_to_host(als_fit(*args, **kwargs))``."""
+    return model_to_host(als_fit(*args, **kwargs))
 
 
 # ---------------------------------------------------------------------------

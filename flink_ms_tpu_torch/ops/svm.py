@@ -1,4 +1,4 @@
-"""CoCoA distributed linear SVM on one CUDA card.
+"""CoCoA distributed linear SVM on CUDA cards, its chains split over ranks.
 
 Counterpart of ``flink_ms_tpu/ops/svm.py`` (the capability behind
 ``SVM().fit(trainingDS)``, ``flink-svm/.../SVMImpl.scala:24-29``; FlinkML's
@@ -7,13 +7,17 @@ CoCoA + local SDCA [dep]):
     min_w  (λ/2)||w||² + (1/n) Σ_j max(0, 1 − y_j w·x_j)
 
 The examples are split into K logical blocks (``setBlocks``), each an
-independent SDCA chain; all K chains live on the one card (C = K) and
-every step advances all of them at once.  Each round, each chain runs H
-closed-form hinge dual steps against its own view of w, and the chains'
-updates are combined once: averaged (``mode="avg"``, CoCoA-v1, σ′ = 1) or
-added (``mode="add"``, CoCoA+, with the local subproblem smoothed by σ′,
-the safe γ·K by default).  The host layout is the reference's, copied as
-numpy and equal to it array for array.
+independent SDCA chain.  Over D ranks (``parallel/distributed.py``, one
+process per GPU) the K chains are padded with empty ones to Kp, a
+multiple of D, and rank d runs chains [d·C, (d+1)·C), C = Kp/D; outside a
+process group D = 1 and C = K.  Every step advances a rank's C chains at
+once.  Each round, each chain runs H closed-form hinge dual steps against
+its own view of w, and the chains' updates are combined once, by one
+``all_reduce`` of Δw over the ranks (the reference's ``psum``): averaged
+(``mode="avg"``, CoCoA-v1, σ′ = 1) or added (``mode="add"``, CoCoA+, with
+the local subproblem smoothed by σ′, the safe γ·K by default); the
+combination scale uses the real K.  The host layout is the reference's,
+copied as numpy and equal to it array for array.
 
 Two inner engines, the same update sequence with reassociated arithmetic:
 
@@ -30,12 +34,13 @@ Two inner engines, the same update sequence with reassociated arithmetic:
 ``FLINK_MS_SVM_GRAM_BYTES`` (default 1 GiB), as the reference does.
 
 Step indices: the reference draws them with threefry inside the loop,
-which torch cannot reproduce.  The port draws each round's (C, H) table of
+which torch cannot reproduce.  The port draws each round's (K, H) table of
 row indices from a ``torch.Generator`` on the host seeded from (seed,
-absolute round), so a fit continued with ``start=`` equals one long fit,
-and the model does not depend on the device.  ``fit`` also takes the table
-injected (``steps=``), which is how the tests run the reference's own
-draws through the port.
+absolute round), and each rank keeps its chains' rows, so a fit continued
+with ``start=`` equals one long fit, and the model depends neither on the
+device nor on D (as the reference's global chain ids make its draws).
+``fit`` also takes the table injected (``steps=``, sliced the same way),
+which is how the tests run the reference's own draws through the port.
 
 The gram engine's opt-in modes, read when a fit is compiled, as in the
 reference:
@@ -64,7 +69,8 @@ import numpy as np
 import torch
 
 from ..core.formats import SparseData
-from ..parallel.mesh import num_blocks, resolve_device
+from ..parallel import distributed as pdist
+from ..parallel.mesh import local_device, num_blocks
 from .svm_kernels import margin_gather, scatter_add_dw
 
 
@@ -220,13 +226,19 @@ def sorted_layout(idx: torch.Tensor, val: torch.Tensor, d: int):
     return [val.reshape(-1)[order], order // idx.shape[-1], lengths]
 
 
+def _rank_chains(K: int):
+    """-> (C, lo): this rank runs the C = round_up(K, D)/D global chains
+    [lo, lo + C); those past K are empty pads."""
+    C = -(-K // num_blocks())
+    return C, pdist.rank() * C
+
+
 def _resolve_inner(problem: BlockedSVMProblem, config: SVMConfig) -> str:
-    """auto -> gram|scatter, from the (C, H, H) Gram budget
-    (FLINK_MS_SVM_GRAM_BYTES, default 1 GiB); on one card C = K."""
+    """auto -> gram|scatter, from the per-rank (C, H, H) Gram budget
+    (FLINK_MS_SVM_GRAM_BYTES, default 1 GiB)."""
     if config.inner != "auto":
         return config.inner
-    D = num_blocks()
-    C = -(-problem.n_blocks // D)
+    C = _rank_chains(problem.n_blocks)[0]
     H = problem.rows_per_block
     gram_bytes = C * H * H * torch.finfo(config.dtype).bits // 8
     limit = int(os.environ.get("FLINK_MS_SVM_GRAM_BYTES", 1 << 30))
@@ -277,7 +289,8 @@ def build_gram(idx: torch.Tensor, val: torch.Tensor, d: int,
 
 def _make_fit(problem: BlockedSVMProblem, config: SVMConfig,
               dev: torch.device):
-    K = problem.n_blocks               # real logical blocks; C = K chains
+    K = problem.n_blocks               # real logical blocks
+    C, lo = _rank_chains(K)            # this rank's chains [lo, lo + C)
     n = problem.n_examples
     lam = config.regularization
     H = config.local_iterations
@@ -296,7 +309,17 @@ def _make_fit(problem: BlockedSVMProblem, config: SVMConfig,
     inner = _resolve_inner(problem, config)
     _step_choice()
     dw_mode = _dw_choice() if inner == "gram" else "direct"
-    chains = torch.arange(K, device=dev)
+    chains = torch.arange(C, device=dev)
+    grouped = pdist.in_group()
+
+    def rank_rows(table):
+        """This rank's C rows of a (K, ...) per-chain table; empty pad
+        chains past K get zeros (their steps change nothing)."""
+        out = table[lo:lo + C]
+        if out.shape[0] < C:
+            out = torch.cat([out, out.new_zeros((C - out.shape[0],
+                                                 *out.shape[1:]))])
+        return out
 
     def dual_step(a_j, y, wx_j, qii):
         """The closed-form hinge dual step on the σ'-smoothed local
@@ -311,7 +334,7 @@ def _make_fit(problem: BlockedSVMProblem, config: SVMConfig,
     def scatter_round(w, idx, val, label, sq_norm, alpha, j_all):
         """H serial SDCA steps of every chain against a (C, d) chain-local
         copy of w; each step is a (C, L) gather and scatter-add."""
-        w_loc = w.expand(K, d).clone()
+        w_loc = w.expand(C, d).clone()
         a = alpha.clone()
         for h in range(H):
             j = j_all[:, h]
@@ -325,8 +348,11 @@ def _make_fit(problem: BlockedSVMProblem, config: SVMConfig,
             a[chains, j] = a_j + delta
             # the chain-local view carries σ' (σ' = 1 in avg mode)
             w_loc.scatter_add_(1, ids, (sigma_p * delta)[:, None] * x / lam_n)
-        # Δw of each chain under the TRUE coupling: (w_loc − w)/σ'
+        # Δw of each chain under the TRUE coupling: (w_loc − w)/σ', summed
+        # over the rank's chains, then over the ranks
         dw = ((w_loc - w) / sigma_p).sum(0)
+        if grouped:
+            pdist.all_reduce_sum(dw)
         return w + gamma * dw, alpha + gamma * (a - alpha)
 
     def dynamic_steps(wx, label, sq_norm, alpha, gram, j_all):
@@ -356,6 +382,8 @@ def _make_fit(problem: BlockedSVMProblem, config: SVMConfig,
             val_s, src, lengths = dw_args
             contrib = val_s * torch.index_select(dalpha.reshape(-1), 0, src)
             dw = torch.segment_reduce(contrib, "sum", lengths=lengths)
+        if grouped:
+            pdist.all_reduce_sum(dw)
         return w + gamma * (dw / lam_n), alpha + gamma * dalpha
 
     def fit(rounds, w, idx, val, label, sq_norm, alpha, seed, gram=None,
@@ -364,7 +392,8 @@ def _make_fit(problem: BlockedSVMProblem, config: SVMConfig,
         ``fit(rounds, *dev_args)`` runs from scratch; ``start=r0`` with the
         w and alpha of a previous call continues it exactly, because each
         round's step table depends on its absolute index.  ``steps``, when
-        given, is the (rounds, C, H) table of row indices to use instead.
+        given, is the (rounds, K, H) table of row indices of every chain to
+        use instead; each rank keeps its chains' rows.
         ``dw_args``: the sorted modes' layout (``sorted_layout``)."""
         rounds = int(rounds)
         if steps is not None:
@@ -382,9 +411,10 @@ def _make_fit(problem: BlockedSVMProblem, config: SVMConfig,
                              "last device argument (compile_svm_fit)")
         for r in range(start, start + rounds):
             if steps is not None:
-                j_all = steps[r - start]
+                j_all = rank_rows(steps[r - start])
             else:
-                j_all = draw_steps(seed, r, K, rows_pb, H)
+                # the whole table, so D does not change a chain's draws
+                j_all = rank_rows(draw_steps(seed, r, K, rows_pb, H))
                 if dev.type == "cuda":
                     # pinned and asynchronous: the host draws the next
                     # round's table while the card runs this one
@@ -402,19 +432,26 @@ def _make_fit(problem: BlockedSVMProblem, config: SVMConfig,
 
 def compile_svm_fit(problem: BlockedSVMProblem, config: SVMConfig,
                     device="cuda"):
-    """-> (fit_fn, dev_args): the CoCoA fit plus its device-resident
-    inputs [w0, idx, val, label, sq_norm, alpha0, seed] and, on the gram
-    engine, the Gram tensor built here once, followed in a sorted Δw mode
-    by the arrays of ``sorted_layout``, also built here once.
-    ``fit_fn(rounds, *dev_args)`` -> (w, alpha) device tensors, leaving
-    ``dev_args`` as they were.  Benchmarks call ``fit_fn`` directly so
-    host-to-device copies and the Gram build stay out of the timed
-    region."""
-    dev = resolve_device(device)
+    """-> (fit_fn, dev_args): the CoCoA fit plus this rank's
+    device-resident inputs [w0, idx, val, label, sq_norm, alpha0, seed] (its
+    C chains, pad chains past K empty) and, on the gram engine, their Gram
+    tensor built here once, followed in a sorted Δw mode by the arrays of
+    ``sorted_layout``, also built here once.  ``fit_fn(rounds, *dev_args)``
+    -> (w, the rank's alpha) device tensors, leaving ``dev_args`` as they
+    were; w is the same on every rank.  Benchmarks call ``fit_fn``
+    directly so host-to-device copies and the Gram build stay out of the
+    timed region."""
+    dev = local_device(device)
     dtype = config.dtype
     fit, inner, dw_mode = _make_fit(problem, config, dev)
+    C, lo = _rank_chains(problem.n_blocks)
 
     def put(a, dt):
+        # this rank's chains, padded with empty ones past K
+        a = a[lo:lo + C]
+        if a.shape[0] < C:
+            a = np.concatenate([a, np.zeros((C - a.shape[0], *a.shape[1:]),
+                                            a.dtype)])
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dt)
 
     dev_args = [
@@ -423,8 +460,7 @@ def compile_svm_fit(problem: BlockedSVMProblem, config: SVMConfig,
         put(problem.val, dtype),
         put(problem.label, dtype),
         put(problem.sq_norm, dtype),
-        torch.zeros((problem.n_blocks, problem.rows_per_block), dtype=dtype,
-                    device=dev),
+        torch.zeros((C, problem.rows_per_block), dtype=dtype, device=dev),
         int(config.seed),
     ]
     if inner == "gram":
@@ -447,8 +483,9 @@ def svm_fit(
     weight vector (the reference's ``weightsOption: DataSet[DenseVector]``,
     SVMImpl.scala:31-35).  Without a `problem` the data is blocked by the
     device count, as in the reference; ``steps`` injects the step table
-    (see ``fit``)."""
-    dev = resolve_device(device)
+    (see ``fit``).  In a process group every rank calls this with the same
+    inputs, runs its chains, and returns the same w."""
+    dev = local_device(device)
     if problem is None:
         problem = prepare_svm_blocked(data, num_blocks(), seed=config.seed)
     fit, dev_args = compile_svm_fit(problem, config, dev)

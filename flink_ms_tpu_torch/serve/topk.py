@@ -1,4 +1,5 @@
-"""Top-k recommendation serving from the live model table, on one device.
+"""Top-k recommendation serving from the live model table, on one device
+or row-sharded over several.
 
 Counterpart of ``flink_ms_tpu/serve/topk.py``.  A device-resident mirror of
 the item-factor matrix answers TOPK with one matrix product and a top-k
@@ -21,9 +22,17 @@ same resident matrix, while the build-time recall probe holds
 
 The index lives on ``device`` (default ``"cuda"``, no fallback: without
 CUDA it raises unless given ``"cpu"``).  ``TPUMS_TOPK_PLATFORM=cpu`` pins it
-to the CPU, an operator's explicit choice as in the reference.  The
-reference's row-sharded exact tier needs more than one device and is not
-ported yet: ``TPUMS_TOPK_SHARDED=1`` is refused.
+to the CPU, an operator's explicit choice as in the reference.
+
+The row-sharded exact tier (``ShardedMatrix``) spreads the catalog over
+the index's shard devices, which the handler sets to the process's
+visible GPUs when there is more than one: row slice s lives on device s,
+each slice is scored against the whole query frame, and the per-slice
+top-k partials merge on the first device.  ``TPUMS_TOPK_SHARDED``:
+``auto`` (default) shards from ``TPUMS_TOPK_SHARD_MIN_ROWS`` rows (100,000)
+up, and on GPUs only a catalog larger than half of one card; ``1`` shards
+at any size, ``0`` never; with one device every value serves the
+single-device tier, as in the reference.
 
 Every device-to-host copy of a query result passes through ``_to_host``,
 and only (B, k) arrays do: the catalog never leaves the device.
@@ -42,7 +51,7 @@ import numpy as np
 import torch
 
 from ..obs import metrics as obs_metrics
-from ..parallel.mesh import resolve_device
+from ..parallel.mesh import resolve_device, row_bucket
 from .table import ModelTable
 
 
@@ -152,19 +161,98 @@ def topk_lowest_first(scores: torch.Tensor, k: int):
     return _flip(kv).view(torch.float32), idx
 
 
+# score bias stamped on pad rows, so they can never win a top-k over any
+# real row; float32-safe margin below any realistic factor dot product
+_PAD_SCORE = -1e30
+
+
+class ShardedMatrix:
+    """The factor matrix of the sharded exact tier: rows padded to
+    ``row_bucket(n, D)`` and cut into D equal slices, slice s on
+    ``devices[s]`` with a bias that is ``_PAD_SCORE`` on its pad rows
+    (``flink_ms_tpu/serve/topk.py:476-510``).  Row i of the catalog is row
+    i % per of slice i // per."""
+
+    def __init__(self, rows: np.ndarray, devices):
+        rows = np.asarray(rows, dtype=np.float32)
+        n, k = rows.shape
+        self.devices = [torch.device(d) for d in devices]
+        self.device = self.devices[0]
+        self.n_pad = row_bucket(n, len(self.devices))
+        self.per = self.n_pad // len(self.devices)
+        self.shape = (self.n_pad, k)
+        self.slices, self.bias = [], []
+        for s, dev in enumerate(self.devices):
+            real = rows[s * self.per:(s + 1) * self.per]
+            m = torch.zeros((self.per, k), dtype=torch.float32)
+            m[:len(real)] = torch.from_numpy(real)
+            b = torch.zeros(self.per, dtype=torch.float32)
+            b[len(real):] = _PAD_SCORE
+            self.slices.append(m.to(dev))
+            self.bias.append(b.to(dev))
+        for dev in set(self.devices):
+            _sync(dev)
+
+    def index_copy_(self, dim: int, pos: torch.Tensor, vec: torch.Tensor):
+        """Rewrite catalog rows in place, each in the slice that owns it."""
+        pos, vec = pos.cpu(), vec.cpu()
+        owner = pos // self.per
+        for s in torch.unique(owner).tolist():
+            sel = owner == s
+            self.slices[s].index_copy_(
+                dim, (pos[sel] % self.per).to(self.devices[s]),
+                vec[sel].to(self.devices[s]))
+        return self
+
+    def __getitem__(self, idx: torch.Tensor) -> torch.Tensor:
+        """Catalog rows by global index, on the first device: each slice
+        gathers the rows it owns (the IVF tier's re-rank reads so)."""
+        idx = idx.to(self.device)
+        owner = (idx // self.per)[..., None]
+        out = torch.zeros((*idx.shape, self.shape[1]), dtype=torch.float32,
+                          device=self.device)
+        for s, (m, dev) in enumerate(zip(self.slices, self.devices)):
+            part = m[(idx % self.per).to(dev)].to(self.device)
+            out = torch.where(owner == s, part, out)
+        return out
+
+    def topk(self, q: torch.Tensor, n_queries: int, k: int):
+        """The exact top-k of the first ``n_queries`` rows of the frame
+        ``q`` -> (scores, global row ids) on the first device.  Each slice
+        scores the frame (one matrix product, as the reference's ``q @
+        m.T``), takes its own top ``min(k, per)`` and offsets the ids to
+        global rows; the partials, laid side by side slice-major as the
+        reference's ``moveaxis`` lays them, merge in one more top-k, so
+        ties resolve as ``lax.top_k`` resolves them over that
+        concatenation (``flink_ms_tpu/serve/topk.py:217-265``)."""
+        k_local = min(k, self.per)
+        scores, ids = [], []
+        for s, (m, b, dev) in enumerate(zip(self.slices, self.bias,
+                                            self.devices)):
+            part = (q.to(dev) @ m.T)[:n_queries] + b[None, :]
+            v, i = topk_lowest_first(part, k_local)
+            scores.append(v.to(self.device))
+            ids.append((i + s * self.per).to(self.device))
+        v, j = topk_lowest_first(torch.cat(scores, dim=1), k)
+        return v, torch.cat(ids, dim=1).gather(1, j)
+
+
 class DeviceFactorIndex:
     def __init__(self, table: ModelTable, factor_suffix: str = "-I",
-                 engine: Optional[str] = None, device="cuda"):
+                 engine: Optional[str] = None, device="cuda",
+                 shard_devices=None):
+        """``shard_devices``: the devices the sharded exact tier spreads
+        the catalog over (None or one device: never sharded)."""
         if engine not in (None, "torch"):
             raise ValueError(
                 f"top-k engine {engine!r}: the port has one engine, 'torch' "
                 "(a matrix product and a top-k)")
-        if os.environ.get("TPUMS_TOPK_SHARDED", "auto") == "1":
-            raise ValueError(
-                "TPUMS_TOPK_SHARDED=1: the sharded exact tier needs more "
-                "than one device and is not ported yet: ROADMAP.md, Queue "
-                "1, item 'Multi-GPU'")
         self.device = _target_device(device)
+        self._shard_devices = ([torch.device(d) for d in shard_devices]
+                               if shard_devices else None)
+        self._shard_mode = os.environ.get("TPUMS_TOPK_SHARDED", "auto")
+        self._shard_min_rows = int(
+            os.environ.get("TPUMS_TOPK_SHARD_MIN_ROWS", 100_000))
         self.table = table
         self.suffix = factor_suffix
         self.engine = "torch"
@@ -314,6 +402,25 @@ class DeviceFactorIndex:
             rows.append(vec)
         return out_ids, np.asarray(rows, dtype=np.float32), width
 
+    def _shards_if_sharding(self, rows: np.ndarray):
+        """The devices to shard over, or None for the single-device layout
+        (``flink_ms_tpu/serve/topk.py:461-475``).  On GPUs ``auto`` also
+        needs a catalog that one card cannot hold with room to spare: the
+        slices are scored one after another, so the sharded tier serves
+        slower than one card while the catalog fits there (PERF.md §5).
+        ``1`` forces it at any size."""
+        devices = self._shard_devices
+        if self._shard_mode == "0" or devices is None or len(devices) < 2:
+            return None
+        if self._shard_mode == "1":
+            return devices
+        if len(rows) < self._shard_min_rows:
+            return None
+        if devices[0].type == "cuda" and \
+                rows.nbytes <= _card_bytes(devices[0]) // 2:
+            return None
+        return devices
+
     def _pack(self, rows: np.ndarray) -> torch.Tensor:
         """A copy of the rows on the index device, finished when this
         returns: the rebuild thread swaps it in for queries that may run on
@@ -324,11 +431,12 @@ class DeviceFactorIndex:
         _sync(self.device)
         return matrix
 
-    def _maybe_build_ann(self, matrix: torch.Tensor):
-        """The IVF tier for this catalog, or None when the tier knob or
-        the size threshold says exact only.  Runs OFF the index lock on the
-        rebuild path; a failed build serves the exact tier rather than
-        poisoning the swap."""
+    def _maybe_build_ann(self, matrix):
+        """The IVF tier for this catalog (the resident matrix, or host rows
+        that the build uploads to the index device), or None when the tier
+        knob or the size threshold says exact only.  Runs OFF the index
+        lock on the rebuild path; a failed build serves the exact tier
+        rather than poisoning the swap."""
         tier = self.tier
         n = matrix.shape[0]
         if tier == "exact" or n == 0:
@@ -338,7 +446,7 @@ class DeviceFactorIndex:
         try:
             from .ann import IVFIndex
 
-            ann = IVFIndex.build(matrix)
+            ann = IVFIndex.build(matrix, device=self.device)
         except Exception as e:
             print(f"[topk] IVF build failed (serving exact): {e}",
                   file=sys.stderr)
@@ -362,8 +470,15 @@ class DeviceFactorIndex:
         installs the result."""
         matrix = ann = None
         if len(rows):
-            matrix = self._pack(rows)
-            ann = self._maybe_build_ann(matrix)
+            shards = self._shards_if_sharding(rows)
+            if shards is None:
+                matrix = self._pack(rows)
+                ann = self._maybe_build_ann(matrix)
+            else:
+                matrix = ShardedMatrix(rows, shards)
+                # the IVF tier trains on the index device; its re-rank
+                # reads the slices (ShardedMatrix.__getitem__)
+                ann = self._maybe_build_ann(rows)
         return {
             "ids": ids, "id_pos": {id_: i for i, id_ in enumerate(ids)},
             "n_real": len(ids), "k_real": width, "matrix": matrix,
@@ -579,9 +694,10 @@ class DeviceFactorIndex:
     @property
     def prefers_frames(self) -> bool:
         """True when the index's query path is the batched frame path (the
-        IVF tier): the batcher then routes even a lone query through
-        ``topk_many``."""
-        return self._ann is not None
+        IVF tier or the sharded one): the batcher then routes even a lone
+        query through ``topk_many``."""
+        return self._ann is not None or isinstance(self._matrix,
+                                                   ShardedMatrix)
 
     def _dispatch_frame_locked(self, q: np.ndarray, k_eff: int):
         """One device dispatch for a ``(B, n_factors)`` query frame ->
@@ -606,8 +722,11 @@ class DeviceFactorIndex:
                 q = np.concatenate(
                     [q, np.broadcast_to(q[:1], (pad, q.shape[1]))])
             qd = torch.from_numpy(q).to(self.device)
-            scores, idx = topk_lowest_first(
-                (qd @ self._matrix.T)[:n_queries], k_eff)
+            if isinstance(self._matrix, ShardedMatrix):
+                scores, idx = self._matrix.topk(qd, n_queries, k_eff)
+            else:
+                scores, idx = topk_lowest_first(
+                    (qd @ self._matrix.T)[:n_queries], k_eff)
         return _to_host(scores), _to_host(idx)
 
     def _format_rows(self, scores, idx, n_rows: int):
@@ -689,9 +808,11 @@ class ALSTopkHandler:
     batcher (``microbatch.TopKBatcher``) unless ``TPUMS_TOPK_BATCH=0``;
     ``batching`` can be flipped live."""
 
-    def __init__(self, table: ModelTable, batcher=None, device="cuda"):
+    def __init__(self, table: ModelTable, batcher=None, device="cuda",
+                 shard_devices=None):
         self.table = table
-        self.index = DeviceFactorIndex(table, "-I", device=device)
+        self.index = DeviceFactorIndex(table, "-I", device=device,
+                                       shard_devices=shard_devices)
         if batcher is None:
             from .microbatch import TopKBatcher, batching_enabled
 
@@ -744,7 +865,25 @@ def _format_topk(results) -> str:
     return ";".join(f"{item}:{score}" for item, score in results)
 
 
+def _card_bytes(device: torch.device) -> int:
+    """The memory of one card."""
+    return torch.cuda.get_device_properties(device).total_memory
+
+
+def visible_gpus(device="cuda") -> Optional[list]:
+    """The shard devices of an index on ``device``: every visible GPU when
+    there is more than one, else None (one device has nothing to shard
+    over, as the reference's ``_index_mesh``)."""
+    dev = _target_device(device)
+    if dev.type != "cuda" or torch.cuda.device_count() < 2:
+        return None
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
 def make_als_topk_handler(table: ModelTable, device="cuda") -> ALSTopkHandler:
     """Handler for the lookup-server TOPK/TOPKV commands, its index on
-    ``device``."""
-    return ALSTopkHandler(table, device=device)
+    ``device`` and row-sharded over the visible GPUs when there is more
+    than one and ``TPUMS_TOPK_SHARDED`` asks for it (``auto``: a catalog
+    larger than half of one card)."""
+    return ALSTopkHandler(table, device=device,
+                          shard_devices=visible_gpus(device))

@@ -1,4 +1,4 @@
-"""ALS training CLI on one CUDA card.
+"""ALS training CLI on CUDA cards, one process per card.
 
 Counterpart of ``flink_ms_tpu/train/als_train.py`` (itself the
 counterpart of ``ALSImpl``, ``flink-als/.../ALSImpl.scala``): the same
@@ -21,10 +21,19 @@ factors under DIR at every iteration boundary, resumes from the latest
 matching snapshot on a rerun, prints the per-iteration ``StepTimer``
 summary, and also writes a copy of the final factors under DIR.
 
-``--blocks`` is accepted and runs as one block: the solve is exact per row,
-so the block count does not change the result.  Not in the port yet (see
-ROADMAP.md): ``--devices`` above 1 (multi-GPU), which is refused with an
-error.
+Ranks (``parallel/distributed.py``), as the reference's mesh:
+
+  --devices N          train on N ranks of this host, one per GPU (on
+                       ``--device cpu``, N CPU processes over gloo): the
+                       command spawns them and rank 0 writes the output
+  --coordinatorAddress host:port --numProcesses N --processId I
+                       join a job whose ranks were started elsewhere,
+                       one command per rank (``--backend nccl|gloo``)
+
+Without either, the job spans ``--blocks`` GPUs, at most every visible one
+(default: all of them; the reference's ``mesh_for_blocks``).  The solve is
+exact per row, so the block count does not change the result beyond the
+order of float sums.  Rank 0 alone prints the summary and writes files.
 """
 
 from __future__ import annotations
@@ -32,24 +41,51 @@ from __future__ import annotations
 import sys
 import time
 
+import torch
+
 from ..core import formats as F
 from ..core.params import Params, field_delimiter_from
-from ..ops.als import ALSConfig, ALSModel, als_fit, rmse
-from ..parallel.mesh import num_blocks, resolve_device
+from ..ops.als import ALSConfig, ALSModel, als_fit, model_to_host, rmse
+from ..parallel import distributed as pdist
+from ..parallel.mesh import (local_device, num_blocks, ranks_for_blocks,
+                             resolve_device)
 from ..utils import profiling
+
+
+def _rank_run(params: Params):
+    """One rank of a job that ``--devices N`` spawned -> rank 0's model as
+    host arrays (ids, then user and item factors), else None."""
+    model = run(params)
+    return model_to_host(model) if pdist.is_primary() else None
+
+
+def spawn_ranks(rank_fn, params: Params, ranks: int, device):
+    """Run ``rank_fn(params)`` on ``ranks`` ranks of this host -> rank 0's
+    value.  The CUDA kernels are built here first, once, so the ranks load
+    them instead of each running nvcc."""
+    if device.type == "cuda":
+        from ..ops import _build
+
+        _build.build_all()
+    return pdist.launch_local(rank_fn, ranks, (params,),
+                              device=device.type,
+                              backend=params.get("backend"))[0]
 
 
 def run(params: Params) -> ALSModel | None:
     if not params.has("input"):
         print("Use --input to specify file input.")
         return None
-    devices = params.get_int("devices")
-    if devices is not None and devices != num_blocks():
-        raise ValueError(
-            f"--devices {devices}: the port trains on one card; multi-GPU "
-            "is not ported yet: ROADMAP.md, Queue 1, item 'Multi-GPU'"
-        )
     device = resolve_device(params.get("device", "cuda"))
+    pdist.maybe_init_distributed(params)
+    ranks = ranks_for_blocks(params.get_int("blocks"),
+                             params.get_int("devices"), device)
+    if ranks > 1 and not pdist.in_group():
+        user_ids, item_ids, uf, itf = spawn_ranks(_rank_run, params, ranks,
+                                                  device)
+        return ALSModel(user_ids, item_ids, torch.from_numpy(uf),
+                        torch.from_numpy(itf))
+    device = local_device(device)
 
     delim = field_delimiter_from(params)
     users, items, ratings = F.read_ratings(
@@ -82,6 +118,8 @@ def run(params: Params) -> ALSModel | None:
                         temporary_path=tmp, step_timer=step_timer)
         profiling.hard_sync(model.user_factors)
     train_s = time.time() - t0
+    if not pdist.is_primary():  # one rank reports and writes the output
+        return model
     if step_timer is not None and step_timer.durations_s:
         print(step_timer.summary())
     print(

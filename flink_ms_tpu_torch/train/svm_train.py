@@ -1,4 +1,4 @@
-"""SVM training CLI on one CUDA card.
+"""SVM training CLI on CUDA cards, one process per card.
 
 Counterpart of ``flink_ms_tpu/train/svm_train.py`` (itself the
 counterpart of ``SVMImpl``, ``flink-svm/.../SVMImpl.scala``): the same
@@ -19,8 +19,13 @@ Flags: ``--training`` (required), ``--blocks`` (10), ``--iteration``
   --device cuda|cpu    where to train (default cuda; no silent fallback)
   --profileDir DIR     write a torch.profiler trace of the fit
 
-``--devices`` above 1 (multi-GPU) is not ported yet (ROADMAP.md) and is
-refused with an error.
+Ranks, as in ``train/als_train.py``: ``--devices N`` spawns N ranks of
+this host (CPU processes over gloo on ``--device cpu``), and
+``--coordinatorAddress/--numProcesses/--processId`` (``--backend``) join a
+job started elsewhere; without them the job spans min(``--blocks``,
+visible GPUs) ranks, as the reference's mesh.  The K = ``--blocks`` chains
+are padded to a multiple of the ranks and split evenly; rank 0 alone
+prints the summary and writes the model.
 """
 
 from __future__ import annotations
@@ -31,23 +36,32 @@ import time
 from ..core import formats as F
 from ..core.params import Params
 from ..ops.svm import SVMConfig, SVMModel, prepare_svm_blocked, svm_fit
-from ..parallel.mesh import num_blocks, resolve_device
+from ..parallel import distributed as pdist
+from ..parallel.mesh import (local_device, num_blocks, ranks_for_blocks,
+                             resolve_device)
 from ..utils import profiling
+from .als_train import spawn_ranks
+
+
+def _rank_run(params: Params):
+    """One rank of a job that ``--devices N`` spawned -> the model (host
+    numpy) on rank 0, else None."""
+    model = run(params)
+    return model if pdist.is_primary() else None
 
 
 def run(params: Params) -> SVMModel:
     training_path = params.get_required("training")
-    devices = params.get_int("devices")
-    if devices is not None and devices != num_blocks():
-        raise ValueError(
-            f"--devices {devices}: the port trains on one card; multi-GPU "
-            "is not ported yet: ROADMAP.md, Queue 1, item 'Multi-GPU'"
-        )
     device = resolve_device(params.get("device", "cuda"))
+    pdist.maybe_init_distributed(params)
+    # blocks = K logical SDCA chains, ceil(K/D) of them on each rank
+    blocks = params.get_int("blocks", 10)
+    ranks = ranks_for_blocks(blocks, params.get_int("devices"), device)
+    if ranks > 1 and not pdist.in_group():
+        return spawn_ranks(_rank_run, params, ranks, device)
+    device = local_device(device)
     data = F.read_libsvm(training_path)
 
-    # blocks = K logical SDCA chains, all of them on the one card
-    blocks = params.get_int("blocks", 10)
     iterations = params.get_int("iteration", params.get_int("iterations", 10))
     seed = params.get_int("seed", 0)
     problem = prepare_svm_blocked(data, blocks, seed=seed)
@@ -68,6 +82,8 @@ def run(params: Params) -> SVMModel:
     with profiling.trace(params.get("profileDir")):
         model = svm_fit(data, config, device, problem=problem)
     train_s = time.time() - t0
+    if not pdist.is_primary():  # one rank reports and writes the output
+        return model
     print(
         f"[SVM] model-fitting: {data.n_examples} examples x "
         f"{data.n_features} features, {iterations} rounds x {local_iters} "

@@ -99,7 +99,7 @@ def test_no_input_prints_usage(capsys):
 
 @pytest.mark.parametrize("flag,value,match", [
     ("--temporaryPath", "/", "must name a directory"),
-    ("--devices", "2", "Multi-GPU"),
+    ("--devices", "0", "must be >= 1"),
 ])
 def test_unported_flags_are_refused(ratings_file, flag, value, match):
     path, _ = ratings_file

@@ -235,28 +235,7 @@ def counted(monkeypatch):
     from flink_ms_tpu_torch.ops import svm as TS
     from flink_ms_tpu_torch.ops import svm_kernels as SK
 
-    def assembly(*a, **kw):
-        GA.LAUNCHES += 1
-        return GA.fused_bucket_assembly(*a, **kw)
-
-    def solve(A, b, layout=None):
-        CH.LAUNCHES += 1
-        CH.BATCH_MAJOR_LAUNCHES += int(layout == "batch_major")
-        return CH.cholesky_solve_batched(A, b, layout=layout)
-
-    def margin(*a, **kw):
-        SK.LAUNCHES["margin_gather"] += 1
-        return SK.margin_gather(*a, **kw)
-
-    def scatter(idx, val, d, row_scale=None):
-        SK.LAUNCHES["scatter_add_dw" if row_scale is None
-                    else "scatter_add_dw[row_scale]"] += 1
-        return SK.scatter_add_dw(idx, val, d, row_scale=row_scale)
-
-    monkeypatch.setattr(TA, "fused_bucket_assembly", assembly)
-    monkeypatch.setattr(TA, "cholesky_solve_batched", solve)
-    monkeypatch.setattr(TS, "margin_gather", margin)
-    monkeypatch.setattr(TS, "scatter_add_dw", scatter)
+    chip_smoke.count_plain_versions(TA, CH, GA, TS, SK, monkeypatch.setattr)
     monkeypatch.setattr(chip_smoke, "RANK", 8)
     return TA, CH, GA, TS, SK
 
@@ -455,3 +434,4 @@ def test_serve_phase_ab_samples_run_on_the_cpu(small_model):
         {"TPUMS_TOPK_TIER": "exact"})
     p50, qps = ab.exact_1m(chip_smoke, torch, index, queries)
     assert p50 > 0 and qps > 0
+

@@ -38,7 +38,8 @@ def test_port_and_chip_smoke_load_no_jax():
                 "flink_ms_tpu_torch.gen.als_model_generator",
                 "flink_ms_tpu_torch.gen.svm_model_generator",
                 "flink_ms_tpu_torch.serve.journal",
-                "flink_ms_tpu_torch.serve.autopilot"} <= set(names)
+                "flink_ms_tpu_torch.serve.autopilot",
+                "flink_ms_tpu_torch.parallel.distributed"} <= set(names)
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
                      or m == "flink_ms_tpu" or m.startswith("flink_ms_tpu."))
@@ -51,6 +52,27 @@ def test_port_and_chip_smoke_load_no_jax():
     n, bad = out.stdout.strip().split(" ", 1)
     assert int(n) >= 31  # every module of the port was imported
     assert bad == "[]"
+
+
+def test_spawned_ranks_load_no_jax():
+    """A rank that ``launch_local`` spawns imports the port's worker entry
+    points (the CLIs' and phase 16's) and nothing of JAX: the test process
+    has JAX loaded, and a spawned child starts from a fresh interpreter."""
+    from flink_ms_tpu_torch.parallel import distributed as pdist
+
+    loaded = ("(__import__('flink_ms_tpu_torch.train.als_train'), "
+              "__import__('flink_ms_tpu_torch.train.svm_train'), "
+              "__import__('chip_smoke'), "
+              "sorted(__import__('sys').modules))[-1]")
+    for names in pdist.launch_local(pdist.run_calls, 2, (
+            [(eval, (loaded,), {}, None)],), device="cpu", timeout=120):
+        names = names[0]
+        assert "flink_ms_tpu_torch.parallel.distributed" in names
+        assert "chip_smoke" in names
+        bad = [m for m in names
+               if m == "jax" or m.startswith(("jax.", "jaxlib"))
+               or m == "flink_ms_tpu" or m.startswith("flink_ms_tpu.")]
+        assert bad == []
 
 
 def test_chip_smoke_refuses_without_cuda(monkeypatch, capsys):

@@ -138,7 +138,13 @@ def test_stdout_mode_and_profile_trace(tmp_path, libsvm_file, capsys):
     assert os.path.getsize(os.path.join(trace_dir, "trace.json")) > 0
 
 
-def test_multi_gpu_is_refused(libsvm_file):
-    with pytest.raises(ValueError, match="Multi-GPU"):
+def test_multi_gpu_is_refused(libsvm_file, monkeypatch):
+    # more ranks than visible GPUs: refused before anything runs
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="requested 2 devices but only 1"):
         port_cli.run(Params.from_args(
-            ["--training", libsvm_file, "--device", "cpu", "--devices", "2"]))
+            ["--training", libsvm_file, "--device", "cuda", "--devices",
+             "2"]))

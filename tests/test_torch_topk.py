@@ -388,15 +388,20 @@ def test_frame_rows_floor_and_powers_of_two():
 
 
 def test_sharded_tier_is_refused_not_run_on_one_device(monkeypatch):
-    monkeypatch.setenv("TPUMS_TOPK_SHARDED", "1")
-    with pytest.raises(ValueError, match="Multi-GPU"):
-        DeviceFactorIndex(ModelTable(), "-I", device="cpu")
-    with pytest.raises(ValueError, match="Multi-GPU"):
-        make_als_topk_handler(ModelTable(), device="cpu")
-    for mode in ("0", "auto"):
+    # one device has nothing to shard over: every value of the variable
+    # serves the single-device tier, as the reference's index does (the
+    # port refused "1" until the sharded tier was ported)
+    table = ModelTable()
+    table.put("7-I", "1.0;2.0")
+    for mode in ("1", "0", "auto"):
         monkeypatch.setenv("TPUMS_TOPK_SHARDED", mode)
-        assert DeviceFactorIndex(ModelTable(), "-I",
-                                 device="cpu").device.type == "cpu"
+        index = DeviceFactorIndex(table, "-I", device="cpu")
+        assert index.device.type == "cpu"
+        assert index.topk(np.array([1.0, 1.0]), 1) == [("7", 3.0)]
+        assert isinstance(index._matrix, torch.Tensor)
+        handler = make_als_topk_handler(table, device="cpu")
+        assert handler.by_vector("1.0;1.0", 1) == "7:3.0"
+        handler.close()
 
 
 def test_cuda_index_raises_without_cuda(monkeypatch):
