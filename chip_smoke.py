@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card: blocked ALS training and
 CoCoA SVM training, each through its hand-written CUDA kernels, top-k
 serving of the trained ALS model, staged ALS with resume, the SVM's opt-in
-modes, the model generators, the autopilot's retrain, and the multi-rank
-paths over ``torch.distributed``.
+modes, the model generators, the autopilot's retrain, the multi-rank
+paths over ``torch.distributed``, and the serving job in a process of its
+own.
 
 Run from the repository root, on a machine with one CUDA card:
 
@@ -138,7 +139,24 @@ Phases, each printing lines of its own (``[smoke] ...``):
             more cards only, over NCCL on 1, 2 and 4 ranks of one card each:
             ALS ML-20M sec/iter and SVM RCV1 ms/round with each fit against
             D = 1's, and the sharded tier on the 10M catalog over 2 and 4
-            cards; with one card it prints that (d) needs more.
+            cards; with one card it prints that (d) needs more;
+17. serving job — steps 3-8 of ``scripts/e2e_demo.sh`` on phase 4's
+            model through the port's CLIs: the factor files, the MEAN rows,
+            ``als_producer`` (165,239 rows), ``als_consumer --device cuda
+            --stateBackend fs`` as a subprocess resolved through the job
+            registry (seconds to ready, ingest rows/s); 256 TOPK over the
+            wire equal byte for byte to the in-process
+            ``make_als_topk_handler`` and to a float64 top-k, TOPKV, GET and
+            MGET, p50/p99 of 1,000 sequential TOPK, ``als_predict_random``
+            for 2,000 queries (its CSV's p50/p99); the live MSE of 200,000
+            training ratings (seed 7) equal to the offline ``--model`` MSE
+            at rtol 1e-5; ``online.sgd`` on 50,000 fresh ratings (seed 1,
+            batch 256): updates/s, seconds until the job's offset and its
+            index catch up, 64 sampled keys serving their last journal row,
+            64 updated users' TOPK equal to a float64 top-k of the served
+            rows, the live MSE after; then SIGTERM and a restart from the
+            checkpoint that replays only the tail, serving the same COUNT,
+            MGET and TOPK replies.
 
 Each kernel's ``ms`` is the median over calls timed one CUDA event pair
 each, the wrapper's host work included where it outlasts the device's;
@@ -2444,6 +2462,454 @@ def multi_gpu_only(torch, dev) -> int:
     return 0
 
 
+# -- phase 17: the serving job ------------------------------------------------
+
+JOB_TOPK_USERS = 256      # TOPK replies held against the in-process handler
+JOB_LATENCY_CALLS = 1000  # sequential TOPK requests timed over the wire
+JOB_HARNESS_QUERIES = 2000
+JOB_MSE_RATINGS = 200_000
+JOB_SGD_RATINGS = 50_000
+JOB_SAMPLE = 64           # keys and users checked after the updates
+JOB_CHECKPOINT_MS = 20_000
+JOB_WAIT_S = 300.0        # the longest any step may wait for the job
+JOB_ID, JOB_TOPIC, JOB_STATE = "smoke-als-job", "als-model", "ALS_MODEL"
+
+
+class ServingJobProcess:
+    """``python -m flink_ms_tpu_torch.serve.als_consumer`` as a subprocess,
+    resolved through the job registry; ``stop`` ends it on every path."""
+
+    def __init__(self, work, dev, label):
+        self.work, self.label = work, label
+        self.log_path = os.path.join(work, f"job-{label}.log")
+        cmd = [sys.executable, "-m", "flink_ms_tpu_torch.serve.als_consumer",
+               "--device", "cuda" if dev.type == "cuda" else "cpu",
+               "--journalDir", os.path.join(work, "journal"),
+               "--topic", JOB_TOPIC, "--stateBackend", "fs",
+               "--checkpointDataUri", os.path.join(work, "ckpt"),
+               "--checkPointInterval", str(JOB_CHECKPOINT_MS),
+               "--host", "127.0.0.1", "--port", "0", "--jobId", JOB_ID]
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [os.path.dirname(os.path.abspath(__file__))]
+            + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        self.t0 = time.perf_counter()
+        self._log = open(self.log_path, "w")
+        self.proc = subprocess.Popen(cmd, stdout=self._log,
+                                     stderr=subprocess.STDOUT, env=env)
+        self.client = None
+
+    def tail(self, n=2000) -> str:
+        self._log.flush()
+        with open(self.log_path) as f:
+            return f.read()[-n:]
+
+    def wait_ready(self):
+        """-> (seconds from the process start to ready, HEALTH report)."""
+        from flink_ms_tpu_torch.serve import registry
+        from flink_ms_tpu_torch.serve.client import QueryClient
+
+        deadline = time.perf_counter() + JOB_WAIT_S
+        while time.perf_counter() < deadline:
+            check(self.proc.poll() is None,
+                  f"the serving job ({self.label}) exited "
+                  f"{self.proc.returncode}: {self.tail()}")
+            entry = registry.resolve(JOB_ID)
+            if entry is not None and entry.get("ready"):
+                if self.client is None:
+                    self.client = QueryClient("127.0.0.1", entry["port"],
+                                              timeout_s=60)
+                health = self.client.health(JOB_STATE)
+                if health["ready"]:
+                    return time.perf_counter() - self.t0, health
+            time.sleep(0.02)
+        raise SmokeFailure(f"the serving job ({self.label}) was not ready "
+                           f"in {JOB_WAIT_S} s: {self.tail()}")
+
+    def wait_offset(self, end: int) -> float:
+        """Seconds until the job's offset reaches ``end``."""
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < JOB_WAIT_S:
+            if self.client.health(JOB_STATE)["offset"] >= end:
+                return time.perf_counter() - t0
+            time.sleep(0.01)
+        raise SmokeFailure(f"the job did not reach offset {end}")
+
+    def stop(self, sig=None) -> None:
+        import signal
+
+        if self.client is not None:
+            self.client.close()
+        if self.proc.poll() is None:
+            self.proc.send_signal(sig or signal.SIGTERM)
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        self._log.close()
+
+
+def checkpoint_offset(ckpt_dir):
+    """The journal offset of the newest complete checkpoint, or None."""
+    try:
+        with open(os.path.join(ckpt_dir, "latest")) as f:
+            chk = f.read().strip()
+        with open(os.path.join(ckpt_dir, chk, "MANIFEST.json")) as f:
+            return int(json.load(f)["offset"])
+    except (OSError, ValueError, KeyError):
+        return None
+
+
+def index_fresh_s(client, user) -> float:
+    """Seconds until the job's top-k index has absorbed every row it was
+    told of: each TOPK runs the index's upkeep (in-place rewrites of dirty
+    rows, or a background rebuild past its backlog), and METRICS reads the
+    dirty depth that upkeep found."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < JOB_WAIT_S:
+        client._roundtrip(f"TOPK\t{JOB_STATE}\t{user}\t{TOPK_K}")
+        depth = [g["value"] for g in client.metrics()["gauges"]
+                 if g["name"] == "tpums_topk_dirty_depth"]
+        if depth == [0.0]:
+            return time.perf_counter() - t0
+        time.sleep(0.01)
+    raise SmokeFailure("the job's top-k index kept a dirty backlog")
+
+
+def served_topk(client, users, k=TOPK_K):
+    return [client._roundtrip(f"TOPK\t{JOB_STATE}\t{u}\t{k}") for u in users]
+
+
+def float64_agree(replies, user_rows, item_rows, col_of, k=TOPK_K) -> int:
+    """How many wire TOPK replies are the float64 top-k of the rows."""
+    s64 = user_rows.astype(np.float64) @ item_rows.astype(np.float64).T
+    return sum(topk_agrees([col_of[i] for i in parse_reply(r[2:])[0]],
+                           s64[j], k)[0] for j, r in enumerate(replies))
+
+
+def write_ratings_tsv(path, users, items, ratings, header=True):
+    with open(path, "w") as f:
+        if header:
+            f.write("user\titem\trating\n")
+        f.writelines(f"{u}\t{i}\t{r!r}\n"
+                     for u, i, r in zip(users.tolist(), items.tolist(),
+                                        ratings.tolist()))
+
+
+def serving_job_phase(torch, model, ratings_t, serve_p50, dev) -> dict:
+    """Phase 17: the serving job of ``scripts/e2e_demo.sh`` steps 3-8 on
+    phase 4's model, through the port's CLIs and a job in a subprocess:
+    mean vectors, publish, serve (resolved through the registry), TOPK over
+    the wire equal to the in-process handler, the latency harness, the
+    live MSE equal to the offline one, online SGD closing the loop (served
+    rows equal the last journal rows, TOPK equal to a float64 top-k of the
+    served rows), and a restart from the checkpoint."""
+    import tempfile
+
+    from flink_ms_tpu_torch.client import als_predict_random as HARNESS
+    from flink_ms_tpu_torch.core import formats as F
+    from flink_ms_tpu_torch.core.params import Params
+    from flink_ms_tpu_torch.eval import mean_vector as MEAN
+    from flink_ms_tpu_torch.eval import mse as MSE
+    from flink_ms_tpu_torch.online import sgd as SGD
+    from flink_ms_tpu_torch.serve import journal as PJ
+    from flink_ms_tpu_torch.serve import registry
+    from flink_ms_tpu_torch.serve.consumer import parse_als_record
+    from flink_ms_tpu_torch.serve.table import ModelTable
+    from flink_ms_tpu_torch.serve.topk import make_als_topk_handler
+
+    t_phase = time.perf_counter()
+    out = {}
+    uf = model.user_factors.cpu().numpy()
+    itf = model.item_factors.cpu().numpy()
+    u_ids = [str(u) for u in model.user_ids]
+    i_ids = [str(i) for i in model.item_ids]
+    dev_name = "cuda" if dev.type == "cuda" else "cpu"
+    prior_registry = os.environ.get("TPUMS_REGISTRY_DIR")
+    jobs = []
+    with tempfile.TemporaryDirectory() as work:
+        os.environ["TPUMS_REGISTRY_DIR"] = os.path.join(work, "registry")
+        try:
+            # 1. model files, mean vectors, publish
+            w = lambda *p: os.path.join(work, *p)  # noqa: E731
+            os.makedirs(w("model"))
+            t0 = time.perf_counter()
+            F.write_als_model(w("model", "userFactors"), model.user_ids,
+                              F.USER, uf)
+            F.write_als_model(w("model", "itemFactors"), model.item_ids,
+                              F.ITEM, itf)
+            write_s = time.perf_counter() - t0
+            means = [MEAN.run(Params.from_args(
+                ["--type", side, "--input", w("model", f"{side}Factors"),
+                 "--output", w("model", f"mean{side[0].upper()}")]))
+                for side in ("user", "item")]
+            t0 = time.perf_counter()
+            pub = subprocess.run(
+                [sys.executable, "-m", "flink_ms_tpu_torch.serve.als_producer",
+                 "--input", w("model"), "--journalDir", w("journal"),
+                 "--topic", JOB_TOPIC], capture_output=True, text=True,
+                env=dict(os.environ, PYTHONPATH=os.path.dirname(
+                    os.path.abspath(__file__))), timeout=JOB_WAIT_S)
+            pub_s = time.perf_counter() - t0
+            check(pub.returncode == 0, f"als_producer failed: {pub.stderr}")
+            journal = PJ.Journal(w("journal"), JOB_TOPIC)
+            published = journal.read_lines()
+            pub_end = journal.end_offset()
+            n_rows = len(u_ids) + len(i_ids) + 2
+            log(f"job publish: model files written in {write_s:.2f}s, MEAN "
+                f"rows {means[0][:24]}... and {means[1][:24]}...; "
+                f"als_producer {len(published)} rows, {pub_end} bytes in "
+                f"{pub_s:.2f}s (a process of its own)")
+            check(len(published) == n_rows and pub.stdout.strip().endswith(
+                f"{n_rows} rows -> topic '{JOB_TOPIC}'"),
+                f"published {len(published)} rows, want {n_rows}")
+
+            # 2. the job in a subprocess, resolved through the registry
+            job = ServingJobProcess(work, dev, "cold")
+            jobs.append(job)
+            ready_s, health = job.wait_ready()
+            cold_s = health["bootstrap_seconds"]
+            out.update(ready_s=ready_s, bootstrap_s=cold_s,
+                       ingest_rows_per_s=n_rows / cold_s)
+            log(f"job ready: {ready_s:.2f}s from the process start "
+                f"(bootstrap {cold_s:.3f}s: {n_rows} rows by "
+                f"{health['ingest_path']} replay, {n_rows / cold_s:.0f} "
+                f"rows/s), {health['keys']} keys, offset {health['offset']}, "
+                f"registry entry {registry.resolve(JOB_ID)['port']}")
+            check(health["keys"] == n_rows and health["offset"] == pub_end
+                  and health["bootstrap_source"] == "replay",
+                  f"the job's first HEALTH {health}")
+            client = job.client
+
+            # 3. TOPK over the wire against the in-process handler
+            table = ModelTable()
+            table.put_many([parse_als_record(line) for line in published])
+            handler = make_als_topk_handler(table, device=dev)
+            handler.batching = False
+            rng = np.random.default_rng(0)
+            qu = [u_ids[j] for j in rng.integers(0, len(u_ids),
+                                                 JOB_TOPK_USERS)]
+            t0 = time.perf_counter()
+            wire = served_topk(client, qu)
+            first_s = time.perf_counter() - t0
+            local = [f"V\t{handler(u, TOPK_K)}" for u in qu]
+            same = sum(a == b for a, b in zip(wire, local))
+            col_of = {i: c for c, i in enumerate(i_ids)}
+            col_of["MEAN"] = len(i_ids)
+            mean_i = np.asarray([float(t) for t in means[1].split(",")[2]
+                                 .split(";")])
+            items64 = np.vstack([itf.astype(np.float64), mean_i])
+            row_of = {u: r for r, u in enumerate(u_ids)}
+            agree = float64_agree(wire, uf[[row_of[u] for u in qu]], items64,
+                                  col_of)
+            vec = [client._roundtrip(f"TOPKV\t{JOB_STATE}\t{TOPK_K}\t"
+                                     f"{table.get(u + '-U')}")
+                   for u in qu[:16]]
+            keys = [f"{u}-U" for u in qu[:32]] + [f"{i}-I" for i in
+                                                   i_ids[:31]] + ["MEAN-I"]
+            gets = [client.query_state(JOB_STATE, k) for k in keys[:16]]
+            mget = client.query_states(JOB_STATE, keys)
+            check(same == len(qu), f"{len(qu) - same} wire TOPK replies "
+                  "differ from the in-process handler's")
+            check(agree == len(qu), f"{len(qu) - agree} wire TOPK replies "
+                  "off the float64 top-k")
+            check(vec == wire[:16], "TOPKV differs from TOPK over the wire")
+            check(gets == [table.get(k) for k in keys[:16]]
+                  and mget == [table.get(k) for k in keys],
+                  "GET/MGET differ from the published rows")
+            lat_users = [u_ids[j] for j in rng.integers(0, len(u_ids),
+                                                        JOB_LATENCY_CALLS)]
+            p50, p99 = latency_ms(lambda j: client._roundtrip(
+                f"TOPK\t{JOB_STATE}\t{lat_users[j]}\t{TOPK_K}"),
+                JOB_LATENCY_CALLS)
+            out.update(wire_p50_ms=p50, wire_p99_ms=p99)
+            t0 = time.perf_counter()
+            n_h = HARNESS.run(Params.from_args(
+                ["--jobId", JOB_ID, "--numQueries", str(JOB_HARNESS_QUERIES),
+                 "--lowerUserId", "0", "--upperUserId", str(len(u_ids) - 1),
+                 "--lowerItemId", "0", "--upperItemId", str(len(i_ids) - 1),
+                 "--outputFile", w("latency.csv")]))
+            harness_s = time.perf_counter() - t0
+            with open(w("latency.csv")) as f:
+                csv = [line.rstrip("\n").split(",") for line in f]
+            ms = np.asarray([float(r[3]) for r in csv])
+            out.update(harness_p50_ms=float(np.percentile(ms, 50)),
+                       harness_p99_ms=float(np.percentile(ms, 99)))
+            log(f"job TOPK over the wire: the first {JOB_TOPK_USERS} in "
+                f"{first_s:.3f}s (the index's build included), {same} equal "
+                f"to the in-process handler, {agree} agree with a float64 "
+                f"top-k; 16 TOPKV equal their TOPK; GET/MGET equal the "
+                f"published rows; {JOB_LATENCY_CALLS} sequential TOPK k="
+                f"{TOPK_K} p50 {p50:.4f} ms, p99 {p99:.4f} ms (phase 10's "
+                f"in-process p50 {serve_p50:.4f} ms); als_predict_random "
+                f"{n_h} queries in {harness_s:.2f}s, its CSV's ms column "
+                f"(whole ms, the reference's format) p50 "
+                f"{out['harness_p50_ms']}, p99 {out['harness_p99_ms']}")
+            check(n_h == JOB_HARNESS_QUERIES and len(csv) == n_h
+                  and all(len(r) == 4 for r in csv),
+                  "the latency harness's CSV")
+
+            # 4. live MSE against the offline MSE of the same ratings
+            users, items, ratings = ratings_t
+            pick = np.random.default_rng(7).choice(len(ratings),
+                                                   JOB_MSE_RATINGS,
+                                                   replace=False)
+            write_ratings_tsv(w("mse.tsv"), users[pick], items[pick],
+                              ratings[pick])
+
+            def live_mse(tag):
+                t0 = time.perf_counter()
+                v = MSE.run(Params.from_args(
+                    ["--input", w("mse.tsv"), "--jobId", JOB_ID,
+                     "--output", w(f"mse-{tag}.txt")]))
+                return v, time.perf_counter() - t0
+
+            live, live_s = live_mse("live")
+            t0 = time.perf_counter()
+            offline = MSE.run(Params.from_args(
+                ["--input", w("mse.tsv"), "--model",
+                 w("model", "userFactors") + "," + w("model", "itemFactors"),
+                 "--device", dev_name, "--output", w("mse-offline.txt")]))
+            offline_s = time.perf_counter() - t0
+            gap = abs(live - offline) / offline
+            out.update(mse_live=live, mse_offline=offline, mse_live_s=live_s)
+            log(f"job live MSE on {JOB_MSE_RATINGS} training ratings (seed "
+                f"7): {float(live)!r} in {live_s:.2f}s (one MGET a user "
+                f"group, pipelined, float64 on the host); offline --model on "
+                f"the card {float(offline)!r} in {offline_s:.2f}s; relative "
+                f"gap {gap:.3e} (limit 1e-5)")
+            check(gap <= 1e-5, "the live MSE is not the offline one")
+
+            # 5. online SGD on fresh ratings, closing the loop
+            rng1 = np.random.default_rng(1)
+            su = rng1.integers(0, len(u_ids), JOB_SGD_RATINGS)
+            si = rng1.integers(0, len(i_ids), JOB_SGD_RATINGS)
+            sr = rng1.uniform(1.0, 5.0, JOB_SGD_RATINGS)
+            write_ratings_tsv(w("updates.tsv"), np.asarray(u_ids)[su],
+                              np.asarray(i_ids)[si], sr, header=False)
+            emitted = []
+            real_append = PJ.Journal.append
+
+            def recording_append(self, lines, flush=True):
+                lines = list(lines)
+                emitted.extend(lines)
+                return real_append(self, lines, flush)
+
+            PJ.Journal.append = recording_append
+            try:
+                t0 = time.perf_counter()
+                n_sgd = SGD.run(Params.from_args(
+                    ["--input", w("updates.tsv"), "--mode", "once",
+                     "--outputMode", "kafka", "--batchSize", "256",
+                     "--journalDir", w("journal"), "--topic", JOB_TOPIC,
+                     "--jobId", JOB_ID, "--learningRate", "0.05"]))
+                sgd_s = time.perf_counter() - t0
+            finally:
+                PJ.Journal.append = real_append
+            end = journal.end_offset()
+            queryable_s = job.wait_offset(end)
+            fresh_s = index_fresh_s(client, u_ids[0])
+            out.update(sgd_updates_per_s=n_sgd / sgd_s,
+                       queryable_s=queryable_s, index_fresh_s=fresh_s)
+            last = dict(parse_als_record(line) for line in emitted)
+            keys = sorted(last)
+            krng = np.random.default_rng(2)
+            sample = [keys[j] for j in krng.choice(len(keys), JOB_SAMPLE - 1,
+                                                   replace=False)]
+            sample.append(parse_als_record(emitted[-1])[0])  # the newest
+            served = client.query_states(JOB_STATE, sample)
+            held = sum(a == last[k] for k, a in zip(sample, served))
+            upd_users = [k[:-2] for k in keys if k.endswith("-U")]
+            upd_users = [upd_users[j] for j in krng.choice(
+                len(upd_users), min(JOB_SAMPLE, len(upd_users)),
+                replace=False)]
+            items_served = items64.copy()
+            for k, v in last.items():
+                if k.endswith("-I"):
+                    items_served[col_of[k[:-2]]] = np.asarray(
+                        v.split(";"), np.float64)
+            user_rows = np.stack([np.asarray(
+                last.get(f"{u}-U", table.get(f"{u}-U")).split(";"),
+                np.float64) for u in upd_users])
+            topk_after = served_topk(client, upd_users)
+            fresh = float64_agree(topk_after, user_rows, items_served, col_of)
+            after, after_s = live_mse("after")
+            out.update(mse_after=after)
+            log(f"job online SGD: {n_sgd} ratings (seed 1) in {sgd_s:.2f}s, "
+                f"{n_sgd / sgd_s:.0f} updates/s, {len(emitted)} rows "
+                f"appended; the job's offset reached the journal's end "
+                f"{queryable_s:.3f}s after the last append, and its top-k "
+                f"index had no dirty row {fresh_s:.3f}s later; {held} of "
+                f"{len(sample)} sampled keys serve their last journal row "
+                f"(the newest row's key among them); {fresh} of "
+                f"{len(upd_users)} updated users' TOPK agree with a float64 "
+                f"top-k of the served rows; live MSE after the updates "
+                f"{float(after)!r} (before {float(live)!r}) in "
+                f"{after_s:.2f}s")
+            check(n_sgd == JOB_SGD_RATINGS and len(emitted) == 2 * n_sgd,
+                  f"SGD processed {n_sgd} ratings, {len(emitted)} rows")
+            check(held == len(sample), f"{len(sample) - held} served rows "
+                  "differ from their last journal row")
+            check(fresh == len(upd_users), f"{len(upd_users) - fresh} TOPK "
+                  "replies after the updates are stale")
+
+            # 6. restart from the checkpoint
+            ckpt = w("ckpt")
+            t0 = time.perf_counter()
+            ck_off = None
+            while time.perf_counter() - t0 < JOB_WAIT_S:
+                ck_off = checkpoint_offset(ckpt)
+                if ck_off is not None and ck_off >= pub_end:
+                    break
+                time.sleep(0.2)
+            check(ck_off is not None and ck_off >= pub_end,
+                  "no checkpoint past the published model")
+            # a tail behind the checkpoint for the restart to replay: the
+            # newest SGD rows again (the same values, so the state holds)
+            tail_end = journal.append(emitted[-JOB_SAMPLE * 16:])
+            job.wait_offset(tail_end)
+            before = (client.count(JOB_STATE),
+                      client._roundtrip(f"MGET\t{JOB_STATE}\t"
+                                        + ",".join(sample)),
+                      served_topk(client, upd_users[:16]))
+            job.stop()
+            check(registry.resolve(JOB_ID) is None,
+                  "the stopped job is still in the registry")
+            ck_off = checkpoint_offset(ckpt)  # the one the restart reads
+            job = ServingJobProcess(work, dev, "restart")
+            jobs.append(job)
+            restart_s, health = job.wait_ready()
+            client = job.client
+            after_restart = (client.count(JOB_STATE),
+                             client._roundtrip(f"MGET\t{JOB_STATE}\t"
+                                               + ",".join(sample)),
+                             served_topk(client, upd_users[:16]))
+            out.update(restart_ready_s=restart_s,
+                       restore_s=health["bootstrap_seconds"])
+            log(f"job restart: SIGTERM, then ready in {restart_s:.2f}s from "
+                f"the process start (bootstrap {health['bootstrap_seconds']:.3f}"
+                f"s from the checkpoint at offset {ck_off}, a tail of "
+                f"{tail_end - ck_off} bytes replayed; the cold replay's "
+                f"{cold_s:.3f}s); COUNT {after_restart[0]}, the sampled "
+                f"MGET and 16 TOPK equal to those before: "
+                f"{after_restart == before}")
+            check(health["bootstrap_source"] == "checkpoint"
+                  and health["offset"] == tail_end,
+                  f"the restarted job's HEALTH {health}")
+            check(after_restart == before,
+                  "the restarted job serves other replies")
+            handler.close()
+        finally:
+            for job in jobs:
+                job.stop()
+            if prior_registry is None:
+                os.environ.pop("TPUMS_REGISTRY_DIR", None)
+            else:
+                os.environ["TPUMS_REGISTRY_DIR"] = prior_registry
+    log(f"job phase: {time.perf_counter() - t_phase:.1f}s")
+    return out
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -2530,7 +2996,8 @@ def main(argv=None) -> int:
         e["launches_by_path"] = {"svm_rcv1": svm_launches[e["name"]]}
         entries.append(e)
 
-    serve_phase(torch, final, (users, items, ratings), final["rmse"][2], dev)
+    serve = serve_phase(torch, final, (users, items, ratings),
+                        final["rmse"][2], dev)
     serve_scale_phase(torch, dev)
 
     staged = staged_phase(torch, TA, CH, GA, problem, (users, items, ratings),
@@ -2551,6 +3018,8 @@ def main(argv=None) -> int:
         log("multi (d): NCCL over 2 and 4 ranks needs two or more cards; "
             f"this machine has {torch.cuda.device_count()} "
             "(run python3 chip_smoke.py --multi-gpu on one that has them)")
+    serving_job_phase(torch, final["model"], (users, items, ratings),
+                      serve["p50_ms"], dev)
     for e, key in zip(entries[:3], ("cholesky", "cholesky_batch_major",
                                     "assembly")):
         e["launches_by_path"]["als_staged"] = staged[key]

@@ -2,18 +2,19 @@
 model.
 
 Counterpart of ``flink_ms_tpu/eval/mse.py`` (itself the counterpart of
-``MSE.java``).  The ``--model path[,path...]`` mode reads model row files
-and computes every prediction in one batched device pass through
-``ops.als.predict``:
+``MSE.java``), with its two sources:
+
+- live (the reference's): asks a running serving job through one
+  ``QueryClient`` (``--jobId``, resolved through the job registry, or
+  ``--jobManagerHost/--jobManagerPort``, ``--queryTimeout``), one MGET
+  per user group, sent ahead in pipelined windows (``--batchedLookups
+  false``: one GET per key, in turn), and predicts in float64 on the host;
+- offline (``--model path[,path...]``): reads model row files and computes
+  every prediction in one batched float32 pass on ``--device cuda|cpu``
+  (default cuda; no silent fallback) through ``ops.als.predict``:
 
     python -m flink_ms_tpu_torch.eval.mse --device cuda \\
         --input ratings.tsv --model uf,itf
-
-Flags beyond the reference: ``--device cuda|cpu`` (default cuda; no silent
-fallback).  The live mode, which asks a running serving job for each row
-(``--jobId ...``), needs the serving job, which is not ported yet
-(ROADMAP.md, Queue 1, item 'Serving job'); without ``--model`` the CLI
-refuses.
 
 Skip semantics are the reference's: a missing user drops that user's whole
 group (MSE.java:137-139), a missing item just that rating (:156-158).  The
@@ -22,7 +23,9 @@ input always skips its first line (MSE.java:43).
 
 from __future__ import annotations
 
+import itertools
 import sys
+from collections import deque
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -88,6 +91,47 @@ def rolling_holdout_split(
     return np.flatnonzero(mask), holdout_idx
 
 
+def _user_groups(users):
+    """(user, its row indices) per user, ascending, each group's rows in
+    input order: one stable sort instead of a mask per user."""
+    users = np.asarray(users)
+    order = np.argsort(users, kind="stable")
+    group_users, starts = np.unique(users[order], return_index=True)
+    ends = np.r_[starts[1:], len(users)]
+    return [(u, order[s:e]) for u, s, e in zip(group_users, starts, ends)]
+
+
+def _group_keys(users, items):
+    """The keys of compute_mse's ``lookup_many`` calls, in its order."""
+    for u, sel in _user_groups(users):
+        yield [f"{u}-U"] + [f"{it}-I" for it in items[sel]]
+
+
+def _pipelined_lookup_many(client, state, users, items, window=64,
+                           chunk=4096):
+    """``lookup_many`` for compute_mse against a live job: the same MGET
+    per user group, sent ahead in pipelined windows of ``window``
+    requests (``chunk`` groups at a time), each call answered with the
+    next group's payloads."""
+    from ..serve.client import parse_mget_reply
+
+    key_lists = _group_keys(users, items)
+    pending = deque()
+
+    def lookup_many(keys):
+        if not pending:
+            batch = list(itertools.islice(key_lists, chunk))
+            replies = client.pipeline(
+                [f"MGET\t{state}\t{','.join(k)}" for k in batch], window)
+            pending.extend(zip(batch, replies))
+        want, reply = pending.popleft()
+        if want != keys:
+            raise RuntimeError("MGET replies out of step with the groups")
+        return [_parse_payload(p) for p in parse_mget_reply(reply, len(keys))]
+
+    return lookup_many
+
+
 def compute_mse(
     users: np.ndarray,
     items: np.ndarray,
@@ -99,12 +143,14 @@ def compute_mse(
     lookup.  ``lookup_many`` (optional) takes a list of keys and returns a
     payload or None per key: one round trip per user group.
 
-    Returns (mse | None if nothing scored, n_scored, n_skipped)."""
+    Returns (mse | None if nothing scored, n_scored, n_skipped).  The
+    groups come from one stable sort, in the reference's order (ascending
+    user, each group's ratings in input order), so the sum is the
+    reference's bit for bit."""
     sq_sum = 0.0
     n_scored = 0
     n_skipped = 0
-    for u in np.unique(users):
-        sel = users == u
+    for u, sel in _user_groups(users):
         group_items = items[sel]
         group_ratings = ratings[sel]
         if lookup_many is not None:
@@ -117,7 +163,7 @@ def compute_mse(
             item_payloads = None
         if uf is None:
             print(f"No record found for the user ID: {u}-U", file=sys.stderr)
-            n_skipped += int(sel.sum())
+            n_skipped += len(sel)
             continue
         for j, (it, r) in enumerate(zip(group_items, group_ratings)):
             itf = item_payloads[j] if item_payloads is not None else lookup(f"{it}-I")
@@ -175,15 +221,18 @@ def _compute_mse_offline_batched(
     )
 
 
+def _parse_payload(payload):
+    """A served factor payload ``f1;f2;...`` -> float64 vector (None
+    stays None)."""
+    if payload is None:
+        return None
+    return np.asarray([float(t) for t in payload.split(";") if t])
+
+
 def run(params: Params, lookup=None) -> Optional[float]:
-    """The MSE of ``--input`` against ``--model`` on ``--device``, or
-    against an injected ``lookup(key) -> factors | None``."""
-    if not params.has("model") and lookup is None:
-        raise ValueError(
-            "the live mode (no --model) asks a running serving job, which "
-            "is not ported yet: ROADMAP.md, Queue 1, item 'Serving job'; "
-            "pass --model to evaluate model files"
-        )
+    """The MSE of ``--input`` against ``--model`` on ``--device``, against
+    the serving job the flags name, or against an injected
+    ``lookup(key) -> factors | None``."""
     delim = field_delimiter_from(params, default="tab")
     users, items, ratings = F.read_ratings(
         params.get_required("input"), field_delimiter=delim, ignore_first_line=True
@@ -194,8 +243,25 @@ def run(params: Params, lookup=None) -> Optional[float]:
         mse, n_scored, n_skipped = _compute_mse_offline_batched(
             users, items, ratings, table, device=params.get("device", "cuda")
         )
-    else:
+    elif lookup is not None:
         mse, n_scored, n_skipped = compute_mse(users, items, ratings, lookup)
+    else:
+        from ..serve.client import QueryClient
+        from ..serve.consumer import ALS_STATE
+        from ..serve.registry import resolve_endpoint
+
+        host, port = resolve_endpoint(params)
+        with QueryClient(host=host, port=port,
+                         timeout_s=params.get_int("queryTimeout", 5)) as client:
+            lookup_many = None
+            if params.get_bool("batchedLookups", True):
+                lookup_many = _pipelined_lookup_many(client, ALS_STATE,
+                                                     users, items)
+
+            mse, n_scored, n_skipped = compute_mse(
+                users, items, ratings,
+                lambda key: _parse_payload(client.query_state(ALS_STATE, key)),
+                lookup_many=lookup_many)
 
     if n_skipped:
         print(f"skipped {n_skipped} ratings with missing keys", file=sys.stderr)

@@ -1,2 +1,2 @@
-"""Counterpart of ``flink_ms_tpu.obs``: the metrics subset the serving path
-records."""
+"""Counterpart of ``flink_ms_tpu.obs``: the metrics the serving path
+records and the wire subset of request tracing."""

@@ -1,10 +1,16 @@
 """Process-wide metrics registry of the port's serving path.
 
 Own copy of the subset of ``flink_ms_tpu/obs/metrics.py`` that the top-k
-index and the batcher record: monotonic counters, labelled gauges and
-fixed-bucket log-spaced histograms in one get-or-create registry, with the
-``TPUMS_METRICS=0`` switch that makes every observation a no-op.  The
-port's registry is its own; the JAX package's is not shared.
+index, the batcher, the lookup server, admission and the serving job's
+ingest loop record: monotonic counters, labelled gauges and fixed-bucket
+log-spaced histograms in one get-or-create registry, with the
+``TPUMS_METRICS=0`` switch that makes every observation a no-op, optional
+exemplars (``TPUMS_EXEMPLARS=1``: each histogram bucket keeps the last
+traced observation), and the snapshot the ``METRICS`` verb renders as one
+JSON line, in the reference's schema.  The port's registry is its own; the
+JAX package's is not shared.  The fleet merge, the Prometheus text
+rendering and bench quantiles are not ported yet (ROADMAP.md, Queue 1,
+item 'Observability').
 
 Every instrument takes its own lock per observation: ``+=`` on an
 attribute is a read-modify-write that can lose updates across threads.
@@ -12,10 +18,16 @@ attribute is a read-modify-write that can lose updates across threads.
 
 from __future__ import annotations
 
+import json
 import os
 import threading
+import time
 from bisect import bisect_left
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
+
+# ---------------------------------------------------------------------------
+# enable switch
+# ---------------------------------------------------------------------------
 
 _ENABLED = os.environ.get("TPUMS_METRICS", "1") != "0"
 
@@ -24,9 +36,24 @@ def metrics_enabled() -> bool:
     return _ENABLED
 
 
+# Exemplars: when on, each histogram bucket remembers the last
+# ``(tid, value, ts)`` observed under an active trace, so any p99 number
+# resolves to a concrete trace id.  Off by default — the hot path then
+# pays exactly one module-global check per observation.
+_EXEMPLARS = os.environ.get("TPUMS_EXEMPLARS", "0") != "0"
+
+# The trace id rides INTO ``observe(v, tid=...)`` explicitly, so an
+# untraced observation pays nothing for the feature.
+
+
+# ---------------------------------------------------------------------------
+# shared bucket ladder
+# ---------------------------------------------------------------------------
+
 def log_buckets(lo: float, hi: float, per_decade: int = 16) -> Tuple[float, ...]:
     """Log-spaced upper bounds from ``lo`` to >= ``hi`` (``per_decade``
-    buckets per factor of 10)."""
+    buckets per factor of 10).  Bounds are generated once and shared; the
+    per-observation cost is a bisect, independent of bucket count."""
     if lo <= 0 or hi <= lo or per_decade < 1:
         raise ValueError("need 0 < lo < hi and per_decade >= 1")
     ratio = 10.0 ** (1.0 / per_decade)
@@ -36,14 +63,18 @@ def log_buckets(lo: float, hi: float, per_decade: int = 16) -> Tuple[float, ...]
     return tuple(out)
 
 
-# the latency ladder, 1 us .. 100 s at 16 buckets a decade, and the
-# batch-size ladder, 1 .. 64k at 8 a decade (the reference's bounds)
+# 1 us .. 100 s at 16 buckets a decade, and the batch-size ladder, 1 .. 64k
+# at 8 a decade (the reference's bounds)
 LATENCY_BUCKETS_S: Tuple[float, ...] = log_buckets(1e-6, 100.0, 16)
 SIZE_BUCKETS: Tuple[float, ...] = log_buckets(1.0, 65536.0, 8)
 
+# ---------------------------------------------------------------------------
+# instruments
+# ---------------------------------------------------------------------------
 
 class Counter:
-    """Monotonic counter; negative increments are refused."""
+    """Monotonic counter.  ``inc`` never goes backwards; negative
+    increments are rejected (that's what gauges are for)."""
 
     __slots__ = ("name", "labels", "_lock", "_value")
 
@@ -67,7 +98,7 @@ class Counter:
 
 
 class Gauge:
-    """Last-write-wins instantaneous value."""
+    """Last-write-wins instantaneous value (backlog bytes, rows/s)."""
 
     __slots__ = ("name", "labels", "_lock", "_value")
 
@@ -83,18 +114,31 @@ class Gauge:
         with self._lock:
             self._value = float(v)
 
+    def inc(self, n: float = 1.0) -> None:
+        if not _ENABLED:
+            return
+        with self._lock:
+            self._value += n
+
     @property
     def value(self) -> float:
         return self._value
 
 
 class Histogram:
-    """Fixed-bucket histogram: ``observe(v)`` counts ``v`` into the first
-    bucket whose upper bound is >= v (values above the last bound land in
-    the overflow slot)."""
+    """Fixed-bucket histogram with log-spaced upper bounds.
 
-    __slots__ = ("name", "labels", "bounds", "_lock", "_counts", "_sum",
-                 "_count")
+    ``observe(v)`` counts ``v`` into the first bucket whose upper bound is
+    >= v (Prometheus ``le`` semantics; values above the last bound land in
+    the implicit +Inf bucket) — one bisect into a precomputed tuple plus
+    two adds, zero allocation.  ``quantile(q)`` returns the interpolated
+    value the way ``histogram_quantile`` does: uniform within the winning
+    bucket, lower edge 0 for the first.  ``merge`` adds two histograms
+    bucket-wise (associative and commutative — the fleet-scrape identity
+    the tests pin)."""
+
+    __slots__ = ("name", "labels", "bounds", "_lock", "_counts",
+                 "_sum", "_count", "_exemplars")
 
     def __init__(self, name: str,
                  labels: Tuple[Tuple[str, str], ...] = (),
@@ -106,14 +150,26 @@ class Histogram:
         self.labels = labels
         self.bounds = bounds
         self._lock = threading.Lock()
+        # one slot per bound + the +Inf overflow slot
         self._counts = [0] * (len(bounds) + 1)
         self._sum = 0.0
         self._count = 0
+        # bucket index -> (tid, value, ts): last traced observation per
+        # bucket, populated only while exemplars are on AND a trace is
+        # active — bounded at one entry per bucket by construction
+        self._exemplars: Dict[int, tuple] = {}
 
-    def observe(self, v: float) -> None:
+    def observe(self, v: float, tid: Optional[str] = None) -> None:
         if not _ENABLED:
             return
         i = bisect_left(self.bounds, v)
+        if tid is not None and _EXEMPLARS:
+            with self._lock:
+                self._counts[i] += 1
+                self._sum += v
+                self._count += 1
+                self._exemplars[i] = (tid, v, time.time())
+            return
         with self._lock:
             self._counts[i] += 1
             self._sum += v
@@ -124,13 +180,18 @@ class Histogram:
         return self._count
 
 
+# ---------------------------------------------------------------------------
+# registry
+# ---------------------------------------------------------------------------
+
 def _label_key(labels: Dict[str, str]) -> Tuple[Tuple[str, str], ...]:
     return tuple(sorted((str(k), str(v)) for k, v in labels.items()))
 
 
 class MetricsRegistry:
-    """Get-or-create instrument store: the same ``(name, labels)`` returns
-    the same instrument, so call sites look it up once."""
+    """Get-or-create instrument store.  One process-wide instance
+    (``get_registry``) backs every subsystem; private instances exist only
+    for tests."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -140,26 +201,105 @@ class MetricsRegistry:
 
     def counter(self, name: str, **labels: str) -> Counter:
         key = (name, _label_key(labels))
-        with self._lock:
-            return self._counters.setdefault(key, Counter(name, key[1]))
+        c = self._counters.get(key)
+        if c is None:
+            with self._lock:
+                c = self._counters.setdefault(key, Counter(name, key[1]))
+        return c
 
     def gauge(self, name: str, **labels: str) -> Gauge:
         key = (name, _label_key(labels))
-        with self._lock:
-            return self._gauges.setdefault(key, Gauge(name, key[1]))
+        g = self._gauges.get(key)
+        if g is None:
+            with self._lock:
+                g = self._gauges.setdefault(key, Gauge(name, key[1]))
+        return g
 
     def histogram(self, name: str, bounds: Sequence[float] = LATENCY_BUCKETS_S,
                   **labels: str) -> Histogram:
         key = (name, _label_key(labels))
-        with self._lock:
-            h = self._histograms.get(key)
-            if h is None:
-                h = self._histograms[key] = Histogram(name, key[1], bounds)
-            return h
+        h = self._histograms.get(key)
+        if h is None:
+            with self._lock:
+                h = self._histograms.setdefault(
+                    key, Histogram(name, key[1], bounds))
+        return h
 
+    def snapshot(self, meta: Optional[dict] = None) -> dict:
+        """JSON-able point-in-time dump of every instrument (the METRICS
+        verb's payload and the scraper's merge unit)."""
+        out = {
+            "ts": time.time(),
+            "enabled": _ENABLED,
+            "counters": [], "gauges": [], "histograms": [],
+        }
+        if meta:
+            out["meta"] = dict(meta)
+        with self._lock:
+            counters = list(self._counters.values())
+            gauges = list(self._gauges.values())
+            hists = list(self._histograms.values())
+        for c in counters:
+            out["counters"].append(
+                {"name": c.name, "labels": dict(c.labels), "value": c.value})
+        for g in gauges:
+            out["gauges"].append(
+                {"name": g.name, "labels": dict(g.labels), "value": g.value})
+        for h in hists:
+            with h._lock:
+                counts = list(h._counts)
+                s, n = h._sum, h._count
+                ex = {str(i): list(rec) for i, rec in h._exemplars.items()}
+            entry = {
+                "name": h.name, "labels": dict(h.labels),
+                "le": list(h.bounds), "counts": counts,
+                "sum": s, "count": n,
+            }
+            if ex:
+                entry["exemplars"] = ex
+            out["histograms"].append(entry)
+        return out
 
 _REGISTRY = MetricsRegistry()
 
 
 def get_registry() -> MetricsRegistry:
     return _REGISTRY
+
+
+# ---------------------------------------------------------------------------
+# the METRICS verb's payload
+# ---------------------------------------------------------------------------
+
+def _series_key(entry: dict) -> tuple:
+    return (entry["name"], tuple(sorted(entry.get("labels", {}).items())))
+
+
+def synthesize_requests(snapshot: dict,
+                        hist_name: str = "tpums_server_latency_seconds",
+                        counter_name: str = "tpums_server_requests_total",
+                        ) -> dict:
+    """Derive the per-verb ``tpums_server_requests_total`` counter series
+    from the latency histogram's count, in place -> the snapshot.
+
+    Every request observes its latency exactly once, so the histogram
+    count IS the request count; materializing the counter here (snapshot
+    time, scrape rate) instead of inc'ing a second instrument on every
+    request halves the hot path's locked operations.  Merge stays
+    consistent: counters sum and the underlying histogram counts sum."""
+    have = {_series_key(e) for e in snapshot.get("counters", [])}
+    for h in snapshot.get("histograms", []):
+        if h["name"] != hist_name:
+            continue
+        entry = {"name": counter_name,
+                 "labels": dict(h.get("labels", {})),
+                 "value": h["count"]}
+        if _series_key(entry) not in have:
+            snapshot["counters"].append(entry)
+    return snapshot
+
+
+def snapshot_to_json_line(snapshot: dict) -> str:
+    """Single-line JSON (the METRICS verb's wire payload — the protocol is
+    line-framed, so the snapshot must never contain a raw newline)."""
+    return json.dumps(snapshot, separators=(",", ":"))

@@ -1,3 +1,12 @@
-"""Counterpart of ``flink_ms_tpu.serve``: the model table, the top-k index
-with its IVF tier, the cross-request top-k batcher, the model journal's
-writer and the autopilot's warm-started retrain."""
+"""Counterpart of ``flink_ms_tpu.serve``: the model journal and table, the
+standalone serving job (``consumer.py``) with its lookup server, wire
+protocol, admission and registry, the query client, the model producer,
+the top-k index with its IVF tier and cross-request batcher, and the
+autopilot's warm-started retrain."""
+
+
+def not_ported(what: str, item: str) -> str:
+    """The refusal text for a part of the JAX package's serving stack that
+    the port does not have yet, naming its ROADMAP item."""
+    return (f"{what} is not ported yet (ROADMAP.md, Queue 1, item "
+            f"'{item}')")

@@ -1,0 +1,792 @@
+"""Serving job: counterpart of ``ALSKafkaConsumer`` / ``SVMKafkaConsumer``
+(``ALSKafkaConsumer.java``, ``SVMKafkaConsumer.java``).
+
+Own copy of the standalone job of ``flink_ms_tpu/serve/consumer.py``:
+
+    journal topic  ->  poll  ->  parse rows  ->  keyed put into the sharded
+    model table    ->  the table is queryable through the lookup server
+
+with the reference's operational envelope:
+
+- periodic checkpoints (``ALSKafkaConsumer.java:44-46``): between polls the
+  consume loop writes (table, journal offset) through the state backend
+  every ``checkpoint_interval_ms``, deferred while a replay backlog is live
+  (every poll still moving at least half a chunk), but never past
+  ``CHECKPOINT_MAX_DEFER_INTERVALS`` intervals;
+- fixed-delay restart (3 attempts, 10 s, :48-51): the consume loop runs
+  under a supervisor that restores the last checkpoint and replays the
+  journal from its offset (at-least-once; duplicates are last-writer-wins);
+- state backends (:53-65): ``memory`` (snapshots held in RAM) and ``fs``
+  (``ModelTable.snapshot`` directories under ``--checkpointDataUri``, the
+  JAX package's files, so either package restores the other's);
+- ingest (``TPUMS_INGEST_MODE`` / ``--ingestMode``): ``columnar`` splits
+  whole byte chunks with numpy and applies them with
+  ``put_many_columns``; ``scalar`` parses line by line; ``auto`` picks
+  columnar whenever the parser has a columnar mode;
+- readiness: the job reports ``replaying`` until it has consumed the
+  backlog that existed when it came up, then ``ready`` (HEALTH, and the
+  registry entry it heartbeats every ``TPUMS_HEARTBEAT_S``).
+
+For the ALS state the lookup server's TOPK/TOPKV run on the device-resident
+factor index of ``serve/topk.py`` on ``device`` (default ``cuda``; no
+fallback: a job asking for CUDA on a host without it raises before any
+socket opens).  ``topk_index=False`` (``--topkIndex false``) serves without
+it and needs no device.
+
+Without a snapshot store the job bootstraps by replaying the journal from
+its checkpoint (or from the start) and says so in one line; replay gives
+the same table as the reference's snapshot bootstrap, only slower.  What
+the reference does beyond this is refused with a ``ValueError`` naming its
+ROADMAP.md item (Queue 1), never ignored: the native server
+(``--nativeServer``), the arena table (``--table arena`` /
+``TPUMS_TABLE=arena``) and the ``rocksdb`` backend (item 'Arena and native
+store'); replicas, elastic topologies and sharded parsers (item 'Fleet');
+geo-replication followers (item 'Geo-replication and edge'); and an
+explicit ``TPUMS_SNAPSHOTS=1`` or ``TPUMS_COMPACT=1`` (item 'Snapshot
+bootstrap and compaction').
+
+Key derivation:
+- ALS rows ``id,T,factors`` -> key ``"<id>-<T>"`` (ALSKafkaConsumer.java:75-82)
+- SVM rows ``first,rest``   -> key = raw first CSV token (featureID or
+  bucket, SVMKafkaConsumer.java:74-82)
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import tempfile
+import threading
+import time
+import uuid
+from typing import Callable, List, Optional, Tuple
+
+from ..core.formats import CHUNK_ALS, CHUNK_SVM, split_journal_chunk
+from ..core.params import Params
+from ..obs import metrics as obs_metrics
+from ..obs import tracing as obs_tracing
+from ..parallel.mesh import resolve_device
+from . import not_ported
+from . import registry
+from .journal import Journal, OffsetTruncatedError
+from .server import LookupServer
+from .table import ModelTable
+
+ALS_STATE = "ALS_MODEL"
+SVM_STATE = "SVM_MODEL"
+
+
+def parse_als_record(line: str) -> Tuple[str, str]:
+    id_, typ, payload = line.split(",", 2)
+    return f"{id_}-{typ}", payload
+
+
+def parse_svm_record(line: str) -> Tuple[str, str]:
+    key, _, payload = line.partition(",")
+    return key, payload
+
+
+# columnar chunk-parse modes (core.formats.split_journal_chunk mirrors these
+# parsers line for line).  A parse_fn without the attribute always takes the
+# scalar per-line path.
+parse_als_record.columnar_mode = CHUNK_ALS
+parse_svm_record.columnar_mode = CHUNK_SVM
+
+
+# ---------------------------------------------------------------------------
+# state backends
+# ---------------------------------------------------------------------------
+
+class MemoryStateBackend:
+    """Snapshots kept in process RAM: they survive consume-loop restarts
+    inside the job and are lost with the process (MemoryStateBackend)."""
+
+    kind = "memory"
+
+    def __init__(self):
+        self._snap: Optional[Tuple[int, List[dict]]] = None
+
+    def snapshot(self, table: ModelTable, offset: int) -> None:
+        with table._lock:
+            self._snap = (offset, [dict(s) for s in table._shards])
+
+    def restore(self, table: ModelTable) -> Optional[int]:
+        if self._snap is None:
+            return None
+        offset, shards = self._snap
+        with table._lock:
+            table._shards = [dict(s) for s in shards]
+            table.version += 1
+        return offset
+
+
+class FsStateBackend:
+    """Snapshot directories under the checkpoint URI (FsStateBackend)."""
+
+    kind = "fs"
+
+    def __init__(self, checkpoint_uri: str):
+        self.dir = checkpoint_uri
+        os.makedirs(self.dir, exist_ok=True)
+
+    def snapshot(self, table: ModelTable, offset: int) -> None:
+        table.snapshot(self.dir, offset)
+
+    def restore(self, table: ModelTable) -> Optional[int]:
+        return table.restore(self.dir)
+
+
+def make_backend(kind: str, checkpoint_uri: Optional[str]):
+    if kind == "memory":
+        return MemoryStateBackend()
+    if kind == "fs":
+        if not checkpoint_uri:
+            raise ValueError("fs state backend requires --checkpointDataUri")
+        return FsStateBackend(checkpoint_uri)
+    if kind == "rocksdb":
+        raise ValueError(not_ported("the rocksdb state backend",
+                                    "Arena and native store")
+                         + "; use --stateBackend fs")
+    raise ValueError(f"unknown state backend: {kind} (use fs|memory)")
+
+
+def _env_on(name: str) -> bool:
+    return os.environ.get(name, "").strip().lower() in ("1", "true", "yes")
+
+
+def _refuse_unported(parse_fn, journal: Journal, native_server, table,
+                     replica_of, replica_index, topology_group, generation,
+                     snapshots, compact) -> None:
+    """Raise for every option of the reference's job that the port does
+    not have (module docstring)."""
+    if native_server:
+        raise ValueError(not_ported("the native lookup server "
+                                    "(--nativeServer true)",
+                                    "Arena and native store"))
+    if table is None:
+        table = os.environ.get("TPUMS_TABLE")
+    if table not in (None, "dict"):
+        if table == "arena":
+            raise ValueError(not_ported("the arena table (--table arena, "
+                                        "TPUMS_TABLE=arena)",
+                                        "Arena and native store"))
+        raise ValueError("table must be dict|arena")
+    fleet = {"replica_of": replica_of, "replica_index": replica_index,
+             "topology_group": topology_group, "generation": generation,
+             "a sharded parser": getattr(parse_fn, "shard_filter", None)}
+    named = [k for k, v in fleet.items() if v is not None]
+    if named:
+        raise ValueError(not_ported(
+            f"the serving fleet ({', '.join(named)})", "Fleet"))
+    if os.path.exists(os.path.join(journal.dir,
+                                   f"{journal.topic}.georepl.json")):
+        raise ValueError(not_ported(
+            f"a geo-replication follower (journal {journal.dir} has "
+            f"{journal.topic}.georepl.json)", "Geo-replication and edge"))
+    if snapshots or (snapshots is None and _env_on("TPUMS_SNAPSHOTS")):
+        raise ValueError(not_ported(
+            "the snapshot bootstrap (TPUMS_SNAPSHOTS=1)",
+            "Snapshot bootstrap and compaction"))
+    if compact or (compact is None and _env_on("TPUMS_COMPACT")):
+        raise ValueError(not_ported(
+            "journal compaction (TPUMS_COMPACT=1)",
+            "Snapshot bootstrap and compaction"))
+
+
+# ---------------------------------------------------------------------------
+# the job
+# ---------------------------------------------------------------------------
+
+class ServingJob:
+    # a wall-clock checkpoint is deferred while a replay backlog is live
+    # (every poll still moving >= half a chunk cap of bytes), but never past
+    # this many checkpoint intervals: bounds the at-least-once replay debt
+    # a crash mid-replay can accumulate
+    CHECKPOINT_MAX_DEFER_INTERVALS = 5.0
+    # one ingest poll's byte budget: caps how long one state-application
+    # critical section can run
+    CHUNK_CAP = 2 << 20
+
+    def __init__(
+        self,
+        journal: Journal,
+        state_name: str,
+        parse_fn: Callable[[str], Tuple[str, str]],
+        backend,
+        n_shards: int = 8,
+        checkpoint_interval_ms: int = 60_000,
+        poll_interval_s: float = 0.1,
+        host: str = "0.0.0.0",
+        port: int = 6123,
+        job_id: Optional[str] = None,
+        restart_attempts: int = 3,
+        restart_delay_s: float = 10.0,
+        native_server: bool = False,
+        start_from: str = "earliest",
+        ingest_mode: Optional[str] = None,
+        topk_index: bool = True,
+        replica_of: Optional[str] = None,
+        replica_index: Optional[int] = None,
+        topology_group: Optional[str] = None,
+        generation: Optional[int] = None,
+        snapshots: Optional[bool] = None,
+        compact: Optional[bool] = None,
+        table: Optional[str] = None,
+        device="cuda",
+        clock: Callable[[], float] = time.time,
+    ):
+        if start_from not in ("earliest", "latest"):
+            raise ValueError("start_from must be earliest|latest")
+        if ingest_mode is None:
+            ingest_mode = os.environ.get("TPUMS_INGEST_MODE", "auto")
+        if ingest_mode not in ("auto", "columnar", "scalar"):
+            raise ValueError("ingest_mode must be auto|columnar|scalar")
+        _refuse_unported(parse_fn, journal, native_server, table,
+                         replica_of, replica_index, topology_group,
+                         generation, snapshots, compact)
+        with_index = state_name == ALS_STATE and topk_index
+        self.device = resolve_device(device) if with_index else None
+        self.ingest_mode = ingest_mode
+        self.journal = journal
+        self.state_name = state_name
+        self.host = host
+        self.parse_fn = parse_fn
+        self.backend = backend
+        self.table = ModelTable(n_shards)
+        self.checkpoint_interval_s = checkpoint_interval_ms / 1000.0
+        self.poll_interval_s = poll_interval_s
+        self.job_id = job_id or uuid.uuid4().hex
+        self.restart_attempts = restart_attempts
+        self.restart_delay_s = restart_delay_s
+        self._clock = clock
+        # Kafka auto.offset.reset for a consumer with no checkpoint:
+        # earliest replays the whole retained topic, latest serves only
+        # rows published after the job came up (aligned to the last record
+        # boundary).  A restored checkpoint always wins (start()).
+        self.offset = (
+            journal.aligned_end_offset() if start_from == "latest" else 0
+        )
+        # the supervised restart replays from here when no checkpoint
+        # exists yet: a latest job must not replay the backlog it skipped
+        self._seed_offset = self.offset
+        self.parse_errors = 0
+        # ingest-plane observability: which path ran last, how many rows /
+        # chunks it applied, and the wall time inside state application
+        self.ingest_path = "idle"
+        self.ingest_rows = 0
+        self.ingest_batches = 0
+        self.ingest_apply_s = 0.0
+        self.checkpoints = 0
+        self.checkpoints_deferred = 0
+        self.bootstrap_source = "replay"
+        self.bootstrap_seconds: Optional[float] = None
+        self._bootstrap_t0: Optional[float] = None
+        reg = obs_metrics.get_registry()
+        st = state_name
+        self._obs_rows = reg.counter("tpums_ingest_rows_total", state=st)
+        self._obs_batches = reg.counter(
+            "tpums_ingest_batches_total", state=st)
+        self._obs_parse_errors = reg.counter(
+            "tpums_ingest_parse_errors_total", state=st)
+        self._obs_apply = reg.histogram(
+            "tpums_ingest_apply_seconds", state=st)
+        self._obs_backlog = reg.gauge(
+            "tpums_journal_backlog_bytes", state=st)
+        self._obs_rows_per_s = reg.gauge("tpums_ingest_rows_per_s", state=st)
+        self._obs_ckpt = reg.counter("tpums_checkpoints_total", state=st)
+        self._obs_ckpt_deferred = reg.gauge(
+            "tpums_checkpoints_deferred", state=st)
+        self._obs_ready_flips = reg.counter(
+            "tpums_ready_transitions_total", state=st)
+        self._obs_restore_fail = reg.counter(
+            "tpums_checkpoint_restore_failures_total", state=st)
+        self._obs_bootstrap_s = reg.histogram(
+            "tpums_bootstrap_seconds", state=st)
+        self._obs_truncated = reg.counter(
+            "tpums_journal_truncated_total", state=st)
+        # readiness gate: False until the consume loop has replayed the
+        # backlog that existed when it came up
+        self._ready = threading.Event()
+        self._hb_lock = threading.Lock()
+        self._stopped = False
+        self._stop = threading.Event()
+        self._consumer_thread: Optional[threading.Thread] = None
+        self._hb_thread: Optional[threading.Thread] = None
+        self._last_checkpoint = 0.0
+        self._ready_target = 0
+        topk_handlers = {}
+        if with_index:
+            from .topk import make_als_topk_handler
+
+            topk_handlers[state_name] = make_als_topk_handler(
+                self.table, device=self.device)
+        self.server = LookupServer(
+            {state_name: self.table},
+            host=host,
+            port=port,
+            job_id=self.job_id,
+            topk_handlers=topk_handlers,
+            health_fn=self.health,
+        )
+        self.port = self.server.port
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def start(self) -> "ServingJob":
+        self._bootstrap_t0 = time.monotonic()
+        restored = None
+        try:
+            restored = self.backend.restore(self.table)
+        except Exception as e:
+            # a corrupt checkpoint is a counted event, not a crash: the
+            # job falls back to a full replay
+            self._obs_restore_fail.inc()
+            print(
+                f"[serve:{self.state_name}] checkpoint restore failed "
+                f"({e}); replaying the journal",
+                file=sys.stderr,
+            )
+        if restored is not None:
+            self.offset = restored
+            self.bootstrap_source = "checkpoint"
+            print(
+                f"[serve:{self.state_name}] restored {len(self.table)} rows, "
+                f"journal offset {self.offset}",
+                file=sys.stderr,
+            )
+        print(
+            f"[serve:{self.state_name}] bootstrap by replay from offset "
+            f"{self.offset} (no snapshot store: "
+            + not_ported("the snapshot bootstrap",
+                         "Snapshot bootstrap and compaction") + ")",
+            file=sys.stderr,
+        )
+        self.server.start()
+        # announce jobId -> endpoint so clients resolve this job without
+        # explicit port wiring (QueryClientHelper.java:82-92), refreshed
+        # within the heartbeat TTL
+        self._heartbeat_now()
+        self._consumer_thread = threading.Thread(
+            target=self._supervised_consume, name="journal-consumer", daemon=True
+        )
+        self._consumer_thread.start()
+        self._hb_thread = threading.Thread(
+            target=self._heartbeat_loop, name="registry-heartbeat", daemon=True
+        )
+        self._hb_thread.start()
+        return self
+
+    # -- liveness / readiness ----------------------------------------------
+
+    @property
+    def ready(self) -> bool:
+        """True once the consume loop has caught up with the journal end
+        observed at (re)start."""
+        return self._ready.is_set()
+
+    def wait_ready(self, timeout: Optional[float] = None) -> bool:
+        return self._ready.wait(timeout)
+
+    def backlog_bytes(self) -> int:
+        """Unconsumed journal bytes behind the producer's end offset."""
+        try:
+            return max(self.journal.end_offset() - self.offset, 0)
+        except OSError:
+            return 0
+
+    def health(self) -> dict:
+        """The HEALTH verb's payload (the key count is added server-side);
+        the reference's keys, the fleet's as null."""
+        ready = self.ready
+        return {
+            "state": self.state_name,
+            "job_id": self.job_id,
+            "ready": ready,
+            "status": "ready" if ready else "replaying",
+            "backlog_bytes": self.backlog_bytes(),
+            "offset": self.offset,
+            "ingest_path": self.ingest_path,
+            "replica_of": None,
+            "replica": None,
+            "topology_group": None,
+            "generation": None,
+            "topology_gen": None,
+            "bootstrap_source": self.bootstrap_source,
+            "bootstrap_seconds": self.bootstrap_seconds,
+        }
+
+    def _recover_truncated(self, err: OffsetTruncatedError) -> int:
+        """The consume loop hit journal history that no longer exists byte
+        for byte -> the offset to resume from.  The table stays convergent
+        on every path (last-writer-wins re-application)."""
+        self._obs_truncated.inc()
+        if err.lossless:
+            # a fold replaced bytes we were mid-way through: re-reading the
+            # compacted prefix from its base is a last-writer-wins superset
+            self.journal.compacted_rereads += 1
+            print(
+                f"[serve:{self.state_name}] journal compacted under us at "
+                f"{err.offset}; re-reading fold from {err.resume_offset}",
+                file=sys.stderr,
+            )
+            return err.resume_offset
+        # retention deleted the rows below resume_offset and there is no
+        # snapshot to cover them: resume with an explicit, counted gap
+        lost = err.resume_offset - err.offset
+        self.journal.expired_bytes_skipped += lost
+        print(
+            f"[serve:{self.state_name}] offset {err.offset} expired; no "
+            f"snapshot reaches retained offset {err.resume_offset}; "
+            f"skipping {lost} lost bytes",
+            file=sys.stderr,
+        )
+        return err.resume_offset
+
+    def _heartbeat_now(self) -> None:
+        # the lock makes read-ready + register atomic (readiness must be
+        # monotone once flipped), and the stop check under it pairs with
+        # the locked unregister in stop(): a ready-flip refresh must not
+        # resurrect an entry a concurrent shutdown just removed
+        with self._hb_lock:
+            if self._stop.is_set():
+                return
+            registry.register(
+                self.job_id, self.host, self.port, self.state_name,
+                ready=self.ready, ttl_s=registry.replica_ttl_s(),
+            )
+
+    def _heartbeat_loop(self) -> None:
+        interval = registry.heartbeat_interval_s()
+        while not self._stop.wait(interval):
+            self._heartbeat_now()
+
+    def stop(self) -> None:
+        # idempotent: wait() calls stop() on every exit path
+        if self._stopped:
+            return
+        self._stopped = True
+        self._stop.set()
+        # join the heartbeat before unregistering, or an in-flight refresh
+        # could resurrect the entry
+        if self._hb_thread:
+            self._hb_thread.join(timeout=5)
+        with self._hb_lock:
+            registry.unregister(self.job_id)
+        if self._consumer_thread:
+            self._consumer_thread.join(timeout=10)
+        self.server.stop()
+
+    def wait(self) -> None:
+        """CLI foreground mode: SIGTERM becomes an orderly stop(), so the
+        registry entry is released."""
+        import signal
+
+        try:
+            signal.signal(signal.SIGTERM, lambda *_: self.stop())
+        except ValueError:
+            pass  # not the main thread: caller owns signal handling
+        try:
+            while not self._stop.is_set():
+                time.sleep(0.5)
+        except KeyboardInterrupt:
+            pass
+        self.stop()
+
+    # -- consume loop with fixed-delay restart -----------------------------
+
+    def _supervised_consume(self) -> None:
+        attempts = 0
+        while not self._stop.is_set():
+            try:
+                self._consume_loop()
+                return  # clean stop
+            except Exception as e:
+                attempts += 1
+                obs_tracing.events_counter(
+                    "consume_restart" if attempts <= self.restart_attempts
+                    else "consume_giveup",
+                    state=self.state_name, job_id=self.job_id,
+                    attempt=attempts, error=str(e))
+                if attempts > self.restart_attempts:
+                    print(
+                        f"[serve:{self.state_name}] giving up after "
+                        f"{self.restart_attempts} restarts: {e}",
+                        file=sys.stderr,
+                    )
+                    # a dead job must not stay resolvable
+                    self._stop.set()
+                    with self._hb_lock:
+                        registry.unregister(self.job_id)
+                    return
+                print(
+                    f"[serve:{self.state_name}] consume loop failed ({e}); "
+                    f"restart {attempts}/{self.restart_attempts} in "
+                    f"{self.restart_delay_s}s",
+                    file=sys.stderr,
+                )
+                if self._stop.wait(self.restart_delay_s):
+                    return
+                try:
+                    restored = self.backend.restore(self.table)
+                    self.offset = (
+                        restored if restored is not None else self._seed_offset
+                    )
+                except Exception as re:
+                    # continue from the in-memory state (at-least-once
+                    # replay keeps the table convergent)
+                    self._obs_restore_fail.inc()
+                    print(
+                        f"[serve:{self.state_name}] checkpoint restore failed "
+                        f"({re}); continuing from in-memory state at offset "
+                        f"{self.offset}",
+                        file=sys.stderr,
+                    )
+
+    def _begin_consume(self) -> None:
+        """State of one run of the consume loop.  The readiness target is
+        the journal end when the loop came up; a supervised restart inside
+        a live process keeps ready set (the table stayed warm)."""
+        self._last_checkpoint = self._clock()
+        self._ready_target = self.journal.end_offset() if not self.ready else 0
+
+    def _consume_loop(self) -> None:
+        self._begin_consume()
+        while not self._stop.is_set():
+            if not self.consume_step():
+                self._stop.wait(self.poll_interval_s)
+
+    def consume_step(self) -> bool:
+        """One poll of the journal: apply what it returns, flip readiness,
+        take or defer a checkpoint.  -> whether the poll got any rows.
+        ``_consume_loop`` calls it until stopped; a test may call it
+        directly after ``_begin_consume``, with a fake ``clock``."""
+        columnar_mode = getattr(self.parse_fn, "columnar_mode", None)
+        rows_before = self.ingest_rows
+        errs_before = self.parse_errors
+        t0 = time.perf_counter()
+        try:
+            if columnar_mode is not None and self.ingest_mode != "scalar":
+                # numpy splits the whole byte chunk into key/value columns,
+                # and listeners get ONE batched callback
+                self.ingest_path = "columnar"
+                chunk, next_offset = self.journal.read_bytes_from(
+                    self.offset, max_bytes=self.CHUNK_CAP
+                )
+                got_any = bool(chunk)
+                if chunk:
+                    self._apply_chunk_columnar(chunk, columnar_mode)
+                    self.ingest_batches += 1
+            else:
+                self.ingest_path = "scalar"
+                lines, next_offset = self.journal.read_from(
+                    self.offset, max_bytes=self.CHUNK_CAP
+                )
+                got_any = bool(lines)
+                if lines:
+                    self._apply_lines(lines)
+                    self.ingest_batches += 1
+        except OffsetTruncatedError as err:
+            # our offset points at folded or expired history: recover and
+            # poll again
+            self.offset = self._recover_truncated(err)
+            return True
+        if got_any:
+            dt = time.perf_counter() - t0
+            self.ingest_apply_s += dt
+            if obs_metrics.metrics_enabled():
+                rows = self.ingest_rows - rows_before
+                self._obs_rows.inc(rows)
+                self._obs_batches.inc(1)
+                self._obs_parse_errors.inc(self.parse_errors - errs_before)
+                self._obs_apply.observe(dt)
+                if dt > 0:
+                    self._obs_rows_per_s.set(rows / dt)
+        bytes_advanced = next_offset - self.offset
+        self.offset = next_offset
+        if got_any and obs_metrics.metrics_enabled():
+            # only polls that ingested re-stat the journal: backlog moves
+            # only when the producer appends
+            self._obs_backlog.set(self.backlog_bytes())
+        if not self._ready.is_set() and (
+            not got_any or self.offset >= self._ready_target
+        ):
+            self._flip_ready()
+        now = self._clock()
+        if now - self._last_checkpoint >= self.checkpoint_interval_s:
+            # a full-chunk poll means we're inside a replay backlog:
+            # snapshotting now would stall ingest and commit an offset
+            # we'll blow past within milliseconds; defer, bounded
+            backlog = got_any and bytes_advanced >= self.CHUNK_CAP // 2
+            overdue = now - self._last_checkpoint >= (
+                self.checkpoint_interval_s
+                * self.CHECKPOINT_MAX_DEFER_INTERVALS
+            )
+            if backlog and not overdue:
+                self.checkpoints_deferred += 1
+                self._obs_ckpt_deferred.set(self.checkpoints_deferred)
+            else:
+                self.backend.snapshot(self.table, self.offset)
+                self._last_checkpoint = now
+                self.checkpoints += 1
+                self._obs_ckpt.inc()
+        return got_any
+
+    def _flip_ready(self) -> None:
+        """Caught up with the backlog that existed at start: flip to ready
+        and push the flag to the registry now."""
+        self._ready.set()
+        if self._bootstrap_t0 is not None:
+            self.bootstrap_seconds = time.monotonic() - self._bootstrap_t0
+            self._bootstrap_t0 = None
+            self._obs_bootstrap_s.observe(self.bootstrap_seconds)
+            obs_metrics.get_registry().counter(
+                "tpums_bootstrap_total", state=self.state_name,
+                kind=self.bootstrap_source).inc()
+        self._heartbeat_now()
+        self._obs_ready_flips.inc()
+        obs_tracing.event(
+            "ready", state=self.state_name, job_id=self.job_id,
+            offset=self.offset, replica_of=None, replica=None,
+            source=self.bootstrap_source)
+
+    def _apply_lines(self, lines) -> None:
+        batch = []
+        for line in lines:
+            if not line:
+                continue
+            try:
+                parsed = self.parse_fn(line)
+            except ValueError:
+                # skip-and-count a malformed row (SURVEY.md Appendix C)
+                self.parse_errors += 1
+                continue
+            if parsed is None:
+                continue
+            batch.append(parsed)
+        # one lock acquisition per slice, so a replay cannot starve queries
+        # behind one multi-second critical section
+        for s in range(0, len(batch), 10_000):
+            self.table.put_many(batch[s:s + 10_000])
+        self.ingest_rows += len(batch)
+
+    def _apply_chunk_columnar(self, chunk: bytes, mode: int) -> None:
+        """Vectorised read_from + _apply_lines: the same skipped rows,
+        parse-error counts and last-writer-wins table.  The shard hashes
+        ride along from the chunk parser."""
+        keys, values, errs, hashes = split_journal_chunk(
+            chunk, mode, with_hashes=True
+        )
+        self.parse_errors += errs
+        for s in range(0, len(keys), 50_000):
+            self.table.put_many_columns(
+                keys[s:s + 50_000], values[s:s + 50_000],
+                hashes=None if hashes is None else hashes[s:s + 50_000],
+            )
+        self.ingest_rows += len(keys)
+
+    def ingest_stats(self) -> dict:
+        """Ingest-plane counters for benches and monitoring."""
+        return {
+            "path": self.ingest_path,
+            "rows": self.ingest_rows,
+            "batches": self.ingest_batches,
+            "apply_s": self.ingest_apply_s,
+            "parse_errors": self.parse_errors,
+            "checkpoints_deferred": self.checkpoints_deferred,
+            "offset": self.offset,
+        }
+
+
+# ---------------------------------------------------------------------------
+# CLIs
+# ---------------------------------------------------------------------------
+
+def _resolve_journal_dir(params: Params) -> str:
+    """``--journalDir``, or the reference's Kafka flags
+    (``--bootstrap.servers``, ALSKafkaConsumer.java:30-35): a filesystem
+    path there is the journal dir, and a broker address falls back to
+    ``TPUMS_JOURNAL_DIR`` (default ``<tmpdir>/flink_ms_tpu_journal``)."""
+    if params.has("journalDir"):
+        return params.get_required("journalDir")
+    bootstrap = params.get("bootstrap.servers")
+    looks_like_path = bool(bootstrap) and "://" not in bootstrap and (
+        os.path.isdir(bootstrap)
+        or bootstrap.startswith(("/", "./", "../"))
+    )
+    if looks_like_path:
+        print(
+            f"[serve] mapping --bootstrap.servers {bootstrap} to the local "
+            "journal directory",
+            file=sys.stderr,
+        )
+        return bootstrap
+    fallback = os.environ.get(
+        "TPUMS_JOURNAL_DIR",
+        os.path.join(tempfile.gettempdir(), "flink_ms_tpu_journal"),
+    )
+    if bootstrap:
+        print(
+            f"[serve] --bootstrap.servers {bootstrap} names a broker, not a "
+            f"path; there is no Kafka here — journal dir: {fallback} "
+            "(override with --journalDir or TPUMS_JOURNAL_DIR)",
+            file=sys.stderr,
+        )
+        return fallback
+    return params.get_required("journalDir")  # raises the canonical error
+
+
+def _run_consumer_cli(params: Params, state_name: str, parse_fn) -> ServingJob:
+    for ignored in ("zookeeper.connect", "group.id"):
+        if params.has(ignored):
+            # accepted for CLI parity; journal offsets replace ZooKeeper
+            # coordination and consumer-group bookkeeping
+            print(f"[serve] --{ignored} accepted and ignored", file=sys.stderr)
+    # retrieval knobs ride the environment (the index reads them at
+    # construction and in rebuilds); CLI flags win over an inherited env
+    for flag, env in (("topkTier", "TPUMS_TOPK_TIER"),
+                      ("topkSharded", "TPUMS_TOPK_SHARDED"),
+                      ("annNlist", "TPUMS_ANN_NLIST"),
+                      ("annNprobe", "TPUMS_ANN_NPROBE")):
+        if params.has(flag):
+            os.environ[env] = str(params.get(flag))
+    journal = Journal(_resolve_journal_dir(params), params.get_required("topic"))
+    backend = make_backend(
+        params.get("stateBackend", "memory"), params.get("checkpointDataUri")
+    )
+    job = ServingJob(
+        journal,
+        state_name,
+        parse_fn,
+        backend,
+        n_shards=params.get_int("shards", 8),
+        checkpoint_interval_ms=params.get_int("checkPointInterval", 60_000),
+        host=params.get("host", "0.0.0.0"),
+        port=params.get_int("port", 6123),
+        job_id=params.get("jobId"),
+        native_server=params.get_bool("nativeServer", False),
+        start_from=params.get("startFrom", "earliest"),
+        ingest_mode=params.get("ingestMode"),
+        topk_index=params.get_bool("topkIndex", True),
+        snapshots=(
+            params.get_bool("snapshots") if params.has("snapshots") else None
+        ),
+        compact=params.get_bool("compact") if params.has("compact") else None,
+        table=params.get("table"),
+        device=params.get("device", "cuda"),
+    )
+    print(
+        f"[serve] {state_name} serving topic '{journal.topic}' on port "
+        f"{job.port}, jobId={job.job_id}",
+        flush=True,
+    )
+    return job.start()
+
+
+def als_main(argv=None) -> None:
+    params = Params.from_args(sys.argv[1:] if argv is None else argv)
+    _run_consumer_cli(params, ALS_STATE, parse_als_record).wait()
+
+
+def svm_main(argv=None) -> None:
+    params = Params.from_args(sys.argv[1:] if argv is None else argv)
+    _run_consumer_cli(params, SVM_STATE, parse_svm_record).wait()

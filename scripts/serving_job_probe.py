@@ -1,0 +1,51 @@
+#!/usr/bin/env python3
+"""Phase 17 of ``chip_smoke.py`` alone (the serving job in a process of
+its own), on a model trained at phase 4's ML-20M shape and init-free
+defaults (3 iterations, rank 50), for a quick look at the serving job on
+one CUDA card without the other phases:
+
+    python3 scripts/serving_job_probe.py
+
+It builds the kernels, trains, runs ``serving_job_phase`` and prints its
+numbers and the card's name and power limit.  Without CUDA it exits 2
+before any output.
+"""
+
+import os
+import sys
+import time
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("CUDA is not available: nothing to probe", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke as S
+    from flink_ms_tpu_torch.ops import _build
+    from flink_ms_tpu_torch.ops import als as TA
+
+    t0 = time.perf_counter()
+    print(S.card_line(), flush=True)
+    _build.build_all()
+    users, items, ratings = S.synth_ratings(S.N_USERS, S.N_ITEMS, S.NNZ,
+                                            seed=0)
+    dev = torch.device("cuda", 0)
+    model = TA.als_fit(users, items, ratings, TA.ALSConfig(
+        num_factors=S.RANK, iterations=3, lambda_=S.LAMBDA), dev)
+    S.log(f"probe: model in {time.perf_counter() - t0:.1f}s")
+    try:
+        print(S.serving_job_phase(torch, model, (users, items, ratings),
+                                  0.8, dev))
+    except S.SmokeFailure as e:
+        S.log(f"FAIL: {e}")
+        return 1
+    S.log(f"probe done in {time.perf_counter() - t0:.1f}s")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

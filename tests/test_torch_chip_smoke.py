@@ -192,6 +192,56 @@ def test_serve_phase_rehearsal(small_model, capsys):
 
 
 @pytest.fixture
+def small_job(monkeypatch):
+    for name, value in (("JOB_TOPK_USERS", 32), ("JOB_LATENCY_CALLS", 50),
+                        ("JOB_HARNESS_QUERIES", 50), ("JOB_MSE_RATINGS", 2000),
+                        ("JOB_SGD_RATINGS", 400), ("JOB_SAMPLE", 16),
+                        ("JOB_CHECKPOINT_MS", 300), ("JOB_WAIT_S", 60.0)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setenv("TPUMS_HEARTBEAT_S", "0.1")
+
+
+def test_serving_job_phase_rehearsal(small_model, small_job, capsys):
+    """Phase 17 on the CPU: the job is a subprocess with ``--device cpu``."""
+    model, ratings, _ = small_model
+    out = chip_smoke.serving_job_phase(torch, model, ratings, 0.1,
+                                       torch.device("cpu"))
+    logs = capsys.readouterr().out
+    assert "32 equal to the in-process handler, 32 agree" in logs
+    assert "16 of 16 sampled keys serve their last journal row" in logs
+    assert "16 TOPK equal to those before: True" in logs
+    assert np.isfinite(out["mse_after"]) and out["mse_after"] != out[
+        "mse_live"]  # the uniform fresh ratings moved the served model
+    assert out["restore_s"] > 0 and out["wire_p50_ms"] > 0
+    assert abs(out["mse_live"] - out["mse_offline"]) <= 1e-5 * out[
+        "mse_offline"]
+
+
+def test_serving_job_phase_fails_when_the_job_drops_an_sgd_row(
+        small_model, small_job, monkeypatch):
+    """A journal that loses the last SGD row: the job never serves it, and
+    the served-equals-last-journal-row check fails the phase."""
+    from flink_ms_tpu_torch.serve import journal as PJ
+
+    real = PJ.Journal.append
+    calls = []
+
+    def lossy(self, lines, flush=True):
+        lines = list(lines)
+        calls.append(len(lines))
+        if len(calls) > 1 and len(lines) == 2 * 400 % 512:
+            lines = lines[:-1]  # the last SGD batch loses its last row
+        return real(self, lines, flush)
+
+    monkeypatch.setattr(PJ.Journal, "append", lossy)
+    model, ratings, _ = small_model
+    with pytest.raises(chip_smoke.SmokeFailure,
+                       match="1 served rows differ from their last journal"):
+        chip_smoke.serving_job_phase(torch, model, ratings, 0.1,
+                                     torch.device("cpu"))
+
+
+@pytest.fixture
 def small_scale(monkeypatch):
     monkeypatch.setattr(chip_smoke, "SCALE_EXACT_ROWS", 20_000)
     monkeypatch.setattr(chip_smoke, "SCALE_IVF_ROWS", 60_000)

@@ -39,7 +39,25 @@ def test_port_and_chip_smoke_load_no_jax():
                 "flink_ms_tpu_torch.gen.svm_model_generator",
                 "flink_ms_tpu_torch.serve.journal",
                 "flink_ms_tpu_torch.serve.autopilot",
-                "flink_ms_tpu_torch.parallel.distributed"} <= set(names)
+                "flink_ms_tpu_torch.parallel.distributed",
+                "flink_ms_tpu_torch.serve.proto",
+                "flink_ms_tpu_torch.serve.admission",
+                "flink_ms_tpu_torch.serve.server",
+                "flink_ms_tpu_torch.serve.consumer",
+                "flink_ms_tpu_torch.serve.als_consumer",
+                "flink_ms_tpu_torch.serve.svm_consumer",
+                "flink_ms_tpu_torch.serve.registry",
+                "flink_ms_tpu_torch.serve.client",
+                "flink_ms_tpu_torch.serve.producer",
+                "flink_ms_tpu_torch.serve.als_producer",
+                "flink_ms_tpu_torch.serve.svm_producer",
+                "flink_ms_tpu_torch.obs.tracing",
+                "flink_ms_tpu_torch.eval.mean_vector",
+                "flink_ms_tpu_torch.online.sgd",
+                "flink_ms_tpu_torch.client.common",
+                "flink_ms_tpu_torch.client.als_predict",
+                "flink_ms_tpu_torch.client.als_predict_random",
+                "flink_ms_tpu_torch.client.als_topk"} <= set(names)
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
                      or m == "flink_ms_tpu" or m.startswith("flink_ms_tpu."))
@@ -50,8 +68,43 @@ def test_port_and_chip_smoke_load_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 31  # every module of the port was imported
+    assert int(n) >= 52  # every module of the port was imported
     assert bad == "[]"
+
+
+def test_serving_clis_load_no_jax(tmp_path):
+    """The serving job's CLI (and the other CLIs of the serving loop), run
+    as ``python -m`` would run them: on this host without CUDA the job
+    stops at its device, before any socket, having loaded no JAX."""
+    code = textwrap.dedent(f"""
+        import runpy, sys
+        runs = [("flink_ms_tpu_torch.serve.als_consumer",
+                 ["--journalDir", {str(tmp_path)!r}, "--topic", "t",
+                  "--port", "0", "--device", "cuda"]),
+                ("flink_ms_tpu_torch.serve.als_producer", []),
+                ("flink_ms_tpu_torch.eval.mean_vector", []),
+                ("flink_ms_tpu_torch.online.sgd", []),
+                ("flink_ms_tpu_torch.client.als_predict_random", [])]
+        errors = []
+        for mod, argv in runs:
+            sys.argv = [mod] + argv
+            try:
+                runpy.run_module(mod, run_name="__main__")
+            except Exception as e:
+                errors.append(type(e).__name__ + ": " + str(e)[:60])
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                     or m == "flink_ms_tpu" or m.startswith("flink_ms_tpu."))
+        print(errors[0])
+        print(len(errors), bad)
+    """)
+    env = dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    first, last = out.stdout.strip().splitlines()[-2:]
+    assert first.startswith("RuntimeError: device 'cuda' was asked for")
+    assert last == "5 []"
 
 
 def test_spawned_ranks_load_no_jax():

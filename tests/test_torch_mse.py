@@ -84,9 +84,35 @@ def test_output_file_and_injected_lookup(tmp_path):
 
 
 def test_live_mode_is_refused(tmp_path):
-    with pytest.raises(ValueError, match="Serving job"):
-        mse.run(Params.from_args(["--input", str(tmp_path / "r.tsv"),
-                                  "--jobId", "j1"]))
+    """The live mode, once refused, now asks a running serving job: against
+    a served table it equals the reference's live mode and the injected
+    lookup of the same rows, batched (one MGET a user group) or not."""
+    from flink_ms_tpu.serve.client import QueryClient as RefClient
+    from flink_ms_tpu_torch.serve import consumer as PC
+    from flink_ms_tpu_torch.serve.journal import Journal
+
+    ratings, model, _ = _write_case(tmp_path, np.random.default_rng(8))
+    rows = [line for path in model.split(",") for line in RF.iter_lines(path)]
+    Journal(str(tmp_path / "j"), "t").append(rows)
+    job = PC.ServingJob(Journal(str(tmp_path / "j"), "t"), "ALS_MODEL",
+                        PC.parse_als_record, PC.MemoryStateBackend(),
+                        host="127.0.0.1", port=0, job_id="mse-job",
+                        topk_index=False).start()
+    try:
+        assert job.wait_ready(30)
+        with RefClient("127.0.0.1", job.port) as c:
+            assert c.count("ALS_MODEL") == len(rows)
+        table = mse._load_model_tables(model)
+        want = ref_mse.run(RefParams.from_args(["--input", ratings]),
+                           lookup=table.get)
+        for extra in ([], ["--batchedLookups", "false"],
+                      ["--jobManagerHost", "127.0.0.1"]):
+            args = ["--input", ratings, "--jobId", "mse-job"] + extra
+            got = mse.run(Params.from_args(args))
+            assert got == want
+            assert got == ref_mse.run(RefParams.from_args(args))
+    finally:
+        job.stop()
 
 
 def test_cuda_device_raises_without_cuda(tmp_path, monkeypatch):
