@@ -3316,6 +3316,17 @@ def serving_job_phase(torch, model, ratings_t, serve_p50, dev) -> dict:
             check(n_h == JOB_HARNESS_QUERIES and len(csv) == n_h
                   and all(len(r) == 4 for r in csv),
                   "the latency harness's CSV")
+            # the one job's replies phase 18 holds the fleet against: the
+            # published topic, these TOPK lists and an MGET of sampled keys
+            all_keys = sorted({parse_als_record(line)[0]
+                               for line in published})
+            fleet_keys = [all_keys[j] for j in np.random.default_rng(5)
+                          .choice(len(all_keys), FLEET_MGET_KEYS,
+                                  replace=False)]
+            out["fleet_base"] = dict(
+                published=published, users=qu, topk=wire, keys=fleet_keys,
+                mget=client.query_states(JOB_STATE, fleet_keys),
+                count=health["keys"], ready_s=ready_s, wire_p50_ms=p50)
 
             # 4. live MSE against the offline MSE of the same ratings
             users, items, ratings = ratings_t
@@ -3559,6 +3570,661 @@ def serving_job_phase(torch, model, ratings_t, serve_p50, dev) -> dict:
     return out
 
 
+# -- phase 18: the serving fleet ----------------------------------------------
+
+FLEET_MGET_KEYS = 1000      # keys every topology must serve byte for byte
+FLEET_LATENCY_CALLS = 1000  # sequential fan-out TOPK timed
+FLEET_RATE_QPS = 300.0      # the reference bench's open-loop stream
+FLEET_WINDOW_S = 3.0        # each latency window of the stream
+FLEET_PARTITIONS = 16       # the update plane's default partitions
+FLEET_BATCH = 256           # its default batch
+FLEET_RESHARD_RATINGS = 20_000  # streamed through a live 2 -> 4 cutover
+FLEET_RATINGS = 200_000     # then at 4 shards (seed 23)
+FLEET_WAIT_S = 300.0        # the longest any fleet step may wait
+FLEET_CHECKPOINT_MS = 2000
+# the reference bench's cadence; a 5 s TTL leaves headroom for workers
+# that share one card's host while they start
+FLEET_ENV = {"TPUMS_HEARTBEAT_S": "0.2", "TPUMS_REPLICA_TTL_S": "5",
+             "TPUMS_UPDATE_POLL_S": "0.005"}
+
+
+class OpenLoopStream:
+    """GETs of sampled keys at a fixed rate from one thread, through one
+    fleet client; each latency is taken from the request's intended send
+    time, so a stall shows as the backlog behind it (open loop).  A raise
+    or a missing row is a client-visible error."""
+
+    def __init__(self, make_client, keys, rate_qps=None, seed=1):
+        import threading
+
+        self.make_client, self.keys = make_client, keys
+        self.interval = 1.0 / (rate_qps or FLEET_RATE_QPS)
+        self.rng = np.random.default_rng(seed)
+        self.samples, self.errors = [], []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def start(self):
+        self._thread.start()
+        return self
+
+    def _run(self):
+        t_next = time.perf_counter()
+        with self.make_client() as c:
+            while not self._stop.is_set():
+                t, t_next = t_next, t_next + self.interval
+                now = time.perf_counter()
+                if t > now:
+                    time.sleep(t - now)
+                key = self.keys[int(self.rng.integers(len(self.keys)))]
+                try:
+                    err = None if c.query_state(JOB_STATE, key) is not None \
+                        else "missing"
+                except Exception as e:
+                    err = repr(e)
+                self.samples.append((t, (time.perf_counter() - t) * 1e3))
+                if err is not None:
+                    self.errors.append((key, err))
+
+    def window(self, t0, t1) -> dict:
+        ms = [m for t, m in self.samples if t0 <= t < t1]
+        if not ms:
+            return {"n": 0, "p50_ms": float("nan"), "p99_ms": float("nan")}
+        return {"n": len(ms), "p50_ms": float(np.percentile(ms, 50)),
+                "p99_ms": float(np.percentile(ms, 99))}
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=60)
+
+
+def fmt_window(name, w) -> str:
+    return (f"{name} {w['n']} q p50 {w['p50_ms']:.3f} / p99 "
+            f"{w['p99_ms']:.3f} ms")
+
+
+def fleet_baseline(published, dev, n_users, n_keys=None):
+    """The one job's replies without the job: its TOPK lists of `n_users`
+    sampled users and its MGET of sampled keys, from the in-process handler
+    over the published rows (phase 17 holds the job's wire replies equal to
+    this handler's byte for byte).  For a rehearsal of phase 18 alone."""
+    from flink_ms_tpu_torch.serve.consumer import parse_als_record
+    from flink_ms_tpu_torch.serve.table import ModelTable
+    from flink_ms_tpu_torch.serve.topk import make_als_topk_handler
+
+    table = ModelTable()
+    table.put_many([parse_als_record(line) for line in published])
+    keys = sorted(k for k, _ in table.items())
+    users = [k[:-2] for k in keys if k.endswith("-U") and k != "MEAN-U"]
+    rng = np.random.default_rng(0)
+    users = [users[j] for j in rng.integers(0, len(users), n_users)]
+    handler = make_als_topk_handler(table, device=dev)
+    handler.batching = False
+    topk = [f"V\t{handler(u, TOPK_K)}" for u in users]
+    handler.close()
+    n_keys = n_keys or FLEET_MGET_KEYS
+    sample = [keys[j] for j in np.random.default_rng(5).choice(
+        len(keys), n_keys, replace=False)]
+    return dict(published=published, users=users, topk=topk, keys=sample,
+                mget=[table.get(k) for k in sample], count=len(keys),
+                ready_s=float("nan"), wire_p50_ms=float("nan"))
+
+
+def fleet_worker(work, idx, n, dev_name, label, extra=()):
+    """One ``flink_ms_tpu_torch.serve.sharded`` worker process (as
+    ``spawn_worker_procs`` starts it, with its log kept) -> (proc, port
+    file, log path)."""
+    pf = os.path.join(work, f"port-{label}-{idx}.json")
+    if os.path.exists(pf):
+        os.unlink(pf)
+    log_path = os.path.join(work, f"worker-{label}-{idx}.log")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__))]
+        + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    with open(log_path, "w") as log_f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "flink_ms_tpu_torch.serve.sharded",
+             "--workerIndex", str(idx), "--numWorkers", str(n),
+             "--device", dev_name, "--journalDir",
+             os.path.join(work, "journal"), "--topic", JOB_TOPIC,
+             "--host", "127.0.0.1", "--port", "0", "--portFile", pf,
+             *extra], stdout=log_f, stderr=subprocess.STDOUT, env=env)
+    return proc, pf, log_path
+
+
+def wait_port_file(proc, pf, log_path) -> int:
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < FLEET_WAIT_S:
+        if os.path.exists(pf) and os.path.getsize(pf) > 0:
+            with open(pf) as f:
+                return json.load(f)["port"]
+        if proc.poll() is not None:
+            with open(log_path) as f:
+                raise SmokeFailure(f"a fleet worker exited {proc.returncode}"
+                                   f": {f.read()[-2000:]}")
+        time.sleep(0.02)
+    raise SmokeFailure(f"a fleet worker published no port: {log_path}")
+
+
+def wait_health_ready(ports, procs=()):
+    """Seconds until every worker's HEALTH reports ready -> the reports."""
+    from flink_ms_tpu_torch.serve.client import QueryClient
+
+    out = []
+    t0 = time.perf_counter()
+    for port in ports:
+        with QueryClient("127.0.0.1", port, timeout_s=60) as c:
+            while True:
+                check(all(p.poll() is None for p in procs),
+                      "a fleet worker exited before it was ready")
+                h = c.health(JOB_STATE)
+                if h["ready"]:
+                    out.append(h)
+                    break
+                check(time.perf_counter() - t0 < FLEET_WAIT_S,
+                      "the fleet was not ready in time")
+                time.sleep(0.02)
+    return out
+
+
+def wait_until(pred, what, timeout_s=None):
+    t0 = time.perf_counter()
+    while not pred():
+        check(time.perf_counter() - t0 < (timeout_s or FLEET_WAIT_S),
+              f"timed out waiting for {what}")
+        time.sleep(0.02)
+    return time.perf_counter() - t0
+
+
+def fleet_topk_checks(got, run, label) -> str:
+    """Fan-out lists against a float64 top-k of the published rows and
+    against the one job's lists: every list must agree with float64, and
+    one that differs from the one job's must differ at a near tie (both
+    agree with float64)."""
+    agree = same = 0
+    col_of, s64 = run.col_of, run.s64
+    for j, lst in enumerate(got):
+        cols = [col_of[item] for item, _ in lst]
+        agree += topk_agrees(cols, s64[j], TOPK_K)[0]
+        one_job = parse_reply(run.base["topk"][j][2:])[0]
+        if [item for item, _ in lst] == one_job:
+            same += 1
+        else:
+            check(topk_agrees([col_of[i] for i in one_job], s64[j],
+                              TOPK_K)[0],
+                  f"{label}: a list differs from the one job's off a tie")
+    check(agree == len(got), f"{label}: {len(got) - agree} lists off the "
+          "float64 top-k")
+    return (f"{agree} of {len(got)} agree with a float64 top-k, {same} "
+            "equal the one job's lists (any other only at a near tie)")
+
+
+def metrics_hist(snapshot, name):
+    """The histogram `name` of a (merged) METRICS snapshot, summed over its
+    series: (le, counts, count)."""
+    le, counts, n = None, None, 0
+    for h in snapshot.get("histograms", []):
+        if h["name"] == name:
+            le = le or h["le"]
+            counts = h["counts"] if counts is None else \
+                [a + b for a, b in zip(counts, h["counts"])]
+            n += h["count"]
+    return le, counts, n
+
+
+def fleet_visibility(before, after) -> dict:
+    """publish -> queryable p50/p99 (ms, bucket upper bounds) of the
+    update plane's visibility probes between two fleet scrapes."""
+    name = "tpums_update_visibility_seconds"
+    le, c1, n1 = metrics_hist(after, name)
+    _, c0, n0 = metrics_hist(before, name)
+    if le is None or n1 - n0 <= 0:
+        return {"n": 0, "p50_ms": float("nan"), "p99_ms": float("nan")}
+    counts = np.asarray(c1) - np.asarray(c0 or [0] * len(c1))
+    return {"n": n1 - n0,
+            "p50_ms": 1e3 * bucket_quantile(le, counts, 0.50),
+            "p99_ms": 1e3 * bucket_quantile(le, counts, 0.99)}
+
+
+class FleetRun:
+    """What the parts of phase 18 share: a work dir whose journal holds
+    the published rows, the float64 scores of the sampled users, the one
+    job's replies, and every process, supervisor, controller and stream
+    to stop at the end (``close``, on every path)."""
+
+    def __init__(self, work, base, dev):
+        from flink_ms_tpu_torch.serve.client import RetryPolicy
+        from flink_ms_tpu_torch.serve.consumer import parse_als_record
+        from flink_ms_tpu_torch.serve.journal import Journal
+
+        self.work, self.base = work, base
+        self.dev_name = "cuda" if dev.type == "cuda" else "cpu"
+        self.rows = dict(parse_als_record(line)
+                         for line in base["published"])
+        self.item_ids = [k[:-2] for k in self.rows if k.endswith("-I")]
+        self.col_of = {i: c for c, i in enumerate(self.item_ids)}
+        items64 = np.stack([np.asarray(self.rows[f"{i}-I"].split(";"),
+                                       np.float64) for i in self.item_ids])
+        users64 = np.stack([np.asarray(self.rows[f"{u}-U"].split(";"),
+                                       np.float64) for u in base["users"]])
+        self.s64 = users64 @ items64.T
+        self.retry = RetryPolicy(attempts=6, backoff_s=0.02,
+                                 max_backoff_s=0.5)
+        self.procs, self.sups, self.ctls, self.streams = [], [], [], []
+        self.journal = Journal(self.path("journal"), JOB_TOPIC)
+        published = base["published"]
+        for s in range(0, len(published), 50_000):
+            self.journal.append(published[s:s + 50_000])
+        self.ctl = self.stream = self.probe = None
+
+    def path(self, *p):
+        return os.path.join(self.work, *p)
+
+    def close(self):
+        from flink_ms_tpu_torch.serve.sharded import stop_worker_procs
+
+        for stream in self.streams:
+            stream.stop()
+        if self.probe is not None:
+            self.probe.close()
+        for ctl in self.ctls:
+            ctl.stop(drop_topology=True)
+        for sup in self.sups:
+            sup.stop()
+        stop_worker_procs(self.procs)
+
+
+def fleet_sharded(run) -> dict:
+    """(a) 2 workers from ``spawn_worker_procs``, fs checkpoints: counts,
+    MGET, fan-out TOPK and its sweep, latency, a SIGKILL, a restart."""
+    import signal
+
+    from flink_ms_tpu_torch.serve.sharded import (ShardedQueryClient,
+                                                  owner_of,
+                                                  spawn_worker_procs,
+                                                  stop_worker_procs)
+
+    base, users, keys = run.base, run.base["users"], run.base["keys"]
+    os.makedirs(run.path("ports"))
+    t0 = time.perf_counter()
+    ck_args = ["--checkpointDataUri", run.path("ckpt"),
+               "--checkPointInterval", str(FLEET_CHECKPOINT_MS)]
+    run.procs, ports = spawn_worker_procs(
+        2, run.path("journal"), JOB_TOPIC, run.path("ports"),
+        state_backend="fs", extra_args=ck_args, timeout_s=FLEET_WAIT_S,
+        device=run.dev_name)
+    procs = run.procs
+    health = wait_health_ready(ports, procs)
+    ready_s = time.perf_counter() - t0
+    counts = [h["keys"] for h in health]
+    want = [sum(owner_of(k, 2) == i for k in run.rows) for i in range(2)]
+    client = ShardedQueryClient([("127.0.0.1", p) for p in ports],
+                                timeout_s=60)
+    mget = client.query_states(JOB_STATE, keys)
+    t0 = time.perf_counter()
+    fan = [client.topk(JOB_STATE, u, TOPK_K) for u in users]
+    first_s = time.perf_counter() - t0
+    fan_msg = fleet_topk_checks(fan, run, "fan-out")
+    t0 = time.perf_counter()
+    many = client.topk_many(JOB_STATE, users, TOPK_K)
+    many_s = time.perf_counter() - t0
+    many_msg = fleet_topk_checks(many, run, "topk_many")
+    same_many = sum([i for i, _ in a] == [i for i, _ in b]
+                    for a, b in zip(many, fan))
+    rng = np.random.default_rng(3)
+    lat_users = [users[j] for j in rng.integers(0, len(users),
+                                                FLEET_LATENCY_CALLS)]
+    p50, p99 = latency_ms(lambda j: client.topk(
+        JOB_STATE, lat_users[j], TOPK_K), FLEET_LATENCY_CALLS)
+    out = dict(sharded_ready_s=ready_s, fanout_p50_ms=p50, fanout_p99_ms=p99,
+               topk_many_s=many_s)
+    log(f"fleet (a) sharded: 2 workers ({run.dev_name}) ready {ready_s:.2f}s "
+        f"after the spawn (the one job {base['ready_s']:.2f}s); COUNT "
+        f"{counts} = the owner_of split {want}, sum {sum(counts)} (the one "
+        f"job's {base['count']}); MGET of {len(keys)} keys equal to the one "
+        f"job's: {mget == base['mget']}; {len(users)} fan-out TOPK k="
+        f"{TOPK_K} in {first_s:.3f}s (the indexes' builds included): "
+        f"{fan_msg}; topk_many of the same {len(users)} in one sweep "
+        f"{many_s:.3f}s: {many_msg}, {same_many} equal to the sequential "
+        f"fan-out; {FLEET_LATENCY_CALLS} sequential fan-out TOPK p50 "
+        f"{p50:.4f} ms, p99 {p99:.4f} ms (the one job's wire p50 "
+        f"{base['wire_p50_ms']:.4f} ms)")
+    check(counts == want and sum(counts) == base["count"] == len(run.rows),
+          f"worker counts {counts}, want {want}")
+    check(mget == base["mget"], "MGET differs from the one job's")
+    # a checkpoint of worker 1 to restart from, then SIGKILL it
+    wait_until(lambda: os.path.exists(run.path("ckpt", "worker-1",
+                                               "latest")),
+               "worker 1's checkpoint")
+    mine = [k for k in keys if owner_of(k, 2) == 1][:16]
+    theirs = [k for k in keys if owner_of(k, 2) == 0][:16]
+    before = (client.query_states(JOB_STATE, mine + theirs),
+              [client.topk(JOB_STATE, u, TOPK_K) for u in users[:16]])
+    procs[1].send_signal(signal.SIGKILL)
+    procs[1].wait(timeout=30)
+    raised = 0
+    for k in mine:
+        try:
+            client.query_state(JOB_STATE, k)
+        except (ConnectionError, OSError):
+            raised += 1
+    served = client.query_states(JOB_STATE, theirs)
+    client.close()
+    check(raised == len(mine) and served == before[0][len(mine):],
+          f"after the SIGKILL {raised} of {len(mine)} of worker 1's keys "
+          f"raised; worker 0 served {served == before[0][len(mine):]}")
+    t0 = time.perf_counter()
+    proc, pf, log_path = fleet_worker(run.work, 1, 2, run.dev_name,
+                                      "restart",
+                                      ["--stateBackend", "fs", *ck_args])
+    procs[1] = proc
+    ports[1] = wait_port_file(proc, pf, log_path)
+    h1 = wait_health_ready([ports[1]], [proc])[0]
+    restart_s = time.perf_counter() - t0
+    client = ShardedQueryClient([("127.0.0.1", p) for p in ports],
+                                timeout_s=60)
+    after = (client.query_states(JOB_STATE, mine + theirs),
+             [client.topk(JOB_STATE, u, TOPK_K) for u in users[:16]])
+    client.close()
+    out.update(sharded_restart_s=restart_s)
+    log(f"fleet (a) SIGKILL of worker 1: {raised} of {len(mine)} of its keys "
+        f"raise ConnectionError, worker 0's {len(theirs)} serve; the restart "
+        f"ready {restart_s:.2f}s after its spawn, bootstrap "
+        f"{h1['bootstrap_seconds']:.3f}s from the {h1['bootstrap_source']}, "
+        f"the same MGET and 16 fan-out TOPK: {after == before}")
+    check(h1["bootstrap_source"] == "checkpoint",
+          f"the restarted worker's HEALTH {h1}")
+    check(after == before, "the restarted worker serves other replies")
+    stop_worker_procs(procs)
+    run.procs = []
+    return out
+
+
+def fleet_ha(run) -> dict:
+    """(b) ``ReplicaSupervisor`` 2 shards x 2 replicas; the open-loop
+    stream before, through and after a replica's SIGKILL and respawn."""
+    import signal
+
+    from flink_ms_tpu_torch.serve import registry
+    from flink_ms_tpu_torch.serve.ha import ReplicaSupervisor
+
+    t0 = time.perf_counter()
+    sup = ReplicaSupervisor(2, 2, run.path("journal"), JOB_TOPIC,
+                            run.path("ports-ha"), job_group="fleet-ha",
+                            check_interval_s=0.2, respawn_delay_s=0.1,
+                            spawn_timeout_s=FLEET_WAIT_S,
+                            device=run.dev_name)
+    run.sups.append(sup)
+    sup.start()
+    check(sup.wait_all_ready(FLEET_WAIT_S), "the HA fleet was not ready")
+    ready_s = time.perf_counter() - t0
+    stream = OpenLoopStream(lambda: sup.client(retry=run.retry,
+                                               timeout_s=10),
+                            run.base["keys"]).start()
+    run.streams.append(stream)
+    t_a = time.perf_counter()
+    time.sleep(FLEET_WINDOW_S)
+    victim, victim_id = sup.procs[(0, 0)], sup.job_id(0, 0)
+    t_kill = time.perf_counter()
+    victim.send_signal(signal.SIGKILL)
+    victim.wait(timeout=30)
+
+    def respawned():
+        # the monitor counts the respawn once the new port file is read,
+        # which may come after a small table's ready flip
+        e = registry.resolve(victim_id)
+        return bool(e and e.get("ready") and e["pid"] != victim.pid
+                    and sup.respawns >= 1)
+
+    wait_until(respawned, "the respawned replica")
+    respawn_s = time.perf_counter() - t_kill
+    t_back = time.perf_counter()
+    time.sleep(FLEET_WINDOW_S)
+    stream.stop()
+    names = ("before", "during", "after")
+    wins = [stream.window(t_a, t_kill), stream.window(t_kill, t_back),
+            stream.window(t_back, time.perf_counter())]
+    log(f"fleet (b) HA: 2 shards x 2 replicas ready {ready_s:.2f}s after "
+        f"the supervisor's start; an open loop of GETs at "
+        f"{FLEET_RATE_QPS:.0f} q/s, SIGKILL of replica s0r0: respawned and "
+        f"ready {respawn_s:.2f}s later ({sup.respawns} respawn); "
+        + "; ".join(fmt_window(n, x) for n, x in zip(names, wins))
+        + f"; {len(stream.errors)} client-visible errors")
+    check(not stream.errors, f"HA errors: {stream.errors[:3]}")
+    sup.stop()
+    run.sups.remove(sup)
+    return dict(ha_ready_s=ready_s, ha_respawn_s=respawn_s,
+                **{f"ha_{n}_p99_ms": x["p99_ms"]
+                   for n, x in zip(names, wins)})
+
+
+def fleet_group(run):
+    """The elastic group of (c) and (d): generation 1 at 2 shards, every
+    generation's workers with the co-located update plane; the open-loop
+    stream started on it."""
+    from flink_ms_tpu_torch.serve.elastic import (ElasticClient,
+                                                  ScaleController)
+
+    run.ctl = ScaleController(
+        "fleet-el", run.path("journal"), JOB_TOPIC,
+        port_dir=run.path("ports-el"), ready_timeout_s=FLEET_WAIT_S,
+        device=run.dev_name,
+        extra_args=["--updatePlane", "true", "--updatePartitions",
+                    str(FLEET_PARTITIONS), "--updateBatch", str(FLEET_BATCH),
+                    "--pollInterval", "0.005"])
+    run.ctls.append(run.ctl)
+    t0 = time.perf_counter()
+    run.ctl.scale_to(2)
+    ready_s = time.perf_counter() - t0
+    run.probe = ElasticClient("fleet-el", timeout_s=60, retry=run.retry)
+    run.stream = OpenLoopStream(lambda: ElasticClient(
+        "fleet-el", timeout_s=10, retry=run.retry), run.base["keys"]).start()
+    run.streams.append(run.stream)
+    return ready_s
+
+
+def fleet_elastic(run) -> dict:
+    """(c) ``ScaleController`` 2 -> 4 -> 2 under the open-loop stream: the
+    same payloads at every topology, each cutover's seconds, the windows,
+    the generation GC."""
+    from flink_ms_tpu_torch.serve import registry
+
+    keys, want = run.base["keys"], run.base["mget"]
+    ready_s = fleet_group(run)
+    ctl, stream = run.ctl, run.stream
+    payloads = [run.probe.query_states(JOB_STATE, keys)]
+    marks, cut = [time.perf_counter()], []
+    for shards in (4, 2):
+        time.sleep(FLEET_WINDOW_S)
+        t0 = time.perf_counter()
+        marks.append(t0)
+        rec = ctl.scale_to(shards)
+        cut.append(time.perf_counter() - t0)
+        marks.append(time.perf_counter())
+        check(rec["shards"] == shards, f"the cutover to {shards}")
+        payloads.append(run.probe.query_states(JOB_STATE, keys))
+    time.sleep(FLEET_WINDOW_S)
+    marks.append(time.perf_counter())
+    names = ("gen 1 (2)", "cutover 2->4", "gen 2 (4)", "cutover 4->2",
+             "gen 3 (2)")
+    wins = [stream.window(a, b) for a, b in zip(marks, marks[1:])]
+    drained = [e for e in ctl.events if e["kind"] == "drained"]
+    live = sorted({registry.generation_of(e, ctl.group)
+                   for e in registry.list_jobs()} - {None})
+    log(f"fleet (c) elastic: generation 1 (2 shards) ready {ready_s:.2f}s "
+        f"after scale_to; cutovers 2->4 {cut[0]:.2f}s and 4->2 "
+        f"{cut[1]:.2f}s (spawn, replay, verify, publish, drain); the "
+        f"{len(keys)} sampled payloads at every topology equal the one "
+        f"job's: {all(p == want for p in payloads)}; "
+        + "; ".join(fmt_window(n, x) for n, x in zip(names, wins))
+        + f"; {len(stream.errors)} failed queries; generation GC: "
+        f"{[d['gen'] for d in drained]} drained, "
+        f"{sum(d['reaped'] for d in drained)} dead entries reaped, live "
+        f"generations {live}")
+    check(not stream.errors, f"elastic errors: {stream.errors[:3]}")
+    check(all(p == want for p in payloads),
+          "a topology served other payloads")
+    check(live == [3], f"live generations {live}")
+    return dict(elastic_ready_s=ready_s, cutover_s=cut,
+                **{f"elastic_{j}_p99_ms": x["p99_ms"]
+                   for j, x in enumerate(wins)})
+
+
+def applied_rows(run) -> list:
+    """Every row of the update plane's apply records."""
+    from flink_ms_tpu_torch.serve import update_plane as UP
+    from flink_ms_tpu_torch.serve.journal import Journal
+
+    out = []
+    for p in range(FLEET_PARTITIONS):
+        for line in UP._read_all_lines(Journal(
+                run.path("journal"), UP.apply_topic(JOB_TOPIC, p))):
+            fields = line.split("\t", 3)
+            if len(fields) > 3 and fields[3]:
+                out.extend(fields[3].split("|"))
+    return out
+
+
+def fleet_updates(run) -> dict:
+    """(d) the update plane on the 2-shard generation of the elastic
+    group: duplicate-free ratings streamed through a live 2 -> 4 cutover
+    (rows held against one ``SGDStep`` run), then ``FLEET_RATINGS`` at 4
+    shards; the audit at 0 lost, 0 doubled after each."""
+    import threading
+
+    from flink_ms_tpu_torch.obs.scrape import scrape_fleet
+    from flink_ms_tpu_torch.online.sgd import SGDStep
+    from flink_ms_tpu_torch.serve import update_plane as UP
+    from flink_ms_tpu_torch.serve.table import ModelTable
+
+    rows, jdir = run.rows, run.path("journal")
+    ucli = UP.UpdatePlaneClient(jdir, JOB_TOPIC, partitions=FLEET_PARTITIONS)
+    u_all = np.asarray([int(k[:-2]) for k in rows
+                        if k.endswith("-U") and k != "MEAN-U"])
+    i_all = np.asarray([int(i) for i in run.item_ids if i != "MEAN"])
+    rng = np.random.default_rng(22)
+    n = FLEET_RESHARD_RATINGS
+    dfree = list(zip(rng.choice(u_all, n, replace=False).tolist(),
+                     rng.choice(i_all, n, replace=False).tolist(),
+                     np.round(rng.uniform(1.0, 5.0, n), 3).tolist()))
+    sent = [0]
+
+    def produce():
+        # 1,000 ratings a second, so the stream outlasts the cutover
+        for s in range(0, n, 100):
+            ucli.submit_many(dfree[s:s + 100])
+            sent[0] += len(dfree[s:s + 100])
+            time.sleep(0.1)
+
+    def drained(total):
+        return lambda: sum(UP.applied_watermarks(
+            jdir, JOB_TOPIC, FLEET_PARTITIONS).values()) >= total
+
+    producer = threading.Thread(target=produce, daemon=True)
+    producer.start()
+    time.sleep(0.3)
+    sent_before = sent[0]
+    t0 = time.perf_counter()
+    rec = run.ctl.scale_to(4)
+    cut_s = time.perf_counter() - t0
+    sent_during = sent[0] - sent_before
+    producer.join(timeout=FLEET_WAIT_S)
+    ucli.sync()
+    wait_until(drained(n), "the reshard ratings' apply records")
+    audit = UP.audit_partitions(jdir, JOB_TOPIC, FLEET_PARTITIONS)
+    applied = applied_rows(run)
+    table = ModelTable()
+    table.put_many(list(rows.items()))
+    step = SGDStep(table.get, rows["MEAN-U"], rows["MEAN-I"],
+                   lookup_many=lambda ks: [table.get(k) for k in ks])
+    want = []
+    for s in range(0, n, FLEET_BATCH):
+        want.extend(step.process_batch(dfree[s:s + FLEET_BATCH]))
+    same = sorted(applied) == sorted(want)
+    log(f"fleet (d) update plane, {FLEET_PARTITIONS} partitions, batch "
+        f"{FLEET_BATCH}: {n} duplicate-free ratings (seed 22, distinct users "
+        f"and items) at 1,000 a second: {sent_before} before the 2->4 "
+        f"cutover, {sent_during} while it ran ({cut_s:.2f}s), the rest after "
+        f"it; audit {audit['submitted']} submitted, {audit['lost']} lost, "
+        f"{audit['duplicates']} doubled; the {len(applied)} rows of the "
+        f"apply records equal one SGDStep run over the same ratings byte "
+        f"for byte: {same}")
+    check(rec["shards"] == 4 and sent_during > 0 and audit["lost"] == 0
+          and audit["duplicates"] == 0 and audit["submitted"] == n,
+          f"the reshard audit {audit}")
+    check(same and len(applied) == 2 * n,
+          "the plane's rows differ from one SGDStep run")
+
+    rng = np.random.default_rng(23)
+    fleet_r = list(zip(
+        u_all[rng.integers(0, len(u_all), FLEET_RATINGS)].tolist(),
+        i_all[rng.integers(0, len(i_all), FLEET_RATINGS)].tolist(),
+        np.round(rng.uniform(1.0, 5.0, FLEET_RATINGS), 3).tolist()))
+    total = n + FLEET_RATINGS
+    snap0 = scrape_fleet()["fleet"]
+    t0 = time.perf_counter()
+    for s in range(0, FLEET_RATINGS, 2_000):
+        ucli.submit_many(fleet_r[s:s + 2_000])
+    ucli.sync()
+    drain_s = wait_until(drained(total), "the fleet ratings' apply records")
+    upd_s = time.perf_counter() - t0
+    time.sleep(0.5)  # the last visibility probes land in the histograms
+    vis = fleet_visibility(snap0, scrape_fleet()["fleet"])
+    audit = UP.audit_partitions(jdir, JOB_TOPIC, FLEET_PARTITIONS)
+    run.stream.stop()
+    log(f"fleet (d) {FLEET_RATINGS} ratings (seed 23) at 4 shards: "
+        f"{FLEET_RATINGS / upd_s:.0f} updates/s from the first submit to "
+        f"the applied watermark ({upd_s:.2f}s; {drain_s:.2f}s after the "
+        f"last submit); publish->queryable p50 {vis['p50_ms']:.3f} ms, p99 "
+        f"{vis['p99_ms']:.3f} ms over {vis['n']} visibility probes (bucket "
+        f"upper bounds); audit {audit['submitted']} submitted, "
+        f"{audit['lost']} lost, {audit['duplicates']} doubled; the stream "
+        f"through (d): {len(run.stream.errors)} failed queries")
+    check(audit["lost"] == 0 and audit["duplicates"] == 0
+          and audit["submitted"] == total, f"the update plane audit {audit}")
+    check(not run.stream.errors,
+          f"errors in (d): {run.stream.errors[:3]}")
+    return dict(reshard_cutover_s=cut_s, updates_per_s=FLEET_RATINGS / upd_s,
+                visibility_p50_ms=vis["p50_ms"],
+                visibility_p99_ms=vis["p99_ms"])
+
+
+def fleet_phase(torch, base, dev) -> dict:
+    """Phase 18: the serving fleet on phase 17's published topic, every
+    worker a ``--device`` process on this card: (a) 2 sharded workers
+    (routing, fan-out TOPK, a SIGKILL and a restart from the checkpoint),
+    (b) 2 shards x 2 replicas under a 300 q/s stream through a replica's
+    SIGKILL, (c) an elastic group 2 -> 4 -> 2 under the stream, and (d)
+    the co-located update plane streaming ratings through a live 2 -> 4
+    cutover, then at 4 shards, audited for lost and doubled ratings."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    prior = {k: os.environ.get(k)
+             for k in list(FLEET_ENV) + ["TPUMS_REGISTRY_DIR"]}
+    out = {}
+    with tempfile.TemporaryDirectory() as work:
+        os.environ.update(FLEET_ENV)
+        os.environ["TPUMS_REGISTRY_DIR"] = os.path.join(work, "registry")
+        run = None
+        try:
+            run = FleetRun(work, base, dev)
+            out.update(fleet_sharded(run))
+            out.update(fleet_ha(run))
+            out.update(fleet_elastic(run))
+            out.update(fleet_updates(run))
+        finally:
+            if run is not None:
+                run.close()
+            for k, v in prior.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    log(f"fleet phase: {time.perf_counter() - t_phase:.1f}s")
+    return out
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -3667,8 +4333,9 @@ def main(argv=None) -> int:
         log("multi (d): NCCL over 2 and 4 ranks needs two or more cards; "
             f"this machine has {torch.cuda.device_count()} "
             "(run python3 chip_smoke.py --multi-gpu on one that has them)")
-    serving_job_phase(torch, final["model"], (users, items, ratings),
-                      serve["p50_ms"], dev)
+    job = serving_job_phase(torch, final["model"], (users, items, ratings),
+                            serve["p50_ms"], dev)
+    fleet_phase(torch, job["fleet_base"], dev)
     for e, key in zip(entries[:3], ("cholesky", "cholesky_batch_major",
                                     "assembly")):
         e["launches_by_path"]["als_staged"] = staged[key]

@@ -10,9 +10,10 @@ log-spaced histograms in one get-or-create registry, with the
 exemplars (``TPUMS_EXEMPLARS=1``: each histogram bucket keeps the last
 traced observation), and the snapshot the ``METRICS`` verb renders as one
 JSON line, in the reference's schema.  The port's registry is its own; the
-JAX package's is not shared.  The fleet merge, the Prometheus text
-rendering and bench quantiles are not ported yet (ROADMAP.md, Queue 1,
-item 'Observability').
+JAX package's is not shared.  The fleet merge (``merge_snapshots``) and
+``snapshot_quantile`` serve the fleet scrape (``obs/scrape.py``); the
+Prometheus text rendering and bench deltas are not ported yet
+(ROADMAP.md, Queue 1, item 'Observability').
 
 Every instrument takes its own lock per observation: ``+=`` on an
 attribute is a read-modify-write that can lose updates across threads.
@@ -25,7 +26,7 @@ import os
 import threading
 import time
 from bisect import bisect_left
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 # ---------------------------------------------------------------------------
 # enable switch
@@ -275,6 +276,87 @@ def get_registry() -> MetricsRegistry:
 
 def _series_key(entry: dict) -> tuple:
     return (entry["name"], tuple(sorted(entry.get("labels", {}).items())))
+
+
+def merge_snapshots(snaps: Sequence[dict]) -> dict:
+    """Aggregate N snapshots into one: counters and gauges sum, histograms
+    add bucket-wise (identical bounds required; a mismatched series is
+    carried under ``skipped``), exemplars keep the freshest per bucket.
+    Associative and commutative, so per-shard merges compose into fleet
+    totals in any order."""
+    out: dict = {"ts": time.time(), "merged_from": len(snaps),
+                 "counters": [], "gauges": [], "histograms": []}
+    acc_c: Dict[tuple, dict] = {}
+    acc_g: Dict[tuple, dict] = {}
+    acc_h: Dict[tuple, dict] = {}
+    skipped: List[str] = []
+    for snap in snaps:
+        for kind, acc in (("counters", acc_c), ("gauges", acc_g)):
+            for e in snap.get(kind, []):
+                k = _series_key(e)
+                cur = acc.get(k)
+                if cur is None:
+                    acc[k] = {"name": e["name"],
+                              "labels": dict(e.get("labels", {})),
+                              "value": e["value"]}
+                else:
+                    cur["value"] += e["value"]
+        for e in snap.get("histograms", []):
+            k = _series_key(e)
+            cur = acc_h.get(k)
+            if cur is None:
+                acc_h[k] = {"name": e["name"],
+                            "labels": dict(e.get("labels", {})),
+                            "le": list(e["le"]),
+                            "counts": list(e["counts"]),
+                            "sum": e["sum"], "count": e["count"]}
+                if e.get("exemplars"):
+                    acc_h[k]["exemplars"] = {
+                        b: list(rec) for b, rec in e["exemplars"].items()}
+            elif cur["le"] != list(e["le"]):
+                skipped.append(e["name"])
+            else:
+                cur["counts"] = [a + b for a, b in
+                                 zip(cur["counts"], e["counts"])]
+                cur["sum"] += e["sum"]
+                cur["count"] += e["count"]
+                for b, rec in (e.get("exemplars") or {}).items():
+                    old = cur.get("exemplars", {}).get(b)
+                    if old is None or rec[2] >= old[2]:
+                        cur.setdefault("exemplars", {})[b] = list(rec)
+    out["counters"] = [acc_c[k] for k in sorted(acc_c)]
+    out["gauges"] = [acc_g[k] for k in sorted(acc_g)]
+    out["histograms"] = [acc_h[k] for k in sorted(acc_h)]
+    if skipped:
+        out["skipped"] = sorted(set(skipped))
+    return out
+
+
+def snapshot_quantile(hist_entry: dict, q: float) -> float:
+    """Interpolated quantile in [0, 100] straight off a snapshot's
+    histogram entry, as ``histogram_quantile`` reads it: uniform within
+    the winning bucket, lower edge 0 for the first, the +Inf bucket
+    clamped to the last finite bound; nan when empty."""
+    if not (0 <= q <= 100):
+        raise ValueError("q must be in [0, 100]")
+    bounds = [float(b) for b in hist_entry["le"]]
+    counts = list(hist_entry["counts"])
+    total = hist_entry["count"]
+    if total == 0:
+        return float("nan")
+    rank = q / 100.0 * total
+    cum = 0.0
+    for i, c in enumerate(counts):
+        prev_cum = cum
+        cum += c
+        if cum >= rank and c > 0:
+            if i >= len(bounds):  # +Inf bucket
+                return bounds[-1]
+            lo = bounds[i - 1] if i > 0 else 0.0
+            hi = bounds[i]
+            frac = (rank - prev_cum) / c if c else 0.0
+            return lo + (hi - lo) * min(max(frac, 0.0), 1.0)
+    return bounds[-1]
 
 
 def synthesize_requests(snapshot: dict,

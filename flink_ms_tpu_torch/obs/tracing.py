@@ -12,7 +12,10 @@ traffic is byte-identical to the seed protocol in both directions.
 Events (one dict each, ``ts``/``tid``/``kind`` plus span fields) always
 land in an in-process ring buffer; with ``TPUMS_TRACE`` set to a path they
 are also appended to that file as JSON lines (``-`` = stderr), the
-reference's sink and format.  Head sampling, the profiler's stage stacks,
+reference's sink and format.  Spans (``span``, ``span_event``) and the
+pool adapter of the fleet's fan-outs (``call_with_trace``) are the
+reference's; ``sample_trace`` rolls ``TPUMS_TRACE_SAMPLE`` for the update
+plane's trace roots.  Head sampling of requests, the profiler's stage stacks,
 size-capped rotation of the file sink (``TPUMS_TRACE_MAX_BYTES``) and
 ``load_events`` are not ported yet (ROADMAP.md, Queue 1, item
 'Observability'): with a rotation knob set the port says so once on stderr
@@ -23,6 +26,7 @@ from __future__ import annotations
 
 import json
 import os
+import random
 import secrets
 import sys
 import threading
@@ -93,6 +97,106 @@ def current_span_id() -> Optional[str]:
     """Innermost open span on this thread, or None outside any span."""
     stack = _local.spans
     return stack[-1] if stack else None
+
+
+def current_context() -> Optional[str]:
+    """The value to hand ``call_with_trace`` when fanning out to a pool:
+    ``tid/sid`` while a span is open (so the worker's spans parent under
+    it), the bare tid otherwise, None when untraced."""
+    tid = current_trace()
+    if tid is None:
+        return None
+    sid = current_span_id()
+    return f"{tid}/{sid}" if sid else tid
+
+
+class span:
+    """``with span("stage", op=...):`` one timed node in the request's
+    causal tree: a span id parented under the innermost open span on this
+    thread, and one event with ``sid``/``psid``/``t0``/``dur_s`` on exit.
+    A no-op when no trace context is active."""
+
+    __slots__ = ("kind", "fields", "tid", "sid", "_psid", "_t0")
+
+    def __init__(self, kind: str, tid: Optional[str] = None, **fields):
+        self.kind = kind
+        self.fields = fields
+        self.tid = tid
+        self.sid = None
+
+    def __enter__(self) -> "span":
+        tid = self.tid if self.tid is not None else current_trace()
+        if tid is None:
+            return self
+        self.tid = tid
+        self.sid = new_span_id()
+        self._psid = current_span_id()
+        if _local.spans is None:
+            _local.spans = []
+        _local.spans.append(self.sid)
+        self._t0 = time.time()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if self.sid is None:
+            return
+        _local.spans.pop()
+        if exc_type is not None:
+            self.fields.setdefault("error", repr(exc))
+        event(self.kind, tid=self.tid, sid=self.sid, psid=self._psid,
+              t0=self._t0, dur_s=time.time() - self._t0, **self.fields)
+
+
+def span_event(kind: str, tid: Optional[str] = None,
+               dur_s: Optional[float] = None, t0: Optional[float] = None,
+               sid: Optional[str] = None, psid: Optional[str] = None,
+               **fields) -> Optional[dict]:
+    """One-shot span record for call sites that already know the duration.
+    None when untraced."""
+    tid = tid if tid is not None else current_trace()
+    if tid is None:
+        return None
+    return event(kind, tid=tid, sid=sid if sid is not None else new_span_id(),
+                 psid=psid if psid is not None else current_span_id(),
+                 t0=t0, dur_s=dur_s, **fields)
+
+
+def call_with_trace(tid: Optional[str], fn, *args, **kwargs):
+    """Run ``fn`` with ``tid`` installed: the pool-submit adapter of the
+    sharded and HA fan-outs, so worker threads inherit the submitting
+    request's context.  ``tid`` may be the composite ``tid/sid`` of
+    ``current_context()``: the sid seeds the worker thread's span stack."""
+    if tid is None:
+        return fn(*args, **kwargs)
+    base, psid = split_tid(tid)
+    prev = set_trace(base)
+    prev_stack = _local.spans
+    _local.spans = [psid] if psid else []
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        set_trace(prev)
+        _local.spans = prev_stack if prev_stack is not None else []
+
+
+def trace_sample_rate() -> float:
+    """``TPUMS_TRACE_SAMPLE`` clamped to [0, 1]; 0 when unset or garbage."""
+    try:
+        rate = float(os.environ.get("TPUMS_TRACE_SAMPLE") or "0")
+    except ValueError:
+        return 0.0
+    return max(0.0, min(1.0, rate))
+
+
+def sample_trace() -> Optional[str]:
+    """A fresh trace id with probability ``TPUMS_TRACE_SAMPLE``, else None:
+    the update plane's trace roots follow the knob, not the batch rate."""
+    r = trace_sample_rate()
+    if r <= 0.0:
+        return None
+    if r < 1.0 and random.random() >= r:
+        return None
+    return new_trace_id()
 
 
 # ---------------------------------------------------------------------------

@@ -57,7 +57,6 @@ import numpy as np
 
 from ..core import formats as F
 from ..core.params import Params, field_delimiter_from
-from ..serve import not_ported
 from ..serve.client import QueryClient
 from ..serve.consumer import ALS_STATE
 from ..serve.journal import Journal
@@ -394,18 +393,24 @@ def run(params: Params, stop: Optional[Callable[[], bool]] = None) -> int:
     output_mode = params.get_required("outputMode")
     delimiter = field_delimiter_from(params, default="tab")
 
-    # --group names an elastic topology group (the reference's
-    # ElasticClient); the port serves standalone jobs only
-    if params.get("group"):
-        raise ValueError(not_ported("the elastic client (--group)", "Fleet")
-                         + "; name the serving job with --jobId")
-    sgd_host, sgd_port = resolve_endpoint(params)  # jobId -> registry
-    client = QueryClient(
-        host=sgd_host,
-        port=sgd_port,
-        timeout_s=params.get_int("queryTimeout", 5),
-        job_id=params.get_required("jobId"),
-    )
+    # --group names an elastic topology group: the consumer then rides
+    # ElasticClient's replica failover and generation swap, so a lone SGD
+    # job survives a fleet rescale or failover.  --jobId keeps the single
+    # endpoint path.
+    group = params.get("group")
+    if group:
+        from ..serve.elastic import ElasticClient
+        client = ElasticClient(
+            group, timeout_s=params.get_int("queryTimeout", 5)
+        )
+    else:
+        sgd_host, sgd_port = resolve_endpoint(params)  # jobId -> registry
+        client = QueryClient(
+            host=sgd_host,
+            port=sgd_port,
+            timeout_s=params.get_int("queryTimeout", 5),
+            job_id=params.get_required("jobId"),
+        )
     out_f = None
     try:
         def lookup(key: str) -> Optional[str]:

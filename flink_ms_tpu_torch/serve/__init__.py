@@ -1,8 +1,10 @@
 """Counterpart of ``flink_ms_tpu.serve``: the model journal and table, the
 standalone serving job (``consumer.py``) with its lookup server, wire
 protocol, admission and registry, the query client, the model producer,
-the top-k index with its IVF tier and cross-request batcher, and the
-autopilot's warm-started retrain."""
+the top-k index with its IVF tier and cross-request batcher, the push
+plane and snapshots, the fleet (sharded workers, HA replica sets, elastic
+topology generations, the co-located update plane), and the autopilot's
+warm-started retrain."""
 
 
 def not_ported(what: str, item: str) -> str:

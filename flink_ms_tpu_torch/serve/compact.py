@@ -31,7 +31,11 @@ Knobs (all ``TPUMS_COMPACT_*``):
 
 One compactor per journal directory: the fold/swap is crash-safe against
 readers and the producer (atomic rename + shadowing), but two concurrent
-compactors would duplicate work.
+compactors would duplicate work: the serving job runs the thread only on
+worker 0 / replica 0 of a fleet, and an elastic worker also stands down
+(``active_fn``) unless its topology generation is the group's ACTIVE one,
+so a warming gen-g+1 fleet never folds the shared journal alongside the
+still-active gen g.
 """
 
 from __future__ import annotations
@@ -196,8 +200,10 @@ class CompactorThread(threading.Thread):
 
     Failures never propagate — a fold pass that loses a race (retention,
     a concurrent fold, the producer rotating) simply retries next tick.
-    The reference's ``active_fn`` (an elastic fleet's per-tick stand-down)
-    comes with the fleet (ROADMAP.md, Queue 1, item 'Fleet')."""
+    ``active_fn`` (checked fresh each tick) lets the owner stand the
+    compactor down without stopping it: an elastic worker passes its
+    am-I-the-active-generation check, so exactly one fleet folds the
+    shared journal through a cutover."""
 
     def __init__(
         self,
@@ -206,6 +212,7 @@ class CompactorThread(threading.Thread):
         interval_s: Optional[float] = None,
         min_segments: Optional[int] = None,
         stop_event: Optional[threading.Event] = None,
+        active_fn: Optional[Callable[[], bool]] = None,
     ):
         super().__init__(name="journal-compactor", daemon=True)
         self.journal = journal
@@ -221,6 +228,8 @@ class CompactorThread(threading.Thread):
         self._stop_event = (
             stop_event if stop_event is not None else threading.Event()
         )
+        self.active_fn = active_fn
+        self.standdowns = 0
         self.passes = 0
         self.folds = 0
         self.rows_folded = 0
@@ -251,6 +260,11 @@ class CompactorThread(threading.Thread):
 
     def run(self) -> None:
         while not self._stop_event.wait(self.interval_s):
+            if self.active_fn is not None and not self.active_fn():
+                # e.g. a warming elastic generation: the gen-g fleet is
+                # still the journal's compactor; skip, re-check next tick
+                self.standdowns += 1
+                continue
             self.run_once()
 
 

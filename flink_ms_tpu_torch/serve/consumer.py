@@ -35,7 +35,16 @@ with the reference's operational envelope:
   (``bootstrap_source`` ``"snapshot"``);
 - compaction (``serve/compact.py``, off unless ``TPUMS_COMPACT=1`` or
   ``compact=True``): a background thread folds the journal's sealed
-  segments last-writer-wins on ``TPUMS_COMPACT_INTERVAL_S``.
+  segments last-writer-wins on ``TPUMS_COMPACT_INTERVAL_S``; in a fleet
+  only worker 0 of replica 0 runs it, and an elastic worker stands it down
+  each tick unless its generation is the group's active one;
+- the fleet (``serve/sharded.py``, ``ha.py``, ``elastic.py``): a parser
+  with a ``shard_filter`` (``sharded_parse``) keeps only the rows its
+  worker owns (``fnv1a(key) % N``, vectorised on the columnar path) and
+  snapshots its slice; ``replica_of``/``replica_index`` register the job
+  as a member of a replica set, and ``topology_group``/``generation`` as a
+  worker of one topology generation, whose heartbeat re-reads the group's
+  active generation into HEALTH's ``topology_gen``.
 
 For the ALS state the lookup server's TOPK/TOPKV run on the device-resident
 factor index of ``serve/topk.py`` on ``device`` (default ``cuda``; no
@@ -43,12 +52,18 @@ fallback: a job asking for CUDA on a host without it raises before any
 socket opens).  ``topk_index=False`` (``--topkIndex false``) serves without
 it and needs no device.
 
+Fleet members keep the dict ``ModelTable``: the reference defaults them
+to its arena table (``TPUMS_TABLE=dict`` opts out there), which the port
+does not have yet.  Served replies are equal either way (both tables are
+last-writer-wins over the same journal); the files on disk differ (the
+reference's ``<topic>.arena-*`` dirs and ``arena/1`` snapshots).  The job
+prints its table kind at start.
+
 What the reference does beyond this is refused with a ``ValueError`` naming
 its ROADMAP.md item (Queue 1), never ignored: the native server
 (``--nativeServer``), the arena table (``--table arena`` /
 ``TPUMS_TABLE=arena``) and the ``rocksdb`` backend (item 'Arena and native
-store'); replicas, elastic topologies and sharded parsers (item 'Fleet');
-and geo-replication followers (item 'Geo-replication and edge').
+store'); and geo-replication followers (item 'Geo-replication and edge').
 
 Key derivation:
 - ALS rows ``id,T,factors`` -> key ``"<id>-<T>"`` (ALSKafkaConsumer.java:75-82)
@@ -66,6 +81,8 @@ import time
 import uuid
 from typing import Callable, List, Optional, Tuple
 
+import numpy as np
+
 from ..core.formats import CHUNK_ALS, CHUNK_SVM, split_journal_chunk
 from ..core.params import Params
 from ..obs import metrics as obs_metrics
@@ -77,7 +94,7 @@ from . import snapshot as snapshot_mod
 from .compact import CompactorThread, compact_enabled
 from .journal import Journal, OffsetTruncatedError
 from .server import LookupServer
-from .table import ModelTable
+from .table import ModelTable, _fnv1a_batch
 
 ALS_STATE = "ALS_MODEL"
 SVM_STATE = "SVM_MODEL"
@@ -157,9 +174,7 @@ def make_backend(kind: str, checkpoint_uri: Optional[str]):
     raise ValueError(f"unknown state backend: {kind} (use fs|memory)")
 
 
-def _refuse_unported(parse_fn, journal: Journal, native_server, table,
-                     replica_of, replica_index, topology_group,
-                     generation) -> None:
+def _refuse_unported(journal: Journal, native_server, table) -> None:
     """Raise for every option of the reference's job that the port does
     not have (module docstring)."""
     if native_server:
@@ -174,13 +189,6 @@ def _refuse_unported(parse_fn, journal: Journal, native_server, table,
                                         "TPUMS_TABLE=arena)",
                                         "Arena and native store"))
         raise ValueError("table must be dict|arena")
-    fleet = {"replica_of": replica_of, "replica_index": replica_index,
-             "topology_group": topology_group, "generation": generation,
-             "a sharded parser": getattr(parse_fn, "shard_filter", None)}
-    named = [k for k, v in fleet.items() if v is not None]
-    if named:
-        raise ValueError(not_ported(
-            f"the serving fleet ({', '.join(named)})", "Fleet"))
     if os.path.exists(os.path.join(journal.dir,
                                    f"{journal.topic}.georepl.json")):
         raise ValueError(not_ported(
@@ -237,9 +245,7 @@ class ServingJob:
             ingest_mode = os.environ.get("TPUMS_INGEST_MODE", "auto")
         if ingest_mode not in ("auto", "columnar", "scalar"):
             raise ValueError("ingest_mode must be auto|columnar|scalar")
-        _refuse_unported(parse_fn, journal, native_server, table,
-                         replica_of, replica_index, topology_group,
-                         generation)
+        _refuse_unported(journal, native_server, table)
         with_index = state_name == ALS_STATE and topk_index
         self.device = resolve_device(device) if with_index else None
         self.ingest_mode = ingest_mode
@@ -248,6 +254,7 @@ class ServingJob:
         self.host = host
         self.parse_fn = parse_fn
         self.backend = backend
+        self.table_kind = "dict"
         self.table = ModelTable(n_shards)
         self.checkpoint_interval_s = checkpoint_interval_ms / 1000.0
         self.poll_interval_s = poll_interval_s
@@ -274,9 +281,11 @@ class ServingJob:
         self.ingest_apply_s = 0.0
         self.checkpoints = 0
         self.checkpoints_deferred = 0
-        # snapshot-shipped bootstrap (serve/snapshot.py): a standalone job
-        # owns the whole key space, shard 0 of 1
-        self._snap_owner = (0, 1)
+        # snapshot-shipped bootstrap (serve/snapshot.py): a sharded worker
+        # snapshots and restores its own slice; a standalone job owns the
+        # whole key space, shard 0 of 1
+        _sf = getattr(parse_fn, "shard_filter", None)
+        self._snap_owner = (int(_sf[0]), int(_sf[1])) if _sf else (0, 1)
         if snapshots is None:
             snapshots = os.environ.get("TPUMS_SNAPSHOTS", "1") != "0"
         self._snapshots_on = bool(snapshots)
@@ -290,10 +299,18 @@ class ServingJob:
                 snapshot_min_bytes = 1 << 20
         self._snap_min_bytes = max(int(snapshot_min_bytes), 1)
         self._last_snap_offset = 0
-        # background journal compactor (serve/compact.py), off by default
+        # background journal compactor (serve/compact.py), off by default.
+        # The journal is shared, so exactly one member per fleet folds it:
+        # worker 0 of replica 0 (a solo job qualifies); an elastic worker
+        # also stands down per tick unless its generation is the group's
+        # active one (_compactor_active)
         if compact is None:
             compact = compact_enabled()
-        self._compact_on = bool(compact)
+        self._compact_on = (
+            bool(compact)
+            and self._snap_owner[0] == 0
+            and replica_index in (None, 0)
+        )
         self._compactor = None
         self.bootstrap_source = "replay"
         self.bootstrap_seconds: Optional[float] = None
@@ -327,6 +344,16 @@ class ServingJob:
             "tpums_snapshots_published_total", state=st)
         self._obs_snap_restore_fail = reg.counter(
             "tpums_snapshot_restore_failures_total", state=st)
+        # HA plane (serve/ha.py): membership in a replica set, announced
+        # through the registry so clients and supervisors resolve the set
+        self.replica_of = replica_of
+        self.replica_index = replica_index
+        # elastic plane (serve/elastic.py): the worker's generation of its
+        # topology group, and the group's ACTIVE generation as observed at
+        # heartbeat time (HEALTH's topology_gen: the re-resolve hint)
+        self.topology_group = topology_group
+        self.generation = generation
+        self._observed_topology_gen: Optional[int] = generation
         # readiness gate: False until the consume loop has replayed the
         # backlog that existed when it came up
         self._ready = threading.Event()
@@ -395,6 +422,8 @@ class ServingJob:
                 file=sys.stderr,
             )
         self.server.start()
+        print(f"[serve:{self.state_name}] table: {self.table_kind}",
+              file=sys.stderr)
         # announce jobId -> endpoint so clients resolve this job without
         # explicit port wiring (QueryClientHelper.java:82-92), refreshed
         # within the heartbeat TTL
@@ -410,7 +439,8 @@ class ServingJob:
         if self._compact_on:
             # shares this job's stop event, so it stands down with stop()
             self._compactor = CompactorThread(
-                self.journal, self.parse_fn, stop_event=self._stop)
+                self.journal, self.parse_fn, stop_event=self._stop,
+                active_fn=self._compactor_active)
             self._compactor.start()
         return self
 
@@ -433,8 +463,8 @@ class ServingJob:
             return 0
 
     def health(self) -> dict:
-        """The HEALTH verb's payload (the key count is added server-side);
-        the reference's keys, the fleet's as null."""
+        """The HEALTH verb's payload (the key count is added server-side),
+        the reference's keys."""
         ready = self.ready
         return {
             "state": self.state_name,
@@ -444,11 +474,11 @@ class ServingJob:
             "backlog_bytes": self.backlog_bytes(),
             "offset": self.offset,
             "ingest_path": self.ingest_path,
-            "replica_of": None,
-            "replica": None,
-            "topology_group": None,
-            "generation": None,
-            "topology_gen": None,
+            "replica_of": self.replica_of,
+            "replica": self.replica_index,
+            "topology_group": self.topology_group,
+            "generation": self.generation,
+            "topology_gen": self._observed_topology_gen,
             "bootstrap_source": self.bootstrap_source,
             "bootstrap_seconds": self.bootstrap_seconds,
         }
@@ -550,6 +580,8 @@ class ServingJob:
                 self.offset,
                 shard=self._snap_owner[0],
                 num_shards=self._snap_owner[1],
+                group=self.topology_group,
+                gen=self.generation,
                 topic=self.journal.topic,
             )
         except Exception as e:
@@ -582,8 +614,30 @@ class ServingJob:
                 return
             registry.register(
                 self.job_id, self.host, self.port, self.state_name,
+                replica_of=self.replica_of, replica=self.replica_index,
                 ready=self.ready, ttl_s=registry.replica_ttl_s(),
             )
+        if self.topology_group:
+            # one small registry read on the heartbeat cadence keeps the
+            # generation-changed hint in HEALTH fresh after a cutover
+            try:
+                topo = registry.resolve_topology(self.topology_group)
+                if topo is not None:
+                    self._observed_topology_gen = int(topo["gen"])
+            except Exception:
+                pass
+
+    def _compactor_active(self) -> bool:
+        """Per-tick compactor gate (``CompactorThread`` ``active_fn``):
+        True when this worker's topology generation is the group's ACTIVE
+        one, as observed at heartbeat time.  During an elastic cutover
+        both gen g and the warming gen g+1 have a worker 0 on the shared
+        journal; one compactor per journal holds through it.  Non-elastic
+        jobs always qualify."""
+        if self.topology_group is None or self.generation is None:
+            return True
+        obs = self._observed_topology_gen
+        return obs is None or int(obs) == int(self.generation)
 
     def _heartbeat_loop(self) -> None:
         interval = registry.heartbeat_interval_s()
@@ -777,7 +831,8 @@ class ServingJob:
         self._obs_ready_flips.inc()
         obs_tracing.event(
             "ready", state=self.state_name, job_id=self.job_id,
-            offset=self.offset, replica_of=None, replica=None,
+            offset=self.offset, replica_of=self.replica_of,
+            replica=self.replica_index,
             source=self.bootstrap_source)
         # a fresh snapshot right at ready makes the NEXT start's bootstrap
         # O(state) even before a checkpoint interval elapses (min-bytes
@@ -797,7 +852,7 @@ class ServingJob:
                 self.parse_errors += 1
                 continue
             if parsed is None:
-                continue
+                continue  # a row another sharded worker owns
             batch.append(parsed)
         # one lock acquisition per slice, so a replay cannot starve queries
         # behind one multi-second critical section
@@ -813,6 +868,18 @@ class ServingJob:
             chunk, mode, with_hashes=True
         )
         self.parse_errors += errs
+        shard_filter = getattr(self.parse_fn, "shard_filter", None)
+        if shard_filter is not None and keys:
+            # sharded worker: the vectorised ownership filter replaces the
+            # per-row None checks of the scalar wrapper
+            worker_index, num_workers = shard_filter
+            if hashes is None:
+                hashes = _fnv1a_batch(keys)
+            mine = hashes % num_workers == worker_index
+            if not mine.all():
+                keys = np.asarray(keys, dtype=object)[mine].tolist()
+                values = np.asarray(values, dtype=object)[mine].tolist()
+                hashes = hashes[mine]
         for s in range(0, len(keys), 50_000):
             self.table.put_many_columns(
                 keys[s:s + 50_000], values[s:s + 50_000],

@@ -13,14 +13,30 @@ resolves a job of either package by id.  Readers treat an entry whose pid
 is gone (on this host) or whose heartbeat is past its TTL as dead and reap
 it.
 
-Push epochs (``next_push_epoch``, the push plane's subscription-id
-epochs) and snapshot records (``publish_snapshot``, the latest manifest of
-each snapshot slice) are the reference's records in the reference's files,
-written as tmp + rename.  Tenants, regions, topology records, controller
-leases and alert records are not ported yet: they belong to the fleet and
-the rest of ``obs/`` (ROADMAP.md, Queue 1).
-Registration is best-effort: registry I/O failures never take down a
-serving job.
+Replica sets (the fleet, ``serve/ha.py``): a replicated shard worker
+registers with ``replica_of`` (the logical shard group id, e.g.
+``"mysvc/shard-0"``), ``replica`` (its index in the set) and ``ready``
+(False while it is still replaying the journal); ``resolve_replicas``
+returns the live members of a group.
+
+Topology records (``serve/elastic.py``): a job GROUP's active shape lives
+in one ``kind="topology"`` record, ``(gen, shards, replicas)`` plus a
+bounded history of superseded generations, published atomically (tmp +
+rename under a short-lived lock file) and CAS-guarded (``expect_gen``; a
+lost race raises ``TopologyConflict``).  ``gc_generation_entries`` reaps
+dead worker entries of superseded generations.  A controller LEASE
+(``acquire_controller_lease``) makes rescaling single-writer per group; a
+dead holder's lease is stolen under a link-based steal lock.  Tenants are
+a name prefix on group ids (``qualify_group``, ``TPUMS_TENANT``).
+
+Push epochs (``next_push_epoch``), snapshot records (``publish_snapshot``)
+and the alert records a watcher publishes (read here by
+``resolve_alerts``) are the reference's records in the reference's files.
+Every record and lease either package writes is read and honoured by the
+other.  Tenant listing and GC, regions, the edge namespace and alert
+publishing are not ported yet (ROADMAP.md, Queue 1).  Registration is
+best-effort: registry I/O failures never take down a serving job, but a
+topology publish raises (a controller must know its cutover failed).
 """
 
 from __future__ import annotations
@@ -61,7 +77,7 @@ def replica_ttl_s() -> float:
     return 5.0 * heartbeat_interval_s()
 
 
-def _load_json_retry(path: str):
+def _load_json_retry(path: str, strict: bool = False):
     """Shared torn-read guard for every registry file read.
 
     Writers are atomic (tmp + rename/link), but a reader can still open a
@@ -71,16 +87,24 @@ def _load_json_retry(path: str):
     ambiguous: torn-mid-write or an actual corpse.  ONE short re-read
     disambiguates — a concurrent writer's rename lands within the backoff,
     so a live record is never judged dead off a single torn read.  A
-    missing file stays an immediate None (no entry is not a torn entry)."""
+    missing file stays an immediate None (no entry is not a torn entry).
+
+    ``strict=True`` (the elastic client's topology refresh) re-raises the
+    final failure instead of returning None, so callers can tell "no
+    record" from "the registry is unreadable right now"."""
+    last_err: Optional[Exception] = None
     for attempt in (0, 1):
         try:
             with open(path) as f:
                 return json.load(f)
         except FileNotFoundError:
             return None
-        except (OSError, ValueError):
+        except (OSError, ValueError) as e:
+            last_err = e
             if attempt == 0:
                 time.sleep(0.002)
+    if strict and last_err is not None:
+        raise last_err
     return None
 
 
@@ -102,6 +126,8 @@ def register(
     port: int,
     state_name: str,
     *,
+    replica_of: Optional[str] = None,
+    replica: Optional[int] = None,
     ready: Optional[bool] = None,
     ttl_s: Optional[float] = None,
 ) -> None:
@@ -124,6 +150,10 @@ def register(
             # recorded it (a wildcard bind says nothing about where)
             "pid_host": socket.gethostname(),
         }
+        if replica_of is not None:
+            entry["replica_of"] = replica_of
+        if replica is not None:
+            entry["replica"] = int(replica)
         if ready is not None:
             entry["ready"] = bool(ready)
         if ttl_s is not None:
@@ -227,6 +257,58 @@ def list_jobs(gc: bool = True) -> List[dict]:
     return out
 
 
+def resolve_replicas(replica_of: str) -> List[dict]:
+    """Live members of a replica group, sorted by replica index.  Entries
+    whose ``ready`` flag is False are included (callers that must not send
+    traffic to a replaying replica filter on ``ready`` themselves; a
+    supervisor needs to see them to NOT respawn them)."""
+    members = [
+        e for e in list_jobs() if e.get("replica_of") == replica_of
+    ]
+    members.sort(key=lambda e: (e.get("replica", 0), e.get("job_id", "")))
+    return members
+
+
+# ---------------------------------------------------------------------------
+# tenant namespaces: a tenant is a NAME PREFIX on group ids (``acme::als``),
+# inherited by every id derived from the group
+# ---------------------------------------------------------------------------
+
+TENANT_SEP = "::"
+
+
+def default_tenant() -> Optional[str]:
+    """The ambient tenant (``TPUMS_TENANT``), or None for the shared
+    (un-prefixed) namespace."""
+    t = os.environ.get("TPUMS_TENANT", "").strip()
+    return t or None
+
+
+def qualify_group(group: str, tenant: Optional[str] = None) -> str:
+    """Tenant-scope a group name -> ``<tenant>::<group>``.
+
+    ``tenant=None`` uses the ambient ``TPUMS_TENANT``; an explicit empty
+    string pins the shared namespace regardless of environment.  Already
+    qualified names pass through unchanged (idempotent)."""
+    if TENANT_SEP in group:
+        return group
+    t = default_tenant() if tenant is None else (tenant.strip() or None)
+    if not t:
+        return group
+    if TENANT_SEP in t or "/" in t or "\t" in t or "\n" in t:
+        raise ValueError(f"bad tenant name: {t!r}")
+    return f"{t}{TENANT_SEP}{group}"
+
+
+def split_tenant(name: str) -> Tuple[Optional[str], str]:
+    """``"acme::als@g3/shard-0"`` -> ("acme", "als@g3/shard-0");
+    un-prefixed names -> (None, name)."""
+    if TENANT_SEP in name:
+        t, _, base = name.partition(TENANT_SEP)
+        return (t or None), base
+    return None, name
+
+
 def _pid_is_ours_and_dead(entry: dict) -> bool:
     import socket
 
@@ -254,8 +336,9 @@ def _group_path(group: str, suffix: str) -> str:
     return os.path.join(registry_dir(), f"{safe[:80]}-{digest}.{suffix}")
 
 
-def _read_record(path: str, kind: str) -> Optional[dict]:
-    record = _load_json_retry(path)
+def _read_record(path: str, kind: str, strict: bool = False
+                 ) -> Optional[dict]:
+    record = _load_json_retry(path, strict=strict)
     if not isinstance(record, dict) or record.get("kind") != kind:
         return None
     return record
@@ -294,6 +377,241 @@ class _GroupLock:
     def __exit__(self, *exc):
         try:
             os.unlink(self.path)
+        except OSError:
+            pass
+
+
+# ---------------------------------------------------------------------------
+# topology records + controller lease (the elastic plane, serve/elastic.py)
+# ---------------------------------------------------------------------------
+
+TOPOLOGY_HISTORY = 8  # superseded generations kept in the record
+
+
+class TopologyConflict(RuntimeError):
+    """A CAS publish lost: the group's generation moved under the caller."""
+
+
+def _topology_path(group: str) -> str:
+    # distinct suffix so a JOB registered under the group's name can never
+    # collide with the group's topology record
+    return _group_path(group, "topo.json")
+
+
+def resolve_topology(group: str, strict: bool = False) -> Optional[dict]:
+    """The group's active topology record ``{gen, shards, replicas, ...}``,
+    or None when no generation was ever published.  ``strict=True`` raises
+    the underlying ``OSError``/``ValueError`` when the record exists but
+    cannot be read."""
+    return _read_record(_topology_path(group), "topology", strict=strict)
+
+
+def publish_topology(
+    group: str,
+    shards: int,
+    replicas: int = 1,
+    *,
+    expect_gen: Optional[int] = None,
+    controller: Optional[str] = None,
+    extra: Optional[dict] = None,
+) -> dict:
+    """Atomically publish the group's next topology generation -> record.
+
+    The new generation is always ``current + 1`` (1 for a fresh group).
+    ``expect_gen`` is the CAS guard: if another writer advanced the record
+    since the caller planned against ``expect_gen``, this raises
+    ``TopologyConflict`` instead of overwriting the newer topology.  The
+    superseded generation joins a bounded ``history``.  ``extra`` adds
+    record fields (it cannot shadow the protocol fields).  NOT
+    best-effort: I/O failures raise."""
+    if shards < 1 or replicas < 1:
+        raise ValueError("need shards >= 1 and replicas >= 1")
+    os.makedirs(registry_dir(), exist_ok=True)
+    path = _topology_path(group)
+    import socket
+
+    with _GroupLock(path):
+        current = _read_record(path, "topology")
+        cur_gen = int(current["gen"]) if current else 0
+        if expect_gen is not None and cur_gen != int(expect_gen):
+            raise TopologyConflict(
+                f"group {group!r} is at generation {cur_gen}, "
+                f"publisher expected {expect_gen}"
+            )
+        history = list(current.get("history", ())) if current else []
+        if current:
+            superseded = {
+                "gen": current["gen"], "shards": current["shards"],
+                "replicas": current["replicas"],
+                "published_at": current.get("published_at"),
+            }
+            if "model" in current:
+                superseded["model"] = current["model"]
+            history.append(superseded)
+            history = history[-TOPOLOGY_HISTORY:]
+        record = {
+            "kind": "topology", "group": group, "gen": cur_gen + 1,
+            "shards": int(shards), "replicas": int(replicas),
+            "published_at": time.time(),
+            "controller": controller
+            or f"{socket.gethostname()}:{os.getpid()}",
+            "history": history,
+        }
+        if extra:
+            for k, v in extra.items():
+                record.setdefault(k, v)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        with open(tmp, "w") as f:
+            json.dump(record, f)
+        os.replace(tmp, path)
+    return record
+
+
+def drop_topology(group: str) -> None:
+    """Remove the group's topology record (teardown; best-effort)."""
+    try:
+        os.unlink(_topology_path(group))
+    except OSError:
+        pass
+
+
+def generation_of(entry: dict, group: str, gen_sep: str = "@g"
+                  ) -> Optional[int]:
+    """Parse the topology generation out of a worker entry's shard-group id
+    (``<group>@g<gen>/shard-<i>``); None for entries outside ``group``."""
+    replica_of = entry.get("replica_of") or ""
+    prefix = f"{group}{gen_sep}"
+    if not replica_of.startswith(prefix):
+        return None
+    gen_s = replica_of[len(prefix):].split("/", 1)[0]
+    try:
+        return int(gen_s)
+    except ValueError:
+        return None
+
+
+def gc_generation_entries(group: str, active_gen: int) -> int:
+    """Reap DEAD worker entries of generations < ``active_gen`` -> count.
+
+    Live old-generation workers are left alone: a cutover drains them
+    deliberately.  Scans the raw registry dir (``list_jobs`` filters dead
+    entries out of its result whether or not it GCs them)."""
+    reaped = 0
+    try:
+        names = os.listdir(registry_dir())
+    except OSError:
+        return 0
+    for name in names:
+        if not name.endswith(".json"):
+            continue
+        path = os.path.join(registry_dir(), name)
+        entry = _load_json_retry(path)
+        if not isinstance(entry, dict) or "port" not in entry:
+            continue
+        gen = generation_of(entry, group)
+        if gen is None or gen >= active_gen:
+            continue
+        if entry_is_dead(entry) and _reap_if_unchanged(path, entry) is None:
+            reaped += 1
+    return reaped
+
+
+def _controller_path(group: str) -> str:
+    return _group_path(group, "ctl.json")
+
+
+def acquire_controller_lease(group: str, ttl_s: Optional[float] = None
+                             ) -> Optional[str]:
+    """Try to become the group's single scaling controller -> lease token,
+    or None while another live controller holds the lease.
+
+    The holder refreshes within ``ttl_s`` (default: the replica TTL) or is
+    presumed dead, and a dead holder's lease (pid gone, or heartbeat
+    lapsed) is stolen under a link-based steal lock, so two stealers
+    cannot both win one corpse.  Acquisition links a complete tmp file
+    into place, so the lease appears atomically with its contents."""
+    import socket
+    import uuid
+
+    os.makedirs(registry_dir(), exist_ok=True)
+    path = _controller_path(group)
+    token = uuid.uuid4().hex
+    entry = {
+        "kind": "controller", "group": group, "token": token,
+        "pid": os.getpid(), "pid_host": socket.gethostname(),
+        "heartbeat": time.time(),
+        "ttl_s": replica_ttl_s() if ttl_s is None else float(ttl_s),
+    }
+    data = json.dumps(entry)
+    tmp = f"{path}.{os.getpid()}.{token[:8]}.tmp"
+    try:
+        with open(tmp, "w") as f:
+            f.write(data)
+        try:
+            os.link(tmp, path)
+            return token
+        except FileExistsError:
+            pass
+        current = _read_record(path, "controller")
+        if current is not None and not entry_is_dead(current):
+            return None
+        # an unreadable record or a dead holder's lease: exactly ONE
+        # claimant recovers it, under a steal lock that goes stale after
+        # the lease TTL if its claimant died mid-steal
+        lock = f"{path}.steal"
+        try:
+            os.link(tmp, lock)
+        except FileExistsError:
+            try:
+                if time.time() - os.stat(lock).st_mtime > entry["ttl_s"]:
+                    os.unlink(lock)
+            except OSError:
+                pass
+            return None
+        try:
+            check = _read_record(path, "controller")
+            if check is not None and not entry_is_dead(check):
+                return None
+            os.replace(tmp, path)
+            return token
+        finally:
+            try:
+                os.unlink(lock)
+            except OSError:
+                pass
+    except OSError:
+        return None
+    finally:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+
+
+def refresh_controller_lease(group: str, token: str) -> bool:
+    """Heartbeat the lease -> True while this token still holds it."""
+    path = _controller_path(group)
+    current = _read_record(path, "controller")
+    if current is None or current.get("token") != token:
+        return False
+    current["heartbeat"] = time.time()
+    tmp = f"{path}.{os.getpid()}.hb.tmp"
+    try:
+        with open(tmp, "w") as f:
+            json.dump(current, f)
+        os.replace(tmp, path)
+    except OSError:
+        return False
+    return True
+
+
+def release_controller_lease(group: str, token: str) -> None:
+    """Drop the lease iff this token still holds it (best-effort)."""
+    path = _controller_path(group)
+    current = _read_record(path, "controller")
+    if current is not None and current.get("token") == token:
+        try:
+            os.unlink(path)
         except OSError:
             pass
 
@@ -368,6 +686,63 @@ def resolve_snapshot(scope: str) -> Optional[dict]:
     """The slice's latest registered snapshot manifest, or None."""
     record = _read_record(_snapshot_path(scope), "snapshot")
     return record.get("manifest") if record else None
+
+# ---------------------------------------------------------------------------
+# alert records: a watcher (the reference's obs/watch.py) publishes them;
+# the fleet signals read them when no scraped process carries the gauges
+# ---------------------------------------------------------------------------
+
+def _alerts_path(scope: str) -> str:
+    return _group_path(f"alerts/{scope}", "alerts.json")
+
+
+def resolve_alerts(scope: Optional[str] = None) -> Optional[dict]:
+    """The current alert summary: one scope's fresh record, or, with no
+    scope, every fresh record merged (firing counts sum, severities take
+    the max).  Expired records are GC'd on the way past.  None when no
+    watcher has published anything fresh."""
+    if scope is not None:
+        record = _read_record(_alerts_path(scope), "alerts")
+        if record is None:
+            return None
+        if time.time() - record.get("published_at", 0) > \
+                record.get("ttl_s", 15.0):
+            try:
+                os.unlink(_alerts_path(scope))
+            except OSError:
+                pass
+            return None
+        return record.get("summary")
+    merged: Optional[dict] = None
+    try:
+        names = os.listdir(registry_dir())
+    except OSError:
+        return None
+    now = time.time()
+    for fname in names:
+        if not fname.startswith("alerts_") or \
+                not fname.endswith(".alerts.json"):
+            continue
+        path = os.path.join(registry_dir(), fname)
+        record = _read_record(path, "alerts")
+        if record is None:
+            continue
+        if now - record.get("published_at", 0) > record.get("ttl_s", 15.0):
+            try:
+                os.unlink(path)
+            except OSError:
+                pass
+            continue
+        s = record.get("summary", {})
+        if merged is None:
+            merged = {"firing": 0, "max_severity": None,
+                      "max_severity_level": 0, "alerts": []}
+        merged["firing"] += int(s.get("firing", 0))
+        merged["alerts"].extend(s.get("alerts", []))
+        if s.get("max_severity_level", 0) > merged["max_severity_level"]:
+            merged["max_severity_level"] = s["max_severity_level"]
+            merged["max_severity"] = s.get("max_severity")
+    return merged
 
 
 

@@ -2,13 +2,14 @@
 """Phase 17 of ``chip_smoke.py`` alone (the serving job in a process of
 its own), on a model trained at phase 4's ML-20M shape and init-free
 defaults (3 iterations, rank 50), for a quick look at the serving job on
-one CUDA card without the other phases:
+one CUDA card without the other phases; with ``--fleet``, phase 18 (the
+serving fleet) after it, on phase 17's published topic:
 
-    python3 scripts/serving_job_probe.py
+    python3 scripts/serving_job_probe.py [--fleet]
 
-It builds the kernels, trains, runs ``serving_job_phase`` and prints its
-numbers and the card's name and power limit.  Without CUDA it exits 2
-before any output.
+It builds the kernels, trains, runs ``serving_job_phase`` (and
+``fleet_phase``) and prints their numbers and the card's name and power
+limit.  Without CUDA it exits 2 before any output.
 """
 
 import os
@@ -16,8 +17,14 @@ import sys
 import time
 
 
-def main() -> int:
+def main(argv=None) -> int:
     import torch
+
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["--fleet"]):
+        print(f"unknown arguments {argv} (none, or --fleet)",
+              file=sys.stderr)
+        return 2
 
     if not torch.cuda.is_available():
         print("CUDA is not available: nothing to probe", file=sys.stderr)
@@ -38,8 +45,12 @@ def main() -> int:
         num_factors=S.RANK, iterations=3, lambda_=S.LAMBDA), dev)
     S.log(f"probe: model in {time.perf_counter() - t0:.1f}s")
     try:
-        print(S.serving_job_phase(torch, model, (users, items, ratings),
-                                  0.8, dev))
+        job = S.serving_job_phase(torch, model, (users, items, ratings),
+                                  0.8, dev)
+        base = job.pop("fleet_base")
+        print(job)
+        if argv:
+            print(S.fleet_phase(torch, base, dev))
     except S.SmokeFailure as e:
         S.log(f"FAIL: {e}")
         return 1

@@ -262,6 +262,76 @@ def test_serving_job_phase_fails_when_the_job_drops_an_sgd_row(
 
 
 @pytest.fixture
+def fleet_base(monkeypatch):
+    """Phase 18's inputs at a small size: a published topic of random
+    rank-8 rows (1,200 users, 1,100 items, the MEAN rows) and the one
+    job's replies from ``fleet_baseline``; the phase's sizes shrunk."""
+    from flink_ms_tpu_torch.core import formats as F
+
+    for name, value in (("FLEET_MGET_KEYS", 64), ("FLEET_LATENCY_CALLS", 20),
+                        ("FLEET_WINDOW_S", 0.5), ("FLEET_RATE_QPS", 100.0),
+                        ("FLEET_RESHARD_RATINGS", 1000),
+                        ("FLEET_RATINGS", 3000), ("FLEET_WAIT_S", 90.0),
+                        ("FLEET_CHECKPOINT_MS", 300)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    rng = np.random.default_rng(0)
+    uf, itf = rng.normal(size=(1200, 8)), rng.normal(size=(1100, 8))
+    published = [F.format_als_row(u, "U", uf[u]) for u in range(1200)]
+    published += [F.format_als_row(i, "I", itf[i]) for i in range(1100)]
+    published += [F.format_als_row("MEAN", side, m.mean(axis=0))
+                  for side, m in (("U", uf), ("I", itf))]
+    return chip_smoke.fleet_baseline(published, torch.device("cpu"), 16)
+
+
+def test_fleet_phase_rehearsal(fleet_base, capsys):
+    """Phase 18 on the CPU: every worker a ``--device cpu`` process."""
+    out = chip_smoke.fleet_phase(torch, fleet_base, torch.device("cpu"))
+    logs = capsys.readouterr().out
+    assert "sum 2302 (the one job's 2302); MGET of 64 keys equal to the " \
+        "one job's: True" in logs
+    assert logs.count("16 of 16 agree with a float64 top-k") == 2
+    assert "the same MGET and 16 fan-out TOPK: True" in logs
+    assert "from the checkpoint" in logs
+    assert "0 client-visible errors" in logs and "1 respawn" in logs
+    assert "payloads at every topology equal the one job's: True" in logs
+    assert "live generations [3]" in logs
+    assert "1000 submitted, 0 lost, 0 doubled" in logs
+    assert "equal one SGDStep run over the same ratings byte for byte: " \
+        "True" in logs
+    assert "4000 submitted, 0 lost, 0 doubled" in logs
+    assert logs.count(" 0 failed queries") == 2
+    assert out["updates_per_s"] > 0 and out["fanout_p50_ms"] > 0
+    assert out["ha_respawn_s"] > 0 and len(out["cutover_s"]) == 2
+    assert np.isfinite(out["visibility_p99_ms"])
+
+
+def test_fleet_phase_fails_when_an_apply_record_is_dropped(
+        fleet_base, tmp_path, monkeypatch):
+    """A fleet whose partition 3 lost its first apply record: the audit
+    counts those ratings lost, and the reshard check fails the phase."""
+    from flink_ms_tpu_torch.serve import update_plane as UP
+
+    real = UP._read_all_lines
+    lossy_topic = UP.apply_topic(chip_smoke.JOB_TOPIC, 3)
+
+    def lossy(j):
+        lines = real(j)
+        return lines[1:] if j.topic == lossy_topic else lines
+
+    monkeypatch.setattr(UP, "_read_all_lines", lossy)
+    for k, v in chip_smoke.FLEET_ENV.items():
+        monkeypatch.setenv(k, v)
+    run = chip_smoke.FleetRun(str(tmp_path), fleet_base, torch.device("cpu"))
+    try:
+        chip_smoke.fleet_group(run)
+        with pytest.raises(chip_smoke.SmokeFailure,
+                           match="the reshard audit .*'lost': [1-9]"):
+            chip_smoke.fleet_updates(run)
+    finally:
+        run.close()
+
+
+@pytest.fixture
 def small_scale(monkeypatch):
     monkeypatch.setattr(chip_smoke, "SCALE_EXACT_ROWS", 20_000)
     monkeypatch.setattr(chip_smoke, "SCALE_IVF_ROWS", 60_000)

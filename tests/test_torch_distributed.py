@@ -13,6 +13,7 @@ tests compare (``two_ranks``)."""
 import os
 import subprocess
 import sys
+import time
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +33,9 @@ from flink_ms_tpu_torch.train import als_train, svm_train
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JOB_S = 120  # the time limit of each job of ranks
+# the two commands of a job started elsewhere, each a fresh interpreter:
+# alone about 8 s, and 55-61 s with six busy processes on 8 cores
+CLI_JOB_S = 300
 RANK_ENV = ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES", "JAX_PROCESS_ID",
             "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")
 
@@ -523,18 +527,30 @@ def test_svm_cli_joins_a_job_started_elsewhere(tmp_path):
     path = _libsvm_file(tmp_path)
     out = str(tmp_path / "model")
     rendezvous = "file://" + str(tmp_path / "rendezvous")
-    env = dict(os.environ, PYTHONPATH=ROOT)
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "flink_ms_tpu_torch.train.svm_train",
-         "--training", path, "--output", out, "--coordinatorAddress",
-         rendezvous, "--numProcesses", "2", "--processId", str(r)]
-        + SVM_FLAGS, cwd=ROOT, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for r in range(2)]
+    env = {k: v for k, v in os.environ.items() if k not in RANK_ENV}
+    env["PYTHONPATH"] = ROOT
+    # each rank writes to files of its own: with pipes read one rank at a
+    # time, a rank blocked on a full pipe would stall the other one inside
+    # a collective until the limit
+    logs = [(tmp_path / f"rank{r}.out", tmp_path / f"rank{r}.err")
+            for r in range(2)]
+    procs = []
+    for r, (o, e) in enumerate(logs):
+        with open(o, "w") as fo, open(e, "w") as fe:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "flink_ms_tpu_torch.train.svm_train",
+                 "--training", path, "--output", out, "--coordinatorAddress",
+                 rendezvous, "--numProcesses", "2", "--processId", str(r)]
+                + SVM_FLAGS, cwd=ROOT, env=env, stdout=fo, stderr=fe))
+    deadline = time.monotonic() + CLI_JOB_S
     try:
-        outs = [p.communicate(timeout=JOB_S) for p in procs]
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
     finally:
         for p in procs:
             p.kill()
+            p.wait(timeout=30)
+    outs = [(o.read_text(), e.read_text()) for o, e in logs]
     assert [p.returncode for p in procs] == [0, 0], outs
     assert "2 device(s)" in outs[0][0] and "[SVM]" not in outs[1][0]
     want = svm_train.run(Params.from_args(["--training", path]

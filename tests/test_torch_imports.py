@@ -63,7 +63,12 @@ def test_port_and_chip_smoke_load_no_jax():
                 "flink_ms_tpu_torch.serve.compact",
                 "flink_ms_tpu_torch.client.svm_predict",
                 "flink_ms_tpu_torch.client.svm_predict_random",
-                "flink_ms_tpu_torch.client.range_partition_svm_predict"
+                "flink_ms_tpu_torch.client.range_partition_svm_predict",
+                "flink_ms_tpu_torch.serve.sharded",
+                "flink_ms_tpu_torch.serve.ha",
+                "flink_ms_tpu_torch.serve.elastic",
+                "flink_ms_tpu_torch.serve.update_plane",
+                "flink_ms_tpu_torch.obs.scrape"
                 } <= set(names)
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -75,16 +80,20 @@ def test_port_and_chip_smoke_load_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 58  # every module of the port was imported
+    assert int(n) >= 63  # every module of the port was imported
     assert bad == "[]"
 
 
 def test_serving_clis_load_no_jax(tmp_path):
-    """The serving job's CLI (and the other CLIs of the serving loop), run
-    as ``python -m`` would run them: on this host without CUDA the job
-    stops at its device, before any socket, having loaded no JAX."""
+    """The serving job's CLI (and the other CLIs of the serving loop and
+    of the fleet), run as ``python -m`` would run them: on this host
+    without CUDA the job stops at its device, before any socket, and the
+    fleet's launchers raise with their worker's exit code, having loaded
+    no JAX."""
     code = textwrap.dedent(f"""
         import runpy, sys
+        fleet = ["--journalDir", {str(tmp_path)!r}, "--topic", "t",
+                 "--portDir", {str(tmp_path / "ports")!r}]
         runs = [("flink_ms_tpu_torch.serve.als_consumer",
                  ["--journalDir", {str(tmp_path)!r}, "--topic", "t",
                   "--port", "0", "--device", "cuda"]),
@@ -95,7 +104,13 @@ def test_serving_clis_load_no_jax(tmp_path):
                 ("flink_ms_tpu_torch.serve.compact", []),
                 ("flink_ms_tpu_torch.client.svm_predict_random", []),
                 ("flink_ms_tpu_torch.client.range_partition_svm_predict",
-                 [])]
+                 []),
+                ("flink_ms_tpu_torch.serve.sharded", fleet + [
+                    "--workerIndex", "0", "--numWorkers", "2"]),
+                ("flink_ms_tpu_torch.serve.ha", fleet + [
+                    "--numWorkers", "1", "--replication", "1"]),
+                ("flink_ms_tpu_torch.serve.elastic", fleet + [
+                    "--shards", "1"])]
         errors = []
         for mod, argv in runs:
             sys.argv = [mod] + argv
@@ -107,15 +122,22 @@ def test_serving_clis_load_no_jax(tmp_path):
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
                      or m == "flink_ms_tpu" or m.startswith("flink_ms_tpu."))
         print(errors[0])
+        print(" | ".join(errors[-3:]))
         print(len(errors), bad)
     """)
     env = dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES="")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    first, last = out.stdout.strip().splitlines()[-2:]
+    first, fleet, last = out.stdout.strip().splitlines()[-3:]
     assert first.startswith("RuntimeError: device 'cuda' was asked for")
-    assert last == "8 []"
+    # the fleet's worker stops at its device; both launchers raise with
+    # the exit code of the worker they spawned (it stopped at its device)
+    sharded, ha, elastic = fleet.split(" | ")
+    assert sharded.startswith("RuntimeError: device 'cuda' was asked for")
+    assert ha.startswith("RuntimeError: replica s0r0 died at spawn rc=1")
+    assert elastic.startswith("RuntimeError: replica s0r0 died at spawn")
+    assert last == "11 []"
 
 
 def test_spawned_ranks_load_no_jax():

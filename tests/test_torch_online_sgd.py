@@ -111,7 +111,52 @@ def test_run_once_kafka_appends_the_reference_lines(tmp_path, batch):
         job.stop()
 
 
-def test_group_is_refused(tmp_path):
-    with pytest.raises(ValueError, match="'Fleet'"):
-        PS.run(Params.from_args(["--input", str(tmp_path), "--mode", "once",
-                                 "--outputMode", "kafka", "--group", "g"]))
+def test_group_rides_the_elastic_client(tmp_path):
+    """``--group`` resolves an elastic topology group through the port's
+    ElasticClient (it used to be refused): against the 2-shard generation
+    of a group, the run appends the same lines as the reference's run
+    with ``--group`` and as the port's run with ``--jobId`` against one
+    job serving the whole table."""
+    from flink_ms_tpu.serve import registry as RR
+    from flink_ms_tpu_torch.serve import sharded as PSH
+
+    table = _table(seed=5)
+    rows = [f"{k[:-2]},{k[-1]},{v}" for k, v in table.items()]
+    rows += [f"MEAN,U,{_pay(np.full(5, 0.5))}",
+             f"MEAN,I,{_pay(np.full(5, 0.25))}"]
+    d = str(tmp_path / "serving")
+    PJ.Journal(d, "t").append(rows)
+    jobs = [PC.ServingJob(
+        PJ.Journal(d, "t"), STATE, PSH.sharded_parse(PC.parse_als_record,
+                                                     s, 2),
+        PC.MemoryStateBackend(), host="127.0.0.1", port=0,
+        job_id=f"sg@g1:s{s}r0", replica_of=f"sg@g1/shard-{s}",
+        replica_index=0, topology_group="sg", generation=1,
+        topk_index=False).start() for s in range(2)]
+    jobs.append(PC.ServingJob(PJ.Journal(d, "t"), STATE, PC.parse_als_record,
+                              PC.MemoryStateBackend(), host="127.0.0.1",
+                              port=0, job_id="sgd-one",
+                              topk_index=False).start())
+    inp = tmp_path / "updates.tsv"
+    inp.write_text("".join(f"{u}\t{i}\t{r}\n" for u, i, r in _ratings(6, 40)))
+    try:
+        for job in jobs:
+            assert job.wait_ready(30)
+        RR.publish_topology("sg", 2)
+        out = {}
+        for name, mod, P, target in (
+                ("port", PS, Params, ["--group", "sg"]),
+                ("ref", RS, RefParams, ["--group", "sg"]),
+                ("port-job", PS, Params, ["--jobId", "sgd-one"])):
+            jd = str(tmp_path / f"out-{name}")
+            args = ["--input", str(inp), "--mode", "once", "--outputMode",
+                    "kafka", "--journalDir", jd, "--topic", "t",
+                    "--learningRate", "0.05", "--batchSize", "8"] + target
+            assert mod.run(P.from_args(args)) == 40
+            with open(os.path.join(jd, "t.log"), "rb") as f:
+                out[name] = f.read()
+        assert out["port"] == out["ref"] == out["port-job"]
+        assert out["port"].count(b"\n") == 80
+    finally:
+        for job in jobs:
+            job.stop()

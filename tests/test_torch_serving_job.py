@@ -307,11 +307,12 @@ def test_fs_checkpoints_restore_across_packages(tmp_path, writer):
 _REFUSED = [
     ({"native_server": True}, "Arena and native store"),
     ({"table": "arena"}, "Arena and native store"),
-    ({"replica_of": "g/shard-0"}, "Fleet"),
-    ({"replica_index": 1}, "Fleet"),
-    ({"topology_group": "g"}, "Fleet"),
-    ({"generation": 2}, "Fleet"),
 ]
+
+# the fleet's options, refused until the fleet was ported: each job now
+# carries them as the reference's job does
+_FLEET = [{"replica_of": "g/shard-0"}, {"replica_index": 1},
+          {"topology_group": "g"}, {"generation": 2}]
 
 
 @pytest.mark.parametrize("kw,item", _REFUSED)
@@ -324,6 +325,39 @@ def test_left_out_options_are_refused(tmp_path, monkeypatch, kw, item):
         PC.ServingJob(PJ.Journal(str(tmp_path), "t"), STATE,
                       PC.parse_als_record, PC.MemoryStateBackend(),
                       port=0, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", _FLEET)
+def test_fleet_options_run_as_the_reference(tmp_path, monkeypatch, kw):
+    """Each fleet option reaches HEALTH and the registry entry as in the
+    reference's job, which is run with ``TPUMS_TABLE=dict`` (its fleet
+    members default to its arena table, which the port does not have)."""
+    monkeypatch.setenv("TPUMS_REGISTRY_DIR", str(tmp_path / "registry"))
+    monkeypatch.setenv("TPUMS_TABLE", "dict")
+    d = _journal(tmp_path, _model_rows())
+    ref, port = _jobs(d, port_kw=dict(kw, topk_index=False),
+                      ref_kw=dict(kw, topk_index=False, snapshots=False))
+    try:
+        fleet = ("replica_of", "replica", "topology_group", "generation",
+                 "topology_gen")
+        assert {k: port.health()[k] for k in fleet} == \
+            {k: ref.health()[k] for k in fleet}
+        assert port.table_kind == ref.table_kind == "dict"
+        assert dict(port.table.items()) == dict(ref.table.items())
+        from flink_ms_tpu_torch.serve import registry as PR
+
+        # the ready flip reaches the registry after the job's ready event
+        # (the consume thread writes it): poll past that gap
+        _wait_until(lambda: all(PR.resolve(j).get("ready")
+                                for j in ("port-job", "ref-job")))
+        entries = [PR.resolve(j) for j in ("port-job", "ref-job")]
+        assert [{k: e.get(k) for k in ("replica_of", "replica", "ready")}
+                for e in entries] == [{"replica_of": kw.get("replica_of"),
+                                       "replica": kw.get("replica_index"),
+                                       "ready": True}] * 2
+    finally:
+        port.stop()
+        ref.stop()
 
 
 def test_env_flags_and_other_refusals(tmp_path, monkeypatch):
@@ -343,8 +377,12 @@ def test_env_flags_and_other_refusals(tmp_path, monkeypatch):
         return PC.parse_als_record(line)
 
     sharded.shard_filter = (0, 2)
-    with pytest.raises(ValueError, match="'Fleet'"):
-        make(parse=sharded)
+    # a sharded parser is a fleet member's (it used to be refused): the
+    # job snapshots its own slice (built on a stand-in server, no socket)
+    monkeypatch.setattr(PC, "LookupServer",
+                        lambda *a, **k: type("S", (), {"port": 0})())
+    assert make(parse=sharded)._snap_owner == (0, 2)
+    monkeypatch.setattr(PC, "LookupServer", None)
     with open(os.path.join(str(tmp_path), "t.georepl.json"), "w") as f:
         f.write("{}")
     with pytest.raises(ValueError, match="Geo-replication and edge"):
