@@ -3,8 +3,8 @@
 CoCoA SVM training, each through its hand-written CUDA kernels, top-k
 serving of the trained ALS model, staged ALS with resume, the SVM's opt-in
 modes, the model generators, the autopilot's retrain, the multi-rank
-paths over ``torch.distributed``, and the serving job in a process of its
-own.
+paths over ``torch.distributed``, the serving job in a process of its
+own, the serving fleet, and the arena and native store.
 
 Run from the repository root, on a machine with one CUDA card:
 
@@ -19,7 +19,8 @@ Phases, each printing lines of its own (``[smoke] ...``):
 
 1. card   — ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build  — all four CUDA sources built by nvcc from
-            ``flink_ms_tpu_torch/csrc``, in parallel;
+            ``flink_ms_tpu_torch/csrc``, in parallel, and the native
+            library by g++ from ``flink_ms_tpu_torch/native``;
 3. checks — each ALS kernel held against its plain torch version on the card:
             the batched Cholesky solve for k in {1,3,8,16,50,64,100,128} at
             n = 1000 + k and n = 5, on a row-offset slice of a larger batch,
@@ -78,7 +79,9 @@ Phases, each printing lines of its own (``[smoke] ...``):
             product and a top-k): the first TOPK and its build, 256 TOPK
             (k 10, seed 0) unbatched with p50/p99 against a float64 top-k
             (one of them under torch.profiler), how a score's rounding
-            depends on the rows of its product, the same queries through
+            depends on the rows of its product and on a row's place in
+            it, ``topk_many`` frames of 1, 3, 8, 9, 24 and 33 queries
+            equal to ``topk`` bit for bit, the same queries through
             the batcher from 32 threads (equal replies, queries/s), 16
             TOPKV equal to their TOPK twins, 1,000 item rows rewritten in
             place (no rebuild), one new item through a background rebuild
@@ -176,7 +179,29 @@ Phases, each printing lines of its own (``[smoke] ...``):
             update->push latency, the audit again).  Compaction: the
             model published twice into a topic of 16 MiB segments, folded
             by ``python -m flink_ms_tpu_torch.serve.compact``, and a cold
-            job on each topic answering with the same bytes.
+            job on each topic answering with the same bytes;
+18. fleet — phase 17's published topic served by ``--device`` worker
+            processes on the arena table (their default): 2 sharded
+            workers (routing, fan-out TOPK, a SIGKILL and a restart from
+            the checkpoint), 2 shards x 2 replicas under an open-loop
+            stream through a replica's SIGKILL, an elastic group 2 -> 4 ->
+            2 under the stream, and the co-located update plane through a
+            live 2 -> 4 cutover and at 4 shards, audited;
+19. arena — the arena and the native store on the same topic: (a) a
+            one-of-one fleet member on the arena answering 256 TOPK from
+            its index on the card, equal to the dict job's by items and
+            f32 rounding, the arena's size and resident bytes, wire TOPK
+            p50/p99; (b) ``--nativeServer true`` over that arena: GET,
+            MGET and B2 GET p50/p99, host-scored TOPKV against (a)'s
+            lists; (e) an ``arena/1`` snapshot published by hard link and
+            by copy, and a member bootstrapped from it; (c)
+            ``--stateBackend rocksdb --nativeServer true`` (a
+            ``NativeStateBackend``, the native ingest path) and a restart
+            from the store; (d) the update plane at 4 shards on arena
+            members with the in-place CAS: updates/s, publish ->
+            queryable p50/p99, CAS swaps against re-puts, both audits at 0
+            lost and 0 doubled, the duplicate-free rows equal to one
+            ``SGDStep`` run.
 
 Each kernel's ``ms`` is the median over calls timed one CUDA event pair
 each, the wrapper's host work included where it outlasts the device's;
@@ -194,6 +219,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -1374,8 +1400,8 @@ def serve_phase(torch, run, ratings_t, rmse3, dev):
         device_busy(torch, "one unbatched TOPK, ML-20M",
                     lambda: handler(u_ids[qu[1]], TOPK_K))
 
-    # why the exact tier scores every query in a product of at least 8
-    # rows: the rounding of a row's scores by the product's row count
+    # why the exact tier scores every frame in products of exactly 8 rows
+    # on the card: the rounding of a row's scores by the product's rows
     m = index._matrix
     qs = torch.from_numpy(uf[qu[:32]]).to(dev)
     by_frame = {b: torch.cat([qs[lo:lo + b] @ m.T for lo in range(0, 32, b)])
@@ -1384,7 +1410,39 @@ def serve_phase(torch, run, ratings_t, rmse3, dev):
         f"{m.shape[0]} scores that differ from the 8-row product's: "
         + ", ".join(f"{b} rows {(s != by_frame[8]).sum().item()}"
                     for b, s in by_frame.items()))
-    del by_frame
+    # and by a row's place in an 8-row product: each of the 32 queries at
+    # row 0 of a product of 8 copies of itself
+    alone = torch.cat([qs[j:j + 1].repeat(8, 1) @ m.T for j in range(32)])
+    log("serve score rounding by a row's place in its 8-row product: "
+        f"{(alone[::8] != by_frame[8]).sum().item()} of 32 x {m.shape[0]} "
+        "elements differ from the row alone")
+    del by_frame, alone
+    # a query's reply is the same bits whatever frame it rides in
+    frames = {}
+    for b in (1, 3, 8, 9, 24, 33):
+        qf = uf[qu[:b]]
+        frames[b] = sum(x == y for x, y in zip(
+            index.topk_many(qf, TOPK_K), [index.topk(q, TOPK_K)
+                                          for q in qf]))
+    log("serve frames: topk_many replies equal to topk's bit for bit, "
+        "scores included: " + ", ".join(f"{n} of {b}"
+                                        for b, n in frames.items()))
+    check(all(n == b for b, n in frames.items()),
+          "a frame's size changed a reply's bits")
+    if dev.type == "cuda":
+        # what scoring a frame in 8-row products costs against one
+        # product of the whole frame (CUDA events, host work included)
+        from flink_ms_tpu_torch.serve import topk as TK
+
+        q32 = torch.from_numpy(uf[qu[:32]]).to(dev)
+        costs = {name: event_ms(fn, reps=50) for name, fn in (
+            ("lone", lambda: TK._score_frame(q32[:8], m, 1)),
+            ("blocks", lambda: TK._score_frame(q32, m, 32)),
+            ("one", lambda: q32 @ m.T))}
+        log(f"serve frame cost: a lone query's 8-row product "
+            f"{costs['lone']:.4f} ms; a 32-query frame as 4 products of 8 "
+            f"rows {costs['blocks']:.4f} ms against one 32-row product "
+            f"{costs['one']:.4f} ms")
 
     handler.batching = True
     batched = [None] * len(qu)
@@ -3055,8 +3113,6 @@ def compaction_phase(work, journal, u_ids, i_ids, dev) -> dict:
     ``python -m flink_ms_tpu_torch.serve.compact --mode als``, and a cold
     ``ServingJob`` on each topic answering COUNT, 64 MGETs and 64 TOPKs
     with the same bytes."""
-    import shutil
-
     from flink_ms_tpu_torch.core import formats as F
     from flink_ms_tpu_torch.serve import consumer as PC
     from flink_ms_tpu_torch.serve import journal as PJ
@@ -4225,10 +4281,453 @@ def fleet_phase(torch, base, dev) -> dict:
     return out
 
 
+# -- phase 19: the arena and the native store --------------------------------
+
+ARENA_LATENCY_CALLS = 1000    # sequential wire TOPK on the arena member
+ARENA_NATIVE_CALLS = 2000     # GET, MGET and B2 GET each on the native plane
+ARENA_MGET_KEYS = 64          # keys of one MGET
+ARENA_DFREE_RATINGS = 20_000  # duplicate-free, held against one SGDStep run
+ARENA_RATINGS = 200_000       # timed at 4 shards, as phase 18 (d)
+
+
+def arena_dir(run, worker=0, shards=1, replica=0, gen=0) -> str:
+    """A fleet member's arena directory beside the journal."""
+    return run.path("journal", f"{JOB_TOPIC}.arena-{JOB_STATE}-w{worker}"
+                    f"of{shards}-r{replica}-g{gen}")
+
+
+def arena_member(run, label, extra=()):
+    """A one-of-one ``serve.sharded`` worker: a fleet member, so on the
+    arena unless told otherwise -> (process, port, HEALTH at ready,
+    seconds from its spawn to ready, its log)."""
+    t0 = time.perf_counter()
+    proc, pf, log_path = fleet_worker(run.work, 0, 1, run.dev_name, label,
+                                      extra)
+    run.procs.append(proc)
+    port = wait_port_file(proc, pf, log_path)
+    health = wait_health_ready([port], [proc])[0]
+    return proc, port, health, time.perf_counter() - t0, log_path
+
+
+def stop_member(run, proc) -> None:
+    from flink_ms_tpu_torch.serve.sharded import stop_worker_procs
+
+    stop_worker_procs([proc])
+    run.procs.remove(proc)
+
+
+def log_text(path) -> str:
+    with open(path) as f:
+        return f.read()
+
+
+def arena_job(run) -> dict:
+    """(a) a fleet-default member answers TOPK from its index on the card
+    over the arena: the one dict job's replies by items and f32 rounding,
+    the arena's geometry, wire TOPK p50/p99."""
+    from flink_ms_tpu_torch.serve import arena as AR
+    from flink_ms_tpu_torch.serve.client import QueryClient
+
+    base, users = run.base, run.base["users"]
+    proc, port, h, ready_s, log_path = arena_member(run, "arena")
+    text = log_text(log_path)
+    check("table: arena" in text, "the fleet member is not on the arena")
+    reader = AR.attach_reader(arena_dir(run))
+    check(reader is not None, "the member wrote no arena")
+    geom = dict(size_bytes=reader.size_bytes,
+                resident_bytes=reader.resident_bytes(), rows=reader.count,
+                capacity=reader.capacity, stride=reader.stride,
+                key_cap=reader.key_cap, generation=reader.generation)
+    reader.close()
+    with QueryClient("127.0.0.1", port, timeout_s=60) as c:
+        replies = [c._roundtrip(f"TOPK\t{JOB_STATE}\t{u}\t{TOPK_K}")
+                   for u in users]
+        count, mget = c.count(JOB_STATE), c.query_states(JOB_STATE,
+                                                         base["keys"])
+        plane = c.metrics()["meta"]["plane"]
+        rng = np.random.default_rng(3)
+        lat = [users[j] for j in rng.integers(0, len(users),
+                                              ARENA_LATENCY_CALLS)]
+        p50, p99 = latency_ms(lambda j: c._roundtrip(
+            f"TOPK\t{JOB_STATE}\t{lat[j]}\t{TOPK_K}"), len(lat))
+    got = [list(zip(*parse_reply(r[2:]))) for r in replies]
+    msg = fleet_topk_checks(got, run, "arena TOPK")
+    same, worst = 0, 0.0
+    for r, b in zip(replies, base["topk"]):
+        ids, sc = parse_reply(r[2:])
+        bids, bsc = parse_reply(b[2:])
+        if ids == bids:
+            same += 1
+            worst = max(worst, float(np.max(np.abs(np.subtract(sc, bsc)) /
+                                            np.maximum(np.abs(bsc), 1e-30))))
+    stop_member(run, proc)
+    log(f"arena (a) a one-of-one fleet member ({run.dev_name}) on the "
+        f"arena (its log: table: arena), plane {plane}: ready "
+        f"{ready_s:.2f}s after its spawn, bootstrap "
+        f"{h['bootstrap_seconds']:.3f}s from the {h['bootstrap_source']}; "
+        f"arena {geom['rows']} rows, capacity {geom['capacity']}, stride "
+        f"{geom['stride']}, key_cap {geom['key_cap']}, generation "
+        f"{geom['generation']}, size_bytes {geom['size_bytes']}, "
+        f"resident_bytes {geom['resident_bytes']}; COUNT {count} (the dict "
+        f"job's {base['count']}), MGET of {len(base['keys'])} keys equal: "
+        f"{mget == base['mget']}; {len(users)} TOPK k={TOPK_K}: {msg}; "
+        f"{same} with the dict job's items, their scores within "
+        f"{worst:.3e} relative; {len(lat)} sequential TOPK p50 {p50:.4f} "
+        f"ms, p99 {p99:.4f} ms (the dict job's p50 "
+        f"{base['wire_p50_ms']:.4f} ms)")
+    check(plane == "python" and count == base["count"] == len(run.rows)
+          and mget == base["mget"], "the arena member serves other rows")
+    check(worst <= 1e-6, f"arena TOPK scores off by {worst} relative")
+    return dict(replies=replies, ready_s=ready_s,
+                bootstrap_s=h["bootstrap_seconds"], topk_p50_ms=p50,
+                topk_p99_ms=p99, **geom)
+
+
+def arena_native(run, a) -> dict:
+    """(b) ``--nativeServer true`` over the same arena directory: GET,
+    MGET and B2 GET p50/p99, TOPKV p50; the host-scored TOPKV lists
+    against (a)'s by items and f32 rounding, near ties counted."""
+    from flink_ms_tpu_torch.serve.client import QueryClient
+
+    base, users, keys = run.base, run.base["users"], run.base["keys"]
+    proc, port, h, ready_s, log_path = arena_member(
+        run, "arena-native", ["--nativeServer", "true"])
+    check("table: arena" in log_text(log_path),
+          "the native member is not on the arena")
+    rng = np.random.default_rng(4)
+    get_keys = [keys[j] for j in rng.integers(0, len(keys),
+                                              ARENA_NATIVE_CALLS)]
+    mget_keys = [[keys[j] for j in rng.integers(0, len(keys),
+                                                ARENA_MGET_KEYS)]
+                 for _ in range(ARENA_NATIVE_CALLS)]
+    with QueryClient("127.0.0.1", port, timeout_s=60) as c:
+        plane = c.metrics()["meta"]["plane"]
+        count, mget = c.count(JOB_STATE), c.query_states(JOB_STATE, keys)
+        get = latency_ms(lambda j: c.query_state(JOB_STATE, get_keys[j]),
+                         len(get_keys))
+        mg = latency_ms(lambda j: c.query_states(JOB_STATE, mget_keys[j]),
+                        len(mget_keys))
+        vec = [None] * len(users)
+
+        def topkv(j):
+            vec[j] = c._roundtrip(f"TOPKV\t{JOB_STATE}\t{TOPK_K}\t"
+                                  f"{run.rows[users[j] + '-U']}")
+
+        tv = latency_ms(topkv, len(users))
+    with QueryClient("127.0.0.1", port, timeout_s=60, proto="b2") as c:
+        b2 = latency_ms(lambda j: c.query_state(JOB_STATE, get_keys[j]),
+                        len(get_keys))
+    stop_member(run, proc)
+    same = ties = 0
+    worst = 0.0
+    for j, (r, ra) in enumerate(zip(vec, a["replies"])):
+        ids, sc = parse_reply(r[2:])
+        aids, asc = parse_reply(ra[2:])
+        check(topk_agrees([run.col_of[i] for i in ids], run.s64[j],
+                          TOPK_K)[0],
+              "a native TOPKV list is off the float64 top-k")
+        if ids == aids:
+            same += 1
+            worst = max(worst, float(np.max(np.abs(np.subtract(sc, asc)) /
+                                            np.maximum(np.abs(asc), 1e-30))))
+        else:
+            ties += 1  # agrees with float64: differs at a near tie
+    log(f"arena (b) --nativeServer true over the arena: plane {plane}, "
+        f"ready {ready_s:.2f}s after its spawn; COUNT {count}, MGET equal "
+        f"to the dict job's: {mget == base['mget']}; {len(get_keys)} GET "
+        f"p50 {get[0]:.4f} / p99 {get[1]:.4f} ms, MGET of {ARENA_MGET_KEYS} "
+        f"keys p50 {mg[0]:.4f} / p99 {mg[1]:.4f} ms, B2 GET p50 "
+        f"{b2[0]:.4f} / p99 {b2[1]:.4f} ms; {len(users)} TOPKV k={TOPK_K} "
+        f"(host-scored) p50 {tv[0]:.4f} ms, p99 {tv[1]:.4f} ms: {same} "
+        f"lists equal (a)'s from its index (scores within {worst:.3e} "
+        f"relative), {ties} differ at a near tie, every list agrees with a "
+        f"float64 top-k")
+    check(plane == "native" and count == base["count"]
+          and mget == base["mget"], "the native plane serves other rows")
+    check(worst <= 1e-5, f"native TOPKV scores off by {worst} relative")
+    return dict(native_get_p50_ms=get[0], native_get_p99_ms=get[1],
+                native_mget_p50_ms=mg[0], native_mget_p99_ms=mg[1],
+                native_b2_p50_ms=b2[0], native_b2_p99_ms=b2[1],
+                native_topkv_p50_ms=tv[0], native_topkv_same=same,
+                native_topkv_ties=ties)
+
+
+def arena_snapshot(run) -> dict:
+    """(e) ``arena/1`` publish of (a)'s arena (a hard link, then a copy),
+    and a second member, on an arena of its own, bootstrapped from it."""
+    from flink_ms_tpu_torch.serve import arena as AR
+    from flink_ms_tpu_torch.serve import snapshot as SNAP
+    from flink_ms_tpu_torch.serve.client import QueryClient
+
+    base = run.base
+    root = SNAP.snapshot_root(run.path("journal"), JOB_TOPIC)
+    offset = run.journal.end_offset()
+    table = AR.ArenaModelTable(8, dir=arena_dir(run))
+    times, manifests = {}, {}
+    try:
+        check(len(table) == len(run.rows), "the arena lost rows")
+        for mode in ("link", "copy"):
+            table.publish_mode = mode
+            t0 = time.perf_counter()
+            manifests[mode] = SNAP.publish(root, table, offset, shard=0,
+                                           num_shards=1, topic=JOB_TOPIC)
+            times[mode] = time.perf_counter() - t0
+    finally:
+        table.close()
+    m = manifests["copy"]
+    proc, port, h, ready_s, _ = arena_member(
+        run, "arena-boot", ["--replicaIndex", "1", "--jobGroup", "boot"])
+    with QueryClient("127.0.0.1", port, timeout_s=60) as c:
+        count, mget = c.count(JOB_STATE), c.query_states(JOB_STATE,
+                                                         base["keys"])
+        topk = [c._roundtrip(f"TOPK\t{JOB_STATE}\t{u}\t{TOPK_K}")
+                for u in base["users"][:16]]
+    stop_member(run, proc)
+    log(f"arena (e) arena/1 publish of {m['rows']} rows: link "
+        f"{times['link']:.4f}s ({manifests['link']['arena']['bytes_copied']}"
+        f" bytes written), copy {times['copy']:.3f}s ("
+        f"{m['arena']['bytes_copied']} of {m['arena']['size']} bytes "
+        f"written); a second member bootstrapped from the "
+        f"{h['bootstrap_source']} in {h['bootstrap_seconds']:.3f}s, ready "
+        f"{ready_s:.2f}s after its spawn; COUNT {count}, MGET and 16 TOPK "
+        f"equal to the dict job's: {mget == base['mget']}, "
+        f"{topk == base['topk'][:16]}")
+    check(m["format"] == SNAP.ARENA_FORMAT and m["rows"] == len(run.rows),
+          f"the arena/1 manifest {m}")
+    check(h["bootstrap_source"] == "snapshot" and count == base["count"]
+          and mget == base["mget"],
+          f"the member did not bootstrap from the arena/1 snapshot: {h}")
+    # the members' arenas are done with: keep the host's disk bounded
+    shutil.rmtree(arena_dir(run, replica=1))
+    shutil.rmtree(arena_dir(run))
+    return dict(publish_link_s=times["link"], publish_copy_s=times["copy"],
+                snapshot_bootstrap_s=h["bootstrap_seconds"],
+                snapshot_ready_s=ready_s)
+
+
+def arena_rocksdb(run) -> dict:
+    """(c) ``--stateBackend rocksdb --nativeServer true``: the native
+    store's table, ingested natively, then a restart from the store."""
+    from flink_ms_tpu_torch.serve.client import QueryClient
+    from flink_ms_tpu_torch.serve.consumer import (ServingJob, make_backend,
+                                                   parse_als_record)
+    from flink_ms_tpu_torch.serve.journal import Journal
+
+    base, store = run.base, run.path("store")
+
+    def start():
+        backend = make_backend("rocksdb", store)
+        check(type(backend).__name__ == "NativeStateBackend",
+              f"rocksdb gave {type(backend).__name__}")
+        t0 = time.perf_counter()
+        job = ServingJob(Journal(run.path("journal"), JOB_TOPIC), JOB_STATE,
+                         parse_als_record, backend, host="127.0.0.1",
+                         port=0, native_server=True, poll_interval_s=0.01,
+                         checkpoint_interval_ms=500, job_id="arena-rocksdb",
+                         device=run.dev_name).start()
+        check(job.wait_ready(FLEET_WAIT_S), "the rocksdb job was not ready")
+        return job, time.perf_counter() - t0
+
+    job, ready_s = start()
+    try:
+        path, rows = job.ingest_path, job.ingest_rows
+        wait_until(lambda: job.backend.restore(job.table) == job.offset,
+                   "the rocksdb checkpoint")
+        with QueryClient("127.0.0.1", job.port, timeout_s=60) as c:
+            count, mget = c.count(JOB_STATE), c.query_states(JOB_STATE,
+                                                             base["keys"])
+        n_rows = len(job.table)
+        log_b, live_b = job.backend.store.log_bytes, \
+            job.backend.store.live_bytes
+    finally:
+        job.stop()
+    check(path == "native" and rows >= len(run.rows),
+          f"the rocksdb job ingested on the {path} path")
+    # the native COUNT counts every key of the store, the checkpoint's
+    # offset marker too, as the reference's does
+    check(n_rows == base["count"] and count == n_rows + 1
+          and mget == base["mget"], f"the rocksdb job serves other rows: "
+          f"{n_rows} rows, COUNT {count}, MGET equal {mget == base['mget']}")
+    job, restart_s = start()
+    try:
+        with QueryClient("127.0.0.1", job.port, timeout_s=60) as c:
+            count2, mget2 = c.count(JOB_STATE), c.query_states(JOB_STATE,
+                                                               base["keys"])
+        src, replayed = job.bootstrap_source, job.ingest_rows
+    finally:
+        job.stop()
+    log(f"arena (c) --stateBackend rocksdb --nativeServer true: a "
+        f"NativeStateBackend, ingest path {path} ({rows} rows), ready "
+        f"{ready_s:.2f}s after its start; {n_rows} rows, COUNT {count}, "
+        f"MGET equal: "
+        f"{mget == base['mget']}; store log {log_b} bytes, live {live_b}; "
+        f"the restart from the store ready in {restart_s:.3f}s from the "
+        f"{src}, {replayed} rows replayed, COUNT {count2} (the rows and "
+        f"the offset marker), MGET equal: "
+        f"{mget2 == base['mget']}")
+    check(src == "checkpoint" and replayed == 0 and count2 == count
+          and mget2 == base["mget"], "the rocksdb restart replayed or lost "
+          "rows")
+    shutil.rmtree(store)
+    return dict(rocksdb_ready_s=ready_s, rocksdb_restart_s=restart_s,
+                rocksdb_log_bytes=log_b, rocksdb_live_bytes=live_b)
+
+
+def arena_updates(run) -> dict:
+    """(d) the co-located update plane at 4 shards on arena members with
+    the in-place CAS on: duplicate-free ratings held against one
+    ``SGDStep`` run, then ``ARENA_RATINGS`` timed; audits, publish ->
+    queryable, CAS swaps against re-puts."""
+    from flink_ms_tpu_torch.obs.scrape import scrape_fleet
+    from flink_ms_tpu_torch.online.sgd import SGDStep
+    from flink_ms_tpu_torch.serve import update_plane as UP
+    from flink_ms_tpu_torch.serve.elastic import ScaleController
+    from flink_ms_tpu_torch.serve.table import ModelTable
+
+    rows, jdir = run.rows, run.path("journal")
+    check(os.environ.get("TPUMS_ARENA_CAS", "1") != "0",
+          "TPUMS_ARENA_CAS=0 turns the CAS off")
+    ctl = ScaleController(
+        "arena-upd", jdir, JOB_TOPIC, port_dir=run.path("ports-au"),
+        ready_timeout_s=FLEET_WAIT_S, device=run.dev_name,
+        extra_args=["--updatePlane", "true", "--updatePartitions",
+                    str(FLEET_PARTITIONS), "--updateBatch", str(FLEET_BATCH),
+                    "--pollInterval", "0.005"])
+    run.ctls.append(ctl)
+    t0 = time.perf_counter()
+    ctl.scale_to(4)
+    ready_s = time.perf_counter() - t0
+    members = sorted(d for d in os.listdir(jdir)
+                     if ".arena-" in d and "of4-" in d)
+    ucli = UP.UpdatePlaneClient(jdir, JOB_TOPIC, partitions=FLEET_PARTITIONS)
+    u_all = np.asarray([int(k[:-2]) for k in rows
+                        if k.endswith("-U") and k != "MEAN-U"])
+    i_all = np.asarray([int(i) for i in run.item_ids if i != "MEAN"])
+    rng = np.random.default_rng(24)
+    n = ARENA_DFREE_RATINGS
+    dfree = list(zip(rng.choice(u_all, n, replace=False).tolist(),
+                     rng.choice(i_all, n, replace=False).tolist(),
+                     np.round(rng.uniform(1.0, 5.0, n), 3).tolist()))
+
+    def drained(total):
+        return lambda: sum(UP.applied_watermarks(
+            jdir, JOB_TOPIC, FLEET_PARTITIONS).values()) >= total
+
+    def cas():
+        snap = scrape_fleet()["fleet"]
+        return (metric_sum(snap, "counters", "tpums_arena_cas_success_total"),
+                metric_sum(snap, "counters", "tpums_arena_cas_retry_total"))
+
+    for s in range(0, n, 2_000):
+        ucli.submit_many(dfree[s:s + 2_000])
+    ucli.sync()
+    wait_until(drained(n), "the duplicate-free ratings' apply records")
+    audit1 = UP.audit_partitions(jdir, JOB_TOPIC, FLEET_PARTITIONS)
+    applied = applied_rows(run)
+    table = ModelTable()
+    table.put_many(list(rows.items()))
+    step = SGDStep(table.get, rows["MEAN-U"], rows["MEAN-I"],
+                   lookup_many=lambda ks: [table.get(k) for k in ks])
+    want = []
+    for s in range(0, n, FLEET_BATCH):
+        want.extend(step.process_batch(dfree[s:s + FLEET_BATCH]))
+    same = sorted(applied) == sorted(want)
+    check(audit1["lost"] == 0 and audit1["duplicates"] == 0
+          and audit1["submitted"] == n, f"the update plane audit {audit1}")
+    check(same and len(applied) == 2 * n,
+          "the plane's rows differ from one SGDStep run")
+
+    rng = np.random.default_rng(23)
+    fleet_r = list(zip(
+        u_all[rng.integers(0, len(u_all), ARENA_RATINGS)].tolist(),
+        i_all[rng.integers(0, len(i_all), ARENA_RATINGS)].tolist(),
+        np.round(rng.uniform(1.0, 5.0, ARENA_RATINGS), 3).tolist()))
+    total = n + ARENA_RATINGS
+    snap0 = scrape_fleet()["fleet"]
+    cas0 = cas()
+    rows0 = len(applied)
+    t0 = time.perf_counter()
+    for s in range(0, ARENA_RATINGS, 2_000):
+        ucli.submit_many(fleet_r[s:s + 2_000])
+    ucli.sync()
+    drain_s = wait_until(drained(total), "the timed ratings' apply records")
+    upd_s = time.perf_counter() - t0
+    time.sleep(0.5)  # the last visibility probes land in the histograms
+    vis = fleet_visibility(snap0, scrape_fleet()["fleet"])
+    cas1 = cas()
+    audit = UP.audit_partitions(jdir, JOB_TOPIC, FLEET_PARTITIONS)
+    direct = len(applied_rows(run)) - rows0
+    swaps, drift = cas1[0] - cas0[0], cas1[1] - cas0[1]
+    ctl.stop(drop_topology=True)
+    run.ctls.remove(ctl)
+    for d in members:
+        shutil.rmtree(os.path.join(jdir, d))
+    log(f"arena (d) update plane at 4 shards on arena members ({members}), "
+        f"CAS on, {FLEET_PARTITIONS} partitions, batch {FLEET_BATCH}: ready "
+        f"{ready_s:.2f}s after scale_to; {n} duplicate-free ratings (seed "
+        f"24): audit {audit1['submitted']} submitted, {audit1['lost']} "
+        f"lost, {audit1['duplicates']} doubled, the {len(applied)} rows of "
+        f"the apply records equal one SGDStep run byte for byte: {same}; "
+        f"{ARENA_RATINGS} ratings (seed 23): {ARENA_RATINGS / upd_s:.0f} "
+        f"updates/s ({upd_s:.2f}s; {drain_s:.2f}s after the last submit); "
+        f"publish->queryable p50 {vis['p50_ms']:.3f} ms, p99 "
+        f"{vis['p99_ms']:.3f} ms over {vis['n']} probes; {direct} rows "
+        f"written in place: {swaps:.0f} CAS swaps, {direct - swaps:.0f} "
+        f"re-puts ({drift:.0f} of them after a drifted compare); audit "
+        f"{audit['submitted']} submitted, {audit['lost']} lost, "
+        f"{audit['duplicates']} doubled")
+    check(audit["lost"] == 0 and audit["duplicates"] == 0
+          and audit["submitted"] == total, f"the update plane audit {audit}")
+    check(swaps > 0, "no row was swapped in place by the CAS")
+    return dict(arena_ready_4_s=ready_s, arena_updates_per_s=ARENA_RATINGS
+                / upd_s, arena_visibility_p50_ms=vis["p50_ms"],
+                arena_visibility_p99_ms=vis["p99_ms"], cas_swaps=swaps,
+                cas_reputs=direct - swaps)
+
+
+def arena_phase(torch, base, dev) -> dict:
+    """Phase 19: the arena and the native store on phase 17's published
+    topic, every member a ``--device`` process on this card: (a) a
+    fleet-default member on the arena answering TOPK from its index, (b)
+    ``--nativeServer true`` over that arena, (e) ``arena/1`` publish and a
+    bootstrap from it, (c) ``--stateBackend rocksdb --nativeServer true``
+    and a restart from the store, (d) the update plane at 4 shards on
+    arena members with the in-place CAS."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    prior = {k: os.environ.get(k)
+             for k in list(FLEET_ENV) + ["TPUMS_REGISTRY_DIR", "TPUMS_TABLE"]}
+    out = {}
+    with tempfile.TemporaryDirectory() as work:
+        os.environ.update(FLEET_ENV)
+        os.environ["TPUMS_REGISTRY_DIR"] = os.path.join(work, "registry")
+        os.environ.pop("TPUMS_TABLE", None)
+        run = None
+        try:
+            run = FleetRun(work, base, dev)
+            a = arena_job(run)
+            out.update({k: v for k, v in a.items() if k != "replies"})
+            out.update(arena_native(run, a))
+            out.update(arena_snapshot(run))
+            out.update(arena_rocksdb(run))
+            out.update(arena_updates(run))
+        finally:
+            if run is not None:
+                run.close()
+            for k, v in prior.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    log(f"arena phase: {time.perf_counter() - t_phase:.1f}s")
+    return out
+
+
 def main(argv=None) -> int:
     import torch
 
-    argv = sys.argv[1:] if argv is None else argv
+    argv = [] if argv is None else list(argv)
     if not torch.cuda.is_available():
         print("[smoke] CUDA is not available: nothing to drive",
               file=sys.stderr)
@@ -4259,6 +4758,15 @@ def main(argv=None) -> int:
         f"{name} {r['seconds']:.2f}s{' (cached)' if r['cached'] else ''}"
         for name, r in built.items())
         + f"; {time.perf_counter() - t0:.2f}s wall, in parallel")
+    # the native store, lookup server and arena writer (phases 18-19),
+    # built once here by g++ rather than by the first fleet member
+    from flink_ms_tpu_torch.native import _build as native_build
+
+    t0 = time.perf_counter()
+    cached = native_build.library_path().exists()
+    lib = native_build.build()
+    log(f"build: native library {lib.name} "
+        f"{'(cached) ' if cached else ''}{time.perf_counter() - t0:.2f}s")
 
     t0 = time.perf_counter()
     users, items, ratings = synth_ratings(N_USERS, N_ITEMS, NNZ, seed=0)
@@ -4336,6 +4844,7 @@ def main(argv=None) -> int:
     job = serving_job_phase(torch, final["model"], (users, items, ratings),
                             serve["p50_ms"], dev)
     fleet_phase(torch, job["fleet_base"], dev)
+    arena_phase(torch, job["fleet_base"], dev)
     for e, key in zip(entries[:3], ("cholesky", "cholesky_batch_major",
                                     "assembly")):
         e["launches_by_path"]["als_staged"] = staged[key]
@@ -4361,7 +4870,7 @@ def main(argv=None) -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        sys.exit(main(sys.argv[1:]))
     except SmokeFailure as e:
         log(f"FAIL: {e}")
         sys.exit(1)

@@ -197,6 +197,25 @@ def parse_svm_range_row(line: str) -> Tuple[int, List[Tuple[int, float]]]:
     return int(bucket_s), list(zip(idx.tolist(), w.tolist()))
 
 
+def read_svm_model(path: str, n_features: int = 0,
+                   partitioned: bool = False) -> np.ndarray:
+    """Read flat (``featureIndex,weight``) or range-partitioned
+    (``bucket,idx:w;...``) SVM rows into a dense 0-based float64 weight
+    vector of at least ``n_features`` entries."""
+    entries: List[Tuple[int, float]] = []
+    for line in iter_lines(path):
+        if partitioned:
+            _, es = parse_svm_range_row(line)
+            entries.extend(es)
+        else:
+            entries.append(parse_svm_flat_row(line))
+    nf = max([n_features] + [i for i, _ in entries])
+    w = np.zeros(nf, dtype=np.float64)
+    for idx1, v in entries:
+        w[idx1 - 1] = v
+    return w
+
+
 def sort_dedup_last(idx: np.ndarray, w: np.ndarray) -> Tuple[np.ndarray,
                                                              np.ndarray]:
     """Ascending-sort (idx, w) pairs, resolving duplicate ids LAST-wins —

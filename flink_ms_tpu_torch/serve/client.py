@@ -692,6 +692,19 @@ class QueryClient:
 
         return json.loads(reply[2:])
 
+    def topology(self, name: str) -> dict:
+        """The elastic fields of HEALTH: the worker's topology group, the
+        generation it was launched into, and the group's ACTIVE generation
+        as the worker last observed it.  ``topology_gen > generation`` is
+        the generation-changed hint: the client should re-resolve the
+        topology record (``serve/elastic.py``)."""
+        report = self.health(name)
+        return {
+            "topology_group": report.get("topology_group"),
+            "generation": report.get("generation"),
+            "topology_gen": report.get("topology_gen"),
+        }
+
     def metrics(self) -> dict:
         """The server process's full metrics snapshot (the METRICS verb):
         counters/gauges/histograms as the ``obs.metrics`` snapshot schema."""

@@ -16,13 +16,27 @@ with the reference's operational envelope:
 - fixed-delay restart (3 attempts, 10 s, :48-51): the consume loop runs
   under a supervisor that restores the last checkpoint and replays the
   journal from its offset (at-least-once; duplicates are last-writer-wins);
-- state backends (:53-65): ``memory`` (snapshots held in RAM) and ``fs``
+- state backends (:53-65): ``memory`` (snapshots held in RAM), ``fs``
   (``ModelTable.snapshot`` directories under ``--checkpointDataUri``, the
-  JAX package's files, so either package restores the other's);
+  JAX package's files, so either package restores the other's) and
+  ``rocksdb`` (the C++ persistent store of ``serve/native_store.py``, whose
+  table is the store itself: a checkpoint is a flush and an offset marker;
+  when the library cannot be built the job falls back to ``fs`` with a
+  message, as the reference does);
+- tables (``--table`` / ``TPUMS_TABLE``): ``dict`` (the in-RAM sharded
+  ``ModelTable``, or the rocksdb backend's own table) or ``arena`` (the
+  shared-memory ``serve/arena.py`` table under
+  ``<journalDir>/<topic>.arena-<state>-w<i>of<n>-r<r>-g<g>``, which the
+  native server and the snapshotter read in place).  Fleet members (a
+  ``shard_filter``, ``replica_of``, ``topology_group`` or ``generation``)
+  default to the arena unless ``TPUMS_TABLE=dict``; standalone jobs keep
+  the dict table.  The job prints its table kind at start;
 - ingest (``TPUMS_INGEST_MODE`` / ``--ingestMode``): ``columnar`` splits
   whole byte chunks with numpy and applies them with
   ``put_many_columns``; ``scalar`` parses line by line; ``auto`` picks
-  columnar whenever the parser has a columnar mode;
+  columnar whenever the parser has a columnar mode; a rocksdb table with
+  no change listeners takes the ``native`` path instead (one C++ call
+  parses and stores a whole chunk, ``tpums_ingest_buf``);
 - readiness: the job reports ``replaying`` until it has consumed the
   backlog that existed when it came up, then ``ready`` (HEALTH, and the
   registry entry it heartbeats every ``TPUMS_HEARTBEAT_S``);
@@ -50,20 +64,13 @@ For the ALS state the lookup server's TOPK/TOPKV run on the device-resident
 factor index of ``serve/topk.py`` on ``device`` (default ``cuda``; no
 fallback: a job asking for CUDA on a host without it raises before any
 socket opens).  ``topk_index=False`` (``--topkIndex false``) serves without
-it and needs no device.
+it and needs no device.  ``--nativeServer true`` serves from the C++ epoll
+server instead, over the rocksdb store or the arena, which answers
+TOPK/TOPKV on the host as the reference's does, and needs no device.
 
-Fleet members keep the dict ``ModelTable``: the reference defaults them
-to its arena table (``TPUMS_TABLE=dict`` opts out there), which the port
-does not have yet.  Served replies are equal either way (both tables are
-last-writer-wins over the same journal); the files on disk differ (the
-reference's ``<topic>.arena-*`` dirs and ``arena/1`` snapshots).  The job
-prints its table kind at start.
-
-What the reference does beyond this is refused with a ``ValueError`` naming
-its ROADMAP.md item (Queue 1), never ignored: the native server
-(``--nativeServer``), the arena table (``--table arena`` /
-``TPUMS_TABLE=arena``) and the ``rocksdb`` backend (item 'Arena and native
-store'); and geo-replication followers (item 'Geo-replication and edge').
+A geo-replication follower (a journal with ``<topic>.georepl.json``) is
+refused with a ``ValueError`` naming its ROADMAP.md item (Queue 1, item
+'Geo-replication and edge'), never ignored.
 
 Key derivation:
 - ALS rows ``id,T,factors`` -> key ``"<id>-<T>"`` (ALSKafkaConsumer.java:75-82)
@@ -73,6 +80,7 @@ Key derivation:
 
 from __future__ import annotations
 
+import json
 import os
 import sys
 import tempfile
@@ -115,6 +123,10 @@ def parse_svm_record(line: str) -> Tuple[str, str]:
 # scalar per-line path.
 parse_als_record.columnar_mode = CHUNK_ALS
 parse_svm_record.columnar_mode = CHUNK_SVM
+# native bulk-ingest modes (``tpums_ingest_buf`` mirrors the two parsers
+# byte for byte)
+parse_als_record.native_mode = 0
+parse_svm_record.native_mode = 1
 
 
 # ---------------------------------------------------------------------------
@@ -131,6 +143,13 @@ class MemoryStateBackend:
         self._snap: Optional[Tuple[int, List[dict]]] = None
 
     def snapshot(self, table: ModelTable, offset: int) -> None:
+        if not hasattr(table, "_shards"):
+            # arena table: the rows live in the mapped file and survive a
+            # consume-loop restart on their own, so the offset marker is
+            # the whole snapshot (replay from it is last-writer-wins)
+            table.flush()
+            self._snap = (offset, None)
+            return
         with table._lock:
             self._snap = (offset, [dict(s) for s in table._shards])
 
@@ -138,6 +157,8 @@ class MemoryStateBackend:
         if self._snap is None:
             return None
         offset, shards = self._snap
+        if shards is None:
+            return offset
         with table._lock:
             table._shards = [dict(s) for s in shards]
             table.version += 1
@@ -168,27 +189,44 @@ def make_backend(kind: str, checkpoint_uri: Optional[str]):
             raise ValueError("fs state backend requires --checkpointDataUri")
         return FsStateBackend(checkpoint_uri)
     if kind == "rocksdb":
-        raise ValueError(not_ported("the rocksdb state backend",
-                                    "Arena and native store")
-                         + "; use --stateBackend fs")
-    raise ValueError(f"unknown state backend: {kind} (use fs|memory)")
+        if not checkpoint_uri:
+            raise ValueError(
+                "rocksdb state backend requires --checkpointDataUri")
+        from .native_store import NativeStateBackend, StoreLockedError
+
+        try:
+            return NativeStateBackend(checkpoint_uri)
+        except StoreLockedError:
+            # another serving job owns this store: fs snapshots in the same
+            # dir would silently fork the state
+            raise
+        except Exception as e:
+            # no compiler or a failed build: fs snapshots still keep the
+            # checkpoint contract
+            print(f"[serve] native store unavailable ({e}); rocksdb mode "
+                  "falling back to fs snapshots", file=sys.stderr)
+            return FsStateBackend(checkpoint_uri)
+    raise ValueError(
+        f"unknown state backend: {kind} (use rocksdb|fs|memory)")
 
 
-def _refuse_unported(journal: Journal, native_server, table) -> None:
-    """Raise for every option of the reference's job that the port does
-    not have (module docstring)."""
-    if native_server:
-        raise ValueError(not_ported("the native lookup server "
-                                    "(--nativeServer true)",
-                                    "Arena and native store"))
+def _select_table(table: Optional[str], fleet: bool, backend) -> str:
+    """``--table`` / ``TPUMS_TABLE``, else the default: the arena for a
+    fleet member, unless the backend brings its own durable table
+    (rocksdb), and the dict table for a standalone job."""
     if table is None:
         table = os.environ.get("TPUMS_TABLE")
-    if table not in (None, "dict"):
-        if table == "arena":
-            raise ValueError(not_ported("the arena table (--table arena, "
-                                        "TPUMS_TABLE=arena)",
-                                        "Arena and native store"))
+    if table is None:
+        table = ("arena" if fleet and not hasattr(backend, "make_table")
+                 else "dict")
+    if table not in ("dict", "arena"):
         raise ValueError("table must be dict|arena")
+    return table
+
+
+def _refuse_unported(journal: Journal) -> None:
+    """Raise for the option of the reference's job that the port does not
+    have (module docstring)."""
     if os.path.exists(os.path.join(journal.dir,
                                    f"{journal.topic}.georepl.json")):
         raise ValueError(not_ported(
@@ -245,8 +283,13 @@ class ServingJob:
             ingest_mode = os.environ.get("TPUMS_INGEST_MODE", "auto")
         if ingest_mode not in ("auto", "columnar", "scalar"):
             raise ValueError("ingest_mode must be auto|columnar|scalar")
-        _refuse_unported(journal, native_server, table)
-        with_index = state_name == ALS_STATE and topk_index
+        _refuse_unported(journal)
+        _sf = getattr(parse_fn, "shard_filter", None)
+        self.table_kind = _select_table(
+            table, _sf is not None or replica_of is not None
+            or topology_group is not None or generation is not None, backend)
+        with_index = (state_name == ALS_STATE and topk_index
+                      and not native_server)
         self.device = resolve_device(device) if with_index else None
         self.ingest_mode = ingest_mode
         self.journal = journal
@@ -254,8 +297,26 @@ class ServingJob:
         self.host = host
         self.parse_fn = parse_fn
         self.backend = backend
-        self.table_kind = "dict"
-        self.table = ModelTable(n_shards)
+        # snapshot-shipped bootstrap (serve/snapshot.py): a sharded worker
+        # snapshots and restores its own slice; a standalone job owns the
+        # whole key space, shard 0 of 1
+        self._snap_owner = (int(_sf[0]), int(_sf[1])) if _sf else (0, 1)
+        if self.table_kind == "arena":
+            from .arena import ArenaModelTable
+
+            # one writer per arena (flock): the dir names every axis a
+            # fleet multiplies on over a shared journal
+            arena_dir = os.path.join(
+                journal.dir, "{}.arena-{}-w{}of{}-r{}-g{}".format(
+                    journal.topic, state_name, self._snap_owner[0],
+                    self._snap_owner[1], replica_index or 0,
+                    generation or 0))
+            self.table = ArenaModelTable(n_shards, dir=arena_dir)
+        elif hasattr(backend, "make_table"):
+            # the rocksdb backend's durable table
+            self.table = backend.make_table(n_shards)
+        else:
+            self.table = ModelTable(n_shards)
         self.checkpoint_interval_s = checkpoint_interval_ms / 1000.0
         self.poll_interval_s = poll_interval_s
         self.job_id = job_id or uuid.uuid4().hex
@@ -281,14 +342,12 @@ class ServingJob:
         self.ingest_apply_s = 0.0
         self.checkpoints = 0
         self.checkpoints_deferred = 0
-        # snapshot-shipped bootstrap (serve/snapshot.py): a sharded worker
-        # snapshots and restores its own slice; a standalone job owns the
-        # whole key space, shard 0 of 1
-        _sf = getattr(parse_fn, "shard_filter", None)
-        self._snap_owner = (int(_sf[0]), int(_sf[1])) if _sf else (0, 1)
+        # the rocksdb table is its own durable O(state) artifact, so
+        # snapshots apply to the dict and arena tables only
         if snapshots is None:
             snapshots = os.environ.get("TPUMS_SNAPSHOTS", "1") != "0"
-        self._snapshots_on = bool(snapshots)
+        self._snapshots_on = bool(snapshots) and (
+            hasattr(self.table, "_shards") or self.table_kind == "arena")
         self._snap_root = snapshot_mod.snapshot_root(journal.dir,
                                                      journal.topic)
         if snapshot_min_bytes is None:
@@ -364,20 +423,47 @@ class ServingJob:
         self._hb_thread: Optional[threading.Thread] = None
         self._last_checkpoint = 0.0
         self._ready_target = 0
-        topk_handlers = {}
-        if with_index:
-            from .topk import make_als_topk_handler
+        self._native_arena = None
+        if native_server:
+            # the C++ epoll data plane reads the rocksdb store, or maps the
+            # arena read-only; TOPK/TOPKV score the "-I" rows on the host
+            from .native_store import NativeLookupServer
 
-            topk_handlers[state_name] = make_als_topk_handler(
-                self.table, device=self.device)
-        self.server = LookupServer(
-            {state_name: self.table},
-            host=host,
-            port=port,
-            job_id=self.job_id,
-            topk_handlers=topk_handlers,
-            health_fn=self.health,
-        )
+            if self.table_kind == "arena":
+                from .native_store import NativeArena
+
+                self._native_arena = NativeArena(self.table.dir)
+                serve_handle = self._native_arena
+            elif hasattr(backend, "store"):
+                serve_handle = backend.store
+            else:
+                raise ValueError(
+                    "--nativeServer needs the native (rocksdb) store or the "
+                    f"arena table, but the active backend is "
+                    f"'{backend.kind}' with the {self.table_kind} table: "
+                    "pass --stateBackend rocksdb or --table arena, and if "
+                    "you did, the native store failed to load (see the "
+                    "message above)")
+            self.server = NativeLookupServer(
+                serve_handle, state_name, job_id=self.job_id, host=host,
+                port=port,
+                topk_suffixes=("-I", "-U") if state_name == ALS_STATE
+                else None)
+        else:
+            topk_handlers = {}
+            if with_index:
+                from .topk import make_als_topk_handler
+
+                topk_handlers[state_name] = make_als_topk_handler(
+                    self.table, device=self.device)
+            self.server = LookupServer(
+                {state_name: self.table},
+                host=host,
+                port=port,
+                job_id=self.job_id,
+                topk_handlers=topk_handlers,
+                health_fn=self.health,
+            )
         self.port = self.server.port
 
     # -- lifecycle ---------------------------------------------------------
@@ -626,6 +712,15 @@ class ServingJob:
                     self._observed_topology_gen = int(topo["gen"])
             except Exception:
                 pass
+        set_health = getattr(self.server, "set_health", None)
+        if set_health is not None:
+            # native plane: the C++ server cannot call back into the job,
+            # so HEALTH is pushed on the heartbeat cadence (the ready flip
+            # heartbeats at once); the server adds the key count itself
+            try:
+                set_health(json.dumps(self.health()))
+            except Exception:
+                pass
 
     def _compactor_active(self) -> bool:
         """Per-tick compactor gate (``CompactorThread`` ``active_fn``):
@@ -659,6 +754,23 @@ class ServingJob:
         if self._consumer_thread:
             self._consumer_thread.join(timeout=10)
         self.server.stop()
+        if self._native_arena is not None:
+            # after server.stop(): no reader thread may touch the mapping
+            self._native_arena.close()
+        consumer_done = (self._consumer_thread is None
+                         or not self._consumer_thread.is_alive())
+        if self.table_kind == "arena" and consumer_done:
+            # releases the writer flock; a wedged consumer thread leaks
+            # the mapping instead (the flock dies with the process)
+            self.table.close()
+        if hasattr(self.backend, "close"):
+            # never free the native store under a running consumer thread
+            # (use after free): a wedged thread leaks the handle instead
+            if consumer_done:
+                self.backend.close()
+            else:
+                print(f"[serve:{self.state_name}] consumer thread still "
+                      "busy; leaving native store open", file=sys.stderr)
 
     def wait(self) -> None:
         """CLI foreground mode: SIGTERM becomes an orderly stop(), so the
@@ -744,12 +856,31 @@ class ServingJob:
         take or defer a checkpoint.  -> whether the poll got any rows.
         ``_consume_loop`` calls it until stopped; a test may call it
         directly after ``_begin_consume``, with a fake ``clock``."""
+        native_mode = getattr(self.parse_fn, "native_mode", None)
         columnar_mode = getattr(self.parse_fn, "columnar_mode", None)
         rows_before = self.ingest_rows
         errs_before = self.parse_errors
         t0 = time.perf_counter()
         try:
-            if columnar_mode is not None and self.ingest_mode != "scalar":
+            if (native_mode is not None
+                    and hasattr(self.table, "ingest_lines")
+                    and not getattr(self.table, "_listeners", True)):
+                # rocksdb table with no change listeners: one C++ call
+                # parses, keys and stores the whole chunk (listeners such
+                # as the top-k index force the Python paths, so they keep
+                # seeing every key); the 2 MiB cap bounds how long it
+                # holds the store mutex the native server's reads take
+                self.ingest_path = "native"
+                chunk, next_offset = self.journal.read_bytes_from(
+                    self.offset, max_bytes=self.CHUNK_CAP
+                )
+                got_any = bool(chunk)
+                if chunk:
+                    rows, errs = self.table.ingest_lines(chunk, native_mode)
+                    self.parse_errors += errs
+                    self.ingest_rows += rows
+                    self.ingest_batches += 1
+            elif columnar_mode is not None and self.ingest_mode != "scalar":
                 # numpy splits the whole byte chunk into key/value columns,
                 # and listeners get ONE batched callback
                 self.ingest_path = "columnar"

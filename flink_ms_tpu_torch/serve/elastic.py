@@ -695,8 +695,10 @@ class Autoscaler:
 
 def run_elastic(params: Params) -> ScaleController:
     # worker-arg passthrough (mirrors ha.run_supervisor): every generation's
-    # ReplicaSupervisor spawns workers with these (a --nativeServer true
-    # reaches the workers, which refuse it by name)
+    # ReplicaSupervisor spawns workers with these, so a --nativeServer true
+    # deployment rescales between native fleets (the warming generation's
+    # C++ servers answer the readiness gate's HEALTH probes themselves);
+    # TPUMS_TABLE reaches the workers through the inherited environment
     extra: List[str] = []
     for passthrough in ("svm", "checkPointInterval", "nativeServer",
                         "ingestMode", "snapshots", "snapshotMinBytes",

@@ -31,10 +31,10 @@ membership in an HA replica set, ``serve/ha.py``)::
 
 Every worker of an ALS fleet holds its own CUDA context on ``--device``
 (default ``cuda``; no fallback: a worker that cannot reach CUDA exits,
-and the launcher raises with its exit code).  Fleet members keep the dict
-table (``serve/consumer.py``); ``--nativeServer true`` and
-``TPUMS_TABLE=arena`` are refused by name (ROADMAP.md, Queue 1, item
-'Arena and native store').
+and the launcher raises with its exit code).  Fleet members take the
+arena table (``serve/consumer.py``; ``TPUMS_TABLE=dict`` opts out), and
+``--nativeServer true`` serves each worker's slice from the C++ epoll
+plane, as in the reference.
 """
 
 from __future__ import annotations
@@ -439,7 +439,8 @@ def run_worker(params: Params) -> ServingJob:
         host=params.get("host", "0.0.0.0"),
         port=params.get_int("port", 0),
         job_id=params.get("jobId", default_job_id),
-        # the reference's C++ plane per shard: refused by name here
+        # the C++ epoll plane per shard (over --stateBackend rocksdb or the
+        # arena): point lookups and host-scored TOPKV from the worker's slice
         native_server=params.get_bool("nativeServer", False),
         ingest_mode=params.get("ingestMode"),
         replica_of=replica_of,

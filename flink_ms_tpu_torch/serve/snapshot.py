@@ -27,11 +27,11 @@ shard of some source ``num_shards``), bulk-loaded with a hash%N ownership
 filter per member and replayed from the family's minimum member offset.
 
 Manifests are also registered through ``serve/registry.py`` (best-effort
-``kind="snapshot"`` records).  The reference's ``arena/1`` format (a copy
-of the shared-memory arena table) belongs to the arena, which the port
-does not have: publishing an arena table, or restoring an ``arena/1``
-manifest, raises a ``ValueError`` naming ROADMAP.md's item 'Arena and
-native store'.
+``kind="snapshot"`` records).  An arena table (``serve/arena.py``)
+publishes the ``arena/1`` format instead: one quiesced copy (or, with
+``TPUMS_ARENA_PUBLISH=link``, a hard link) of its mapped file, read back
+row by row through ``iter_arena_file``; either package bootstraps from the
+other's.
 """
 
 from __future__ import annotations
@@ -43,13 +43,13 @@ import time
 import zlib
 from typing import Callable, List, Optional, Sequence, Tuple
 
-from . import not_ported
-
 SNAP_FORMAT = "tsv-columns/1"
-# the reference's arena snapshots (a copy of its mmap'd arena file): listed
-# like any manifest, refused by name when published or restored
+# O(state) arena snapshots (serve/arena.py): one reflink/extent copy of the
+# live mapped arena file instead of a serialize, with no checksum pass (rows
+# are seqlock-framed and self-describing; load verifies the row count)
 ARENA_FORMAT = "arena/1"
 _MANIFEST = "MANIFEST.json"
+_ARENA = "arena.dat"
 _KEYS = "keys.txt"
 _VALS = "vals.txt"
 
@@ -96,10 +96,12 @@ def publish(
     manifest (with its ``path``).  The caller guarantees the table is
     consistent with ``offset`` (the consume loop publishes between
     chunks, exactly like checkpoints).  An arena table (anything with
-    ``quiesce_copy``) is refused by name (the port has no arena); dict
+    ``quiesce_copy``) publishes the O(state) ``arena/1`` format; dict
     tables publish the portable columnar format."""
     if hasattr(table, "quiesce_copy"):
-        _refuse_arena()
+        return _publish_arena(
+            root, table, offset, shard=shard, num_shards=num_shards,
+            group=group, gen=gen, topic=topic, keep=keep)
     with table._lock:
         shards_copy = [dict(s) for s in table._shards]
     keys: List[str] = []
@@ -142,9 +144,60 @@ def publish(
     return manifest
 
 
-def _refuse_arena() -> None:
-    raise ValueError(not_ported("arena snapshots (the arena/1 format)",
-                                "Arena and native store"))
+def _publish_arena(
+    root: str,
+    table,
+    offset: int,
+    *,
+    shard: int,
+    num_shards: int,
+    group: Optional[str],
+    gen: Optional[int],
+    topic: Optional[str],
+    keep: Optional[int],
+) -> dict:
+    """Quiesce-and-copy publish: the arena file IS the artifact.  Same
+    crash-safe tmp-dir + rename dance as the columnar writer; the copy is
+    a reflink where the filesystem supports it (O(1)), else a hole-aware
+    extent copy (O(resident))."""
+    t0 = time.monotonic()
+    name = f"snap-{num_shards}-{shard}-{offset}-{time.time_ns()}"
+    os.makedirs(root, exist_ok=True)
+    tmp = os.path.join(root, f".tmp-{name}-{os.getpid()}")
+    os.makedirs(tmp, exist_ok=True)
+    geom = table.quiesce_copy(os.path.join(tmp, _ARENA))
+    manifest = {
+        "format": ARENA_FORMAT,
+        "topology_group": group,
+        "gen": gen,
+        "shard": int(shard),
+        "num_shards": int(num_shards),
+        "offset": int(offset),
+        "rows": int(geom["rows"]),
+        # no content checksum: rows are seqlock-framed/self-describing and
+        # the loader verifies the decoded row count against ``rows``
+        "checksum": 0,
+        "arena": geom,
+        "ts": time.time(),
+    }
+    with open(os.path.join(tmp, _MANIFEST), "w") as f:
+        json.dump(manifest, f)
+        f.flush()
+        os.fsync(f.fileno())
+    final = os.path.join(root, name)
+    os.rename(tmp, final)
+    manifest["path"] = final
+    try:
+        from ..obs.metrics import get_registry
+
+        get_registry().gauge("tpums_arena_publish_seconds").set(
+            time.monotonic() - t0)
+    except Exception:
+        pass
+    _register(manifest, topic=topic)
+    _prune(root, num_shards, shard, keep=snapshot_keep() if keep is None
+           else keep)
+    return manifest
 
 
 def _register(manifest: dict, topic: Optional[str]) -> None:
@@ -236,11 +289,33 @@ def list_manifests(root: str) -> List[dict]:
 def read_columns(manifest: dict) -> Tuple[List[str], List[str]]:
     """Read and VERIFY one snapshot's column files; raises
     ``SnapshotCorruptError`` on checksum/shape mismatch.  An ``arena/1``
-    member raises a ``ValueError`` naming ROADMAP.md's item 'Arena and
-    native store'."""
+    member decodes its seqlock-framed rows (self-describing; verification
+    is the decoded row count), so the loader downstream is format-blind."""
     path = manifest["path"]
     if manifest.get("format") == ARENA_FORMAT:
-        _refuse_arena()
+        from .arena import iter_arena_file
+
+        keys = []
+        vals = []
+        try:
+            for k, v in iter_arena_file(os.path.join(path, _ARENA)):
+                keys.append(k)
+                vals.append(v)
+        except (OSError, ValueError) as e:
+            raise SnapshotCorruptError(path, f"unreadable arena: {e}")
+        # a link-published member shares the live inode: upserts after
+        # publish may ADD rows (never remove — LWW, no deletes), so the
+        # structural floor is >=; copy members are point-in-time, ==
+        linked = (manifest.get("arena") or {}).get("publish") == "link"
+        ok = (len(keys) >= manifest["rows"] if linked
+              else len(keys) == manifest["rows"])
+        if not ok:
+            raise SnapshotCorruptError(
+                path,
+                f"row count mismatch: {len(keys)} decoded, manifest says "
+                f"{manifest['rows']}",
+            )
+        return keys, vals
     try:
         with open(os.path.join(path, _KEYS), "rb") as f:
             keys_b = f.read()

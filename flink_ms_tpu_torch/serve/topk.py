@@ -110,9 +110,30 @@ _FRAME_FLOOR = 8
 
 
 def _frame_rows(b: int) -> int:
-    """Rows of the matrix product that scores a frame of b queries on the
-    exact tier: the next power of two, at least ``_FRAME_FLOOR``."""
+    """Rows a frame of b queries is padded to on the exact tier: the next
+    power of two, at least ``_FRAME_FLOOR`` (so a whole number of
+    ``_FRAME_FLOOR``-row blocks)."""
     return max(_FRAME_FLOOR, 1 << (b - 1).bit_length())
+
+
+def _score_frame(q: torch.Tensor, m: torch.Tensor,
+                 n_queries: int) -> torch.Tensor:
+    """``(q @ m.T)[:n_queries]`` for a frame padded to ``_frame_rows``
+    rows, computed so that a query gets the same score bits whatever frame
+    it rides in.  The card's matrix library picks its kernel by the
+    product's shape, so there every product has exactly ``_FRAME_FLOOR``
+    rows, one per block of the frame.  CPU torch also rounds a row by its
+    place in the product (its kernels' register tiles), so there each
+    query is scored at row 0 of a product of its own: ``_FRAME_FLOOR``
+    copies of it, as a lone query's frame is padded."""
+    if q.device.type == "cpu":
+        parts = [(q[s:s + 1].repeat(_FRAME_FLOOR, 1) @ m.T)[:1]
+                 for s in range(n_queries)]
+    else:
+        parts = [q[s:s + _FRAME_FLOOR] @ m.T
+                 for s in range(0, q.shape[0], _FRAME_FLOOR)]
+    out = parts[0] if len(parts) == 1 else torch.cat(parts)
+    return out[:n_queries]
 
 
 def _to_host(x: torch.Tensor) -> np.ndarray:
@@ -229,7 +250,7 @@ class ShardedMatrix:
         scores, ids = [], []
         for s, (m, b, dev) in enumerate(zip(self.slices, self.bias,
                                             self.devices)):
-            part = (q.to(dev) @ m.T)[:n_queries] + b[None, :]
+            part = _score_frame(q.to(dev), m, n_queries) + b[None, :]
             v, i = topk_lowest_first(part, k_local)
             scores.append(v.to(self.device))
             ids.append((i + s * self.per).to(self.device))
@@ -706,12 +727,11 @@ class DeviceFactorIndex:
         the SAME resident matrix), else the exact scan.
 
         The exact scan pads the frame to ``_frame_rows(B)`` rows by
-        repeating its first row and scores the real rows only.  A matrix
-        product's rounding can depend on its row count (a one-row product
-        runs as a matrix-vector product, which sums in another order), so
-        every query, alone or batched, is scored by a product of at least
-        ``_FRAME_FLOOR`` rows, and a batched reply equals the reply the
-        query gets alone."""
+        repeating its first row and scores the real rows only, through
+        ``_score_frame``: a matrix product's rounding can depend on its
+        row count and on a row's place in it, so the products are cut so
+        that a batched reply equals the reply the query gets alone, bit
+        for bit."""
         n_queries = q.shape[0]
         if self._ann is not None:
             qd = torch.from_numpy(q).to(self.device)
@@ -726,7 +746,7 @@ class DeviceFactorIndex:
                 scores, idx = self._matrix.topk(qd, n_queries, k_eff)
             else:
                 scores, idx = topk_lowest_first(
-                    (qd @ self._matrix.T)[:n_queries], k_eff)
+                    _score_frame(qd, self._matrix, n_queries), k_eff)
         return _to_host(scores), _to_host(idx)
 
     def _format_rows(self, scores, idx, n_rows: int):

@@ -1,10 +1,11 @@
 """Sharded online-update plane: co-located SGD workers that close the
 train→serve→update loop at fleet scale.
 
-Own copy of ``flink_ms_tpu/serve/update_plane.py`` but its arena path
-(the in-place CAS of rows in a co-located arena table; the port's fleet
-members keep the dict table, so every update becomes queryable through
-the journal, the reference's path for its dict table).  The input logs,
+Own copy of ``flink_ms_tpu/serve/update_plane.py``, with its arena path:
+a worker co-located with an arena table swaps the updated rows in place
+(``cas_many_columns`` against the values the batch read, then a re-put of
+the rows whose CAS failed; ``TPUMS_ARENA_CAS=0`` re-puts every row), so
+an update is queryable before the journal replays it.  The input logs,
 apply logs, lease files and published rows are the reference's, byte for
 byte: a plane of either package resumes the other's watermarks, and the
 rows come from the port's ``SGDStep.process_batch`` (host float64, equal
@@ -534,6 +535,11 @@ class UpdateWorker:
         self._cache: Dict[str, Tuple[Optional[str], float]] = {}
         self._last_reads: Dict[str, Optional[str]] = {}
         self._recording = False
+        # co-located arena: swap factor bytes in place with a native CAS
+        # against the value this batch READ, instead of re-putting whole
+        # rows; a failed CAS (the value drifted under us) falls back to the
+        # last-writer-wins re-put.  TPUMS_ARENA_CAS=0 keeps the re-put path
+        self._cas_enabled = os.environ.get("TPUMS_ARENA_CAS", "1") != "0"
         self.stats = {
             "applied": 0, "batches": 0, "conflicts": 0, "replayed_rows": 0,
             "remote_keys": 0, "cache_hits": 0, "local_hits": 0,
@@ -824,6 +830,15 @@ class UpdateWorker:
                 "update_publish", tid=tid, psid=apply_sid, t0=t_pub0,
                 dur_s=round(time.time() - t_pub0, 9),
                 worker=self.worker_index, rows=len(rows))
+        # co-located arena table: seqlock-update the shared rows in place
+        # now, so update -> queryable stops round-tripping through the
+        # journal (which stays the durability source: the consume loop's
+        # later replay of these rows rewrites the same bytes).  Safe
+        # because the worker holds the table object, and with it the
+        # arena's writer flock, never a second mapping
+        direct = getattr(self._table, "kind", "") == "arena"
+        direct_keys: List[str] = []
+        direct_vals: List[str] = []
         probe_key = probe_payload = None
         for row in rows:
             try:
@@ -832,9 +847,27 @@ class UpdateWorker:
                 continue
             key = f"{id_}-{typ}"
             self._overlay[key] = vec_s
+            if direct:
+                direct_keys.append(key)
+                direct_vals.append(vec_s)
             if typ == F.USER and owner_of(
                     key, self.num_workers) == self.worker_index:
                 probe_key, probe_payload = key, vec_s
+        if direct and direct_keys:
+            if self._cas_enabled and hasattr(self._table,
+                                             "cas_many_columns"):
+                # expected = the value each update step READ; a mismatch
+                # means another writer got there first and the journal's
+                # replay is the truth: re-put only the failures
+                expected = [self._last_reads.get(k) for k in direct_keys]
+                failed = self._table.cas_many_columns(
+                    direct_keys, expected, direct_vals)
+                if failed:
+                    self._table.put_many_columns(
+                        [direct_keys[i] for i in failed],
+                        [direct_vals[i] for i in failed])
+            else:
+                self._table.put_many_columns(direct_keys, direct_vals)
         if len(self._overlay) > 65536:
             self._overlay.clear()
         part.next_seq = seq_to

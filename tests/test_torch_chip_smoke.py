@@ -268,6 +268,11 @@ def fleet_base(monkeypatch):
     job's replies from ``fleet_baseline``; the phase's sizes shrunk."""
     from flink_ms_tpu_torch.core import formats as F
 
+    # the members' arenas start small and grow with their rows, so that
+    # their files stay dense: on a filesystem that discards freed blocks
+    # synchronously, deleting a sparse file costs one discard per extent,
+    # and a 65,536-slot arena holding a thousand rows has a thousand
+    monkeypatch.setenv("TPUMS_ARENA_CAPACITY", "256")
     for name, value in (("FLEET_MGET_KEYS", 64), ("FLEET_LATENCY_CALLS", 20),
                         ("FLEET_WINDOW_S", 0.5), ("FLEET_RATE_QPS", 100.0),
                         ("FLEET_RESHARD_RATINGS", 1000),
@@ -683,3 +688,36 @@ def test_push_subscriber_folds_and_audits(monkeypatch, tmp_path):
         sub.close()
     finally:
         srv.stop()
+
+
+@pytest.fixture
+def small_arena(monkeypatch, fleet_base):
+    for name, value in (("ARENA_LATENCY_CALLS", 20),
+                        ("ARENA_NATIVE_CALLS", 50), ("ARENA_MGET_KEYS", 8),
+                        ("ARENA_DFREE_RATINGS", 500),
+                        ("ARENA_RATINGS", 2000)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    return fleet_base
+
+
+def test_arena_phase_rehearsal(small_arena, capsys):
+    """Phase 19 on the CPU: every member a ``--device cpu`` process, the
+    rocksdb job in this process."""
+    out = chip_smoke.arena_phase(torch, small_arena, torch.device("cpu"))
+    logs = capsys.readouterr().out
+    assert "(its log: table: arena), plane python" in logs
+    assert "COUNT 2302 (the dict job's 2302), MGET of 64 keys equal: True" \
+        in logs
+    assert "16 of 16 agree with a float64 top-k" in logs
+    assert "every list agrees with a float64 top-k" in logs
+    assert "from the snapshot in" in logs and "equal to the dict job's: " \
+        "True, True" in logs
+    assert "a NativeStateBackend, ingest path native" in logs
+    assert "from the checkpoint, 0 rows replayed, COUNT 2303 (the rows" in logs
+    assert "500 submitted, 0 lost, 0 doubled" in logs
+    assert "equal one SGDStep run byte for byte: True" in logs
+    assert "2500 submitted, 0 lost, 0 doubled" in logs
+    assert out["cas_swaps"] > 0 and out["arena_updates_per_s"] > 0
+    assert out["resident_bytes"] > 0 and out["size_bytes"] >= \
+        out["resident_bytes"] // 2
+    assert out["publish_link_s"] >= 0 and out["rocksdb_restart_s"] > 0

@@ -116,6 +116,31 @@ def test_refusals_reach_the_reference_client(jobs, tmp_path, monkeypatch):
         PCL.QueryClient(proto="b9")
 
 
+def test_topology_equals_the_reference_client(jobs, tmp_path, monkeypatch):
+    """``QueryClient.topology`` (the elastic fields of HEALTH) returns what
+    the reference's client returns, exactly, from either package's job,
+    and from a port job that is a topology generation's worker."""
+    monkeypatch.setenv("TPUMS_REGISTRY_DIR", str(tmp_path / "registry"))
+    ref, port = jobs
+    d = str(tmp_path / "j")
+    elastic = PC.ServingJob(PJ.Journal(d, "t"), STATE, PC.parse_als_record,
+                            PC.MemoryStateBackend(), host="127.0.0.1",
+                            port=0, job_id="gen-job", topology_group="g",
+                            generation=2, topk_index=False,
+                            device="cpu").start()
+    try:
+        assert elastic.wait_ready(30)
+        for job, want in ((ref, None), (port, None), (elastic, "g")):
+            got = [mod.QueryClient("127.0.0.1", job.port).topology(STATE)
+                   for mod in (RCL, PCL)]
+            assert got[0] == got[1]
+            assert got[1]["topology_group"] == want
+        assert got[1] == {"topology_group": "g", "generation": 2,
+                          "topology_gen": 2}
+    finally:
+        elastic.stop()
+
+
 def test_retry_policy_matches_the_reference():
     for kw in ({}, {"attempts": 4, "backoff_s": 0.5, "jitter": 0.0}):
         a, b = PCL.RetryPolicy(**kw), RCL.RetryPolicy(**kw)

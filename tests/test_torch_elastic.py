@@ -101,6 +101,19 @@ def _gen_worker(journal, group, gen, shard, shards, package="port"):
                          table="dict", **kw).start()
 
 
+def _await_ready(jobs, timeout_s=30):
+    """Each job ready, and its registry entry too: the entry's flag lags
+    the job's ready event (the consume thread writes it after the flip),
+    and the elastic client resolves the workers through the registry."""
+    for job in jobs:
+        assert job.wait_ready(timeout_s)
+    deadline = time.time() + timeout_s
+    while not all((registry.resolve(j.job_id) or {}).get("ready")
+                  for j in jobs):
+        assert time.time() < deadline, "registry never showed ready"
+        time.sleep(0.02)
+
+
 @pytest.mark.parametrize("client_pkg,worker_pkg", [
     ("port", "port"), ("port", "ref"), ("ref", "port")])
 def test_elastic_client_follows_generation_swap(tmp_path, client_pkg,
@@ -116,8 +129,7 @@ def test_elastic_client_follows_generation_swap(tmp_path, client_pkg,
             for s in range(2)]
     gen2 = []
     try:
-        for job in gen1:
-            assert job.wait_ready(30)
+        _await_ready(gen1)
         registry.publish_topology("ec", 2)
         c = Client("ec", refresh_s=999.0, timeout_s=5,
                    retry=Retry(attempts=4, backoff_s=0.01, max_backoff_s=0.1))
@@ -130,8 +142,7 @@ def test_elastic_client_follows_generation_swap(tmp_path, client_pkg,
             assert h["topology_gen"] == 1
             gen2 = [_gen_worker(journal, "ec", 2, s, 3, worker_pkg)
                     for s in range(3)]
-            for job in gen2:
-                assert job.wait_ready(30)
+            _await_ready(gen2)
             registry.publish_topology("ec", 3, expect_gen=1)
             for job in gen1:
                 job.stop()
@@ -152,14 +163,13 @@ def test_elastic_client_hint_triggers_refresh(tmp_path):
     gen1 = [_gen_worker(journal, "hint", 1, 0, 1)]
     gen2 = []
     try:
-        assert gen1[0].wait_ready(30)
+        _await_ready(gen1)
         registry.publish_topology("hint", 1)
         c = ElasticClient("hint", refresh_s=999.0, timeout_s=5)
         with c:
             assert c.query_state(ALS_STATE, keys[0]) is not None
             gen2 = [_gen_worker(journal, "hint", 2, s, 2) for s in range(2)]
-            for job in gen2:
-                assert job.wait_ready(30)
+            _await_ready(gen2)
             registry.publish_topology("hint", 2, expect_gen=1)
             assert c.generation == 1
             c.note_topology_gen(2)
@@ -187,8 +197,10 @@ def test_heartbeat_hint_and_compactor_stand_down(tmp_path, monkeypatch):
     try:
         assert old._compactor_active() and not new._compactor_active()
         registry.publish_topology("cg", 1, expect_gen=1)
+        # each worker's own heartbeat re-reads the record: wait for both
         deadline = time.time() + 10
-        while new.health()["topology_gen"] != 2 and time.time() < deadline:
+        while (new.health()["topology_gen"], old.health()["topology_gen"]) \
+                != (2, 2) and time.time() < deadline:
             time.sleep(0.02)
         assert new.health()["topology_gen"] == 2 == \
             old.health()["topology_gen"]
@@ -215,6 +227,10 @@ def test_heartbeat_hint_and_compactor_stand_down(tmp_path, monkeypatch):
         finally:
             job.server._server.server_close()
             ref.server._server.server_close()
+            # a fleet member's arena (the port's default here) holds its
+            # writer flock until closed, and the next case opens its dir
+            if job.table_kind == "arena":
+                job.table.close()
 
 
 # ---------------------------------------------------------------------------

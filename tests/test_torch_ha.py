@@ -6,8 +6,8 @@ cpu`` workers here).  Each case of ``tests/test_ha_serving.py`` runs on the
 port (its registry cases are in ``test_torch_fleet_registry.py``); a
 replica set that mixes one job of each package serves either package's
 client through a failover, and a fleet member of each package writes the
-same snapshot files (the reference run with ``TPUMS_TABLE=dict``: its
-fleet members default to the arena table, which the port does not have)."""
+same snapshot files, on the dict table and on the arena (the default of
+both packages' fleet members)."""
 
 import json
 import os
@@ -198,12 +198,25 @@ def _inprocess_replica(journal, group, replica, package="port"):
                          snapshots=False, table="dict", **kw).start()
 
 
+def _await_registry_ready(job_ids, timeout_s=30):
+    """A job's ready event fires before its registry entry says ready (the
+    consume thread writes the flag after the flip): a registry-resolved
+    client sees a replica only from then on."""
+    deadline = time.time() + timeout_s
+    while time.time() < deadline:
+        if all((registry.resolve(j) or {}).get("ready") for j in job_ids):
+            return
+        time.sleep(0.02)
+    raise AssertionError(f"registry never showed {job_ids} ready")
+
+
 def test_failover_absorbs_dead_replica_with_zero_errors(tmp_path):
     journal, uf, _ = _seed_journal(tmp_path)
     jobs = [_inprocess_replica(journal, "ha", r) for r in range(2)]
     try:
         for job in jobs:
             assert job.wait_ready(30)
+        _await_registry_ready([job.job_id for job in jobs])
         client = HAShardedClient(
             1, job_group="ha",
             retry=RetryPolicy(attempts=5, backoff_s=0.01, max_backoff_s=0.2),
@@ -212,7 +225,9 @@ def test_failover_absorbs_dead_replica_with_zero_errors(tmp_path):
             keys = [f"{u}-U" for u in range(len(uf))]
             for key in keys:
                 assert client.query_state(ALS_STATE, key)
-            jobs[0].server.stop()
+            # stop the replica the client sticks to, whichever it is
+            sticky = client._shards[0].prefer
+            next(j for j in jobs if j.port == sticky[1]).server.stop()
             errors = []
             for _ in range(3):
                 for key in keys:
@@ -393,45 +408,48 @@ def _member(package, d, rows):
 
 def test_fleet_members_write_the_same_snapshot_files(tmp_path, monkeypatch):
     """A sharded, replicated, elastic fleet member of each package over
-    the same journal bytes: with ``TPUMS_TABLE=dict`` on the reference,
-    both publish the same snapshot at ready (keys, values, manifest apart
-    from ``ts``) and nothing else beside the journal; the reference's own
-    default for a fleet member is its arena table, which the port keeps
-    out (a ``<topic>.arena-*`` dir is the files' one difference)."""
+    the same journal bytes, on each table: with ``TPUMS_TABLE=dict`` both
+    publish the same columnar snapshot at ready (keys, values, manifest
+    apart from ``ts``), and on their default table, the arena, the same
+    ``arena/1`` snapshot (the arena file byte for byte, the manifest apart
+    from ``ts``) and the same ``<topic>.arena-*`` directory beside the
+    journal."""
     rows = [F.format_als_row(u, "U", [0.25 * u, -1.0]) for u in range(40)]
     rows += [F.format_als_row(i, "I", [1.0, 0.5 * i]) for i in range(30)]
-    got = {}
-    for package in ("port", "ref"):
-        if package == "ref":
-            monkeypatch.setenv("TPUMS_TABLE", "dict")
-        d = str(tmp_path / package)
-        job = _member(package, d, rows)
-        try:
-            assert job.wait_ready(30) and job.table_kind == "dict"
-            deadline = time.time() + 30
-            while not PS.list_manifests(PS.snapshot_root(d, "als")) and \
-                    time.time() < deadline:
-                time.sleep(0.02)
-            (m,) = PS.list_manifests(PS.snapshot_root(d, "als"))
-            files = {}
-            for name in ("keys.txt", "vals.txt"):
-                with open(os.path.join(m["path"], name), "rb") as f:
-                    files[name] = f.read()
-            with open(os.path.join(m["path"], "MANIFEST.json")) as f:
-                manifest = json.load(f)
-            manifest.pop("ts")
-            got[package] = (files, manifest, sorted(os.listdir(d)),
-                            dict(job.table.items()))
-        finally:
-            job.stop()
-    assert got["port"] == got["ref"]
-    assert got["port"][1]["num_shards"] == 2 and \
-        got["port"][1]["shard"] == 1
-    monkeypatch.delenv("TPUMS_TABLE")
-    d = str(tmp_path / "ref-default")
-    job = _member("ref", d, rows)
-    try:
-        assert job.wait_ready(30) and job.table_kind == "arena"
-        assert any(n.startswith("als.arena-") for n in os.listdir(d))
-    finally:
-        job.stop()
+    for table in ("dict", None):
+        got = {}
+        for package in ("port", "ref"):
+            if table:
+                monkeypatch.setenv("TPUMS_TABLE", table)
+            else:
+                monkeypatch.delenv("TPUMS_TABLE", raising=False)
+            d = str(tmp_path / f"{package}-{table or 'default'}")
+            job = _member(package, d, rows)
+            try:
+                assert job.wait_ready(30)
+                assert job.table_kind == (table or "arena")
+                deadline = time.time() + 30
+                while not PS.list_manifests(PS.snapshot_root(d, "als")) and \
+                        time.time() < deadline:
+                    time.sleep(0.02)
+                (m,) = PS.list_manifests(PS.snapshot_root(d, "als"))
+                files = {name: open(os.path.join(m["path"], name),
+                                    "rb").read()
+                         for name in sorted(os.listdir(m["path"]))
+                         if name != "MANIFEST.json"}
+                with open(os.path.join(m["path"], "MANIFEST.json")) as f:
+                    manifest = json.load(f)
+                manifest.pop("ts")
+                got[package] = (files, manifest, sorted(os.listdir(d)),
+                                dict(job.table.items()))
+            finally:
+                job.stop()
+        assert got["port"] == got["ref"]
+        assert got["port"][1]["num_shards"] == 2 and \
+            got["port"][1]["shard"] == 1
+        if table is None:
+            assert got["port"][1]["format"] == "arena/1"
+            assert list(got["port"][0]) == ["arena.dat"]
+            assert "als.arena-ALS_MODEL-w1of2-r0-g1" in got["port"][2]
+        else:
+            assert list(got["port"][0]) == ["keys.txt", "vals.txt"]

@@ -68,7 +68,10 @@ def test_port_and_chip_smoke_load_no_jax():
                 "flink_ms_tpu_torch.serve.ha",
                 "flink_ms_tpu_torch.serve.elastic",
                 "flink_ms_tpu_torch.serve.update_plane",
-                "flink_ms_tpu_torch.obs.scrape"
+                "flink_ms_tpu_torch.obs.scrape",
+                "flink_ms_tpu_torch.serve.native_store",
+                "flink_ms_tpu_torch.serve.arena",
+                "flink_ms_tpu_torch.native._build"
                 } <= set(names)
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -80,7 +83,7 @@ def test_port_and_chip_smoke_load_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 63  # every module of the port was imported
+    assert int(n) >= 67  # every module of the port was imported
     assert bad == "[]"
 
 
@@ -138,6 +141,43 @@ def test_serving_clis_load_no_jax(tmp_path):
     assert ha.startswith("RuntimeError: replica s0r0 died at spawn rc=1")
     assert elastic.startswith("RuntimeError: replica s0r0 died at spawn")
     assert last == "11 []"
+
+
+def test_native_library_is_the_ports_own_build():
+    """The port's native library is its own build of its own sources,
+    under ``build/native/``, never the JAX package's ``native/``; no
+    module of the port (nor ``chip_smoke.py``) names the JAX package's
+    ``native/libtpums.so`` or its Makefile."""
+    from flink_ms_tpu_torch.native import _build
+    from flink_ms_tpu_torch.serve import native_store
+
+    build_dir = os.path.join(ROOT, "build", "native")
+    for variant in _build.VARIANTS:
+        path = str(_build.library_path(variant))
+        assert os.path.dirname(path) == build_dir
+        assert os.path.basename(path).startswith("libtpums")
+    assert set(_build.SOURCES) | set(_build.HEADERS) == {
+        "store.cpp", "lookup_server.cpp", "arena.cpp", "tpums.h",
+        "tpums_internal.h"}
+    assert all((_build.SRC_DIR / n).is_file()
+               for n in _build.SOURCES + _build.HEADERS)
+    assert _build.CXXFLAGS == ("-O2", "-std=c++17", "-fPIC", "-Wall",
+                               "-Wextra")
+    assert _build.LDFLAGS == ("-shared", "-pthread")
+    lib = native_store.library_path()
+    assert os.path.dirname(lib) == build_dir
+    assert os.path.realpath(lib) != os.path.realpath(
+        os.path.join(ROOT, "native", "libtpums.so"))
+    sources = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(os.path.join(ROOT,
+                                                  "flink_ms_tpu_torch")):
+        sources += [os.path.join(dirpath, f) for f in files
+                    if f.endswith((".py", ".cpp", ".h"))]
+    for path in sources:
+        with open(path, encoding="utf-8") as f:
+            text = f.read()
+        assert "native/libtpums.so" not in text, path
+        assert "make -C native" not in text, path
 
 
 def test_spawned_ranks_load_no_jax():

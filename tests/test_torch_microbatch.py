@@ -72,7 +72,9 @@ def test_concurrent_submitters_coalesce():
         barrier.wait(timeout=WAIT_S)
         results[i] = batcher.score(qs[i], 4, timeout=WAIT_S)
 
-    threads = [threading.Thread(target=worker, args=(i,))
+    # daemon workers: one stuck past its join timeout must not hold the
+    # process open after the test has failed
+    threads = [threading.Thread(target=worker, args=(i,), daemon=True)
                for i in range(n_threads)]
     for t in threads:
         t.start()
@@ -84,6 +86,27 @@ def test_concurrent_submitters_coalesce():
     assert batcher.dispatches < batcher.submitted
     assert batcher.max_batch_seen > 1
     assert results == expected  # bit-equal, scores included
+
+
+@pytest.mark.parametrize("frame", [1, 3, 8, 9, 24, 33])
+def test_frame_size_never_changes_a_score_bit(frame):
+    """A query's reply is the same bits, scores included, alone through
+    ``topk``, in a ``topk_many`` frame of any size, and through the
+    batcher's frames."""
+    rng = np.random.default_rng(100 + frame)
+    table = ModelTable(4)
+    _fill(table, 500, 12, rng)
+    index = DeviceFactorIndex(table, "-I", device="cpu")
+    qs = rng.normal(size=(frame, 12)).astype(np.float32)
+    alone = [index.topk(q, 6) for q in qs]
+    assert index.topk_many(qs, 6) == alone
+    batcher = TopKBatcher(index, max_batch=64, max_wait_us=50_000)
+    try:
+        pending = [batcher.submit(q, 6, allow_inline=False) for q in qs]
+        batcher.flush()
+        assert [p.wait(timeout=WAIT_S) for p in pending] == alone
+    finally:
+        batcher.close()
 
 
 def test_mixed_k_and_bad_width_fail_only_their_own():

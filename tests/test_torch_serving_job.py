@@ -304,34 +304,72 @@ def test_fs_checkpoints_restore_across_packages(tmp_path, writer):
         job.stop()
 
 
-_REFUSED = [
-    ({"native_server": True}, "Arena and native store"),
-    ({"table": "arena"}, "Arena and native store"),
-]
-
 # the fleet's options, refused until the fleet was ported: each job now
 # carries them as the reference's job does
 _FLEET = [{"replica_of": "g/shard-0"}, {"replica_index": 1},
           {"topology_group": "g"}, {"generation": 2}]
 
 
-@pytest.mark.parametrize("kw,item", _REFUSED)
-def test_left_out_options_are_refused(tmp_path, monkeypatch, kw, item):
-    def no_socket(*a, **k):
-        raise AssertionError("a socket was opened before the refusal")
+# the options of the reference's job that the port refused until its
+# arena and native store were ported: each job now runs them as the
+# reference's does (the native server over a memory backend and the dict
+# table is refused by both packages alike)
+_NATIVE = [{"table": "arena"}, {"table": "arena", "native_server": True},
+           {"native_server": True}]
 
-    monkeypatch.setattr(PC, "LookupServer", no_socket)
-    with pytest.raises(ValueError, match=f"ROADMAP.md, Queue 1, item '{item}'"):
-        PC.ServingJob(PJ.Journal(str(tmp_path), "t"), STATE,
-                      PC.parse_als_record, PC.MemoryStateBackend(),
-                      port=0, device="cpu", **kw)
+
+@pytest.mark.parametrize("kw", _NATIVE)
+def test_arena_and_native_options_run_as_the_reference(tmp_path, kw):
+    """The same journal bytes in two dirs (one arena writer per dir): the
+    port's job on the arena table, and its C++ server over the arena,
+    answer every verb with the reference job's bytes."""
+    rows = _model_rows()
+    d_ref = _journal(tmp_path, rows, name="ref")
+    d_port = _journal(tmp_path, rows, name="port")
+    if kw.get("native_server") and "table" not in kw:
+        for C, J, d, extra in ((RC, RJ, d_ref, {}),
+                               (PC, PJ, d_port, {"device": "cpu"})):
+            with pytest.raises(ValueError, match="--nativeServer needs"):
+                C.ServingJob(J.Journal(d, "t"), STATE, C.parse_als_record,
+                             C.MemoryStateBackend(), port=0, **kw, **extra)
+        return
+    ref = RC.ServingJob(RJ.Journal(d_ref, "t"), STATE, RC.parse_als_record,
+                        RC.MemoryStateBackend(), host="127.0.0.1", port=0,
+                        job_id="ref-job", snapshots=False, **kw).start()
+    port = PC.ServingJob(PJ.Journal(d_port, "t"), STATE, PC.parse_als_record,
+                         PC.MemoryStateBackend(), host="127.0.0.1", port=0,
+                         job_id="port-job", device="cpu", snapshots=False,
+                         **kw).start()
+    reqs = [r for r in _requests() if not r.startswith("HEALTH")]
+    try:
+        assert ref.wait_ready(30) and port.wait_ready(30)
+        assert port.table_kind == ref.table_kind == "arena"
+        assert sorted(port.table.items()) == sorted(ref.table.items())
+
+        def ask(p):
+            with QueryClient("127.0.0.1", p, timeout_s=30) as c:
+                return [c._roundtrip(r) for r in reqs]
+
+        _wait_until(lambda: ask(port.port)[reqs.index(f"COUNT\t{STATE}")]
+                    == "C\t44")
+        want, got = _both(ref, port, ask)
+        assert got == want
+        plane = "native" if kw.get("native_server") else "python"
+        for p in (ref.port, port.port):
+            with QueryClient("127.0.0.1", p) as c:
+                assert c.metrics()["meta"]["plane"] == plane
+                assert c.health(STATE)["ready"] is True
+    finally:
+        ref.stop()
+        port.stop()
 
 
 @pytest.mark.parametrize("kw", _FLEET)
 def test_fleet_options_run_as_the_reference(tmp_path, monkeypatch, kw):
     """Each fleet option reaches HEALTH and the registry entry as in the
-    reference's job, which is run with ``TPUMS_TABLE=dict`` (its fleet
-    members default to its arena table, which the port does not have)."""
+    reference's job, both run with ``TPUMS_TABLE=dict`` (a fleet member
+    of either package defaults to the arena, whose directory the two jobs
+    would share here)."""
     monkeypatch.setenv("TPUMS_REGISTRY_DIR", str(tmp_path / "registry"))
     monkeypatch.setenv("TPUMS_TABLE", "dict")
     d = _journal(tmp_path, _model_rows())
@@ -368,27 +406,48 @@ def test_env_flags_and_other_refusals(tmp_path, monkeypatch):
         return PC.ServingJob(j, STATE, parse, PC.MemoryStateBackend(),
                              port=0, device="cpu", **kw)
 
+    monkeypatch.setattr(PC, "LookupServer",
+                        lambda *a, **k: type("S", (), {"port": 0})())
     monkeypatch.setenv("TPUMS_TABLE", "arena")
-    with pytest.raises(ValueError, match="Arena and native store"):
+    job = make()
+    assert job.table_kind == "arena"
+    assert os.path.basename(job.table.dir) == \
+        "t.arena-ALS_MODEL-w0of1-r0-g0"
+    job.table.close()
+    monkeypatch.setenv("TPUMS_TABLE", "bogus")
+    with pytest.raises(ValueError, match="table must be dict|arena"):
         make()
     monkeypatch.delenv("TPUMS_TABLE")
+    monkeypatch.setattr(PC, "LookupServer", None)
 
     def sharded(line):
         return PC.parse_als_record(line)
 
     sharded.shard_filter = (0, 2)
-    # a sharded parser is a fleet member's (it used to be refused): the
-    # job snapshots its own slice (built on a stand-in server, no socket)
+    # a sharded parser is a fleet member's: the job snapshots its own
+    # slice and takes the arena by default, as the reference's does
+    # (built on a stand-in server, no socket)
     monkeypatch.setattr(PC, "LookupServer",
                         lambda *a, **k: type("S", (), {"port": 0})())
-    assert make(parse=sharded)._snap_owner == (0, 2)
+    job = make(parse=sharded)
+    assert job._snap_owner == (0, 2) and job.table_kind == "arena"
+    assert os.path.basename(job.table.dir) == \
+        "t.arena-ALS_MODEL-w0of2-r0-g0"
+    job.table.close()
+    monkeypatch.setenv("TPUMS_TABLE", "dict")
+    assert make(parse=sharded).table_kind == "dict"
+    monkeypatch.delenv("TPUMS_TABLE")
     monkeypatch.setattr(PC, "LookupServer", None)
     with open(os.path.join(str(tmp_path), "t.georepl.json"), "w") as f:
         f.write("{}")
     with pytest.raises(ValueError, match="Geo-replication and edge"):
         make()
-    with pytest.raises(ValueError, match="Arena and native store"):
-        PC.make_backend("rocksdb", str(tmp_path))
+    backend = PC.make_backend("rocksdb", str(tmp_path / "store"))
+    assert type(backend).__name__ == "NativeStateBackend"
+    assert backend.kind == "rocksdb"
+    backend.close()
+    with pytest.raises(ValueError, match="requires --checkpointDataUri"):
+        PC.make_backend("rocksdb", None)
     with pytest.raises(ValueError, match="start_from"):
         make(start_from="middle")
 

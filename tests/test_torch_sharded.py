@@ -239,34 +239,63 @@ def test_owner_of_equals_the_reference_on_10000_keys():
     (("--stateBackend", "rocksdb", "--nativeServer", "true"), {}),
     (("--nativeServer", "true"), {}),
     ((), {"TPUMS_TABLE": "arena"})])
-def test_native_and_arena_workers_are_refused(tmp_path, extra, env):
-    """The reference's native-plane cluster (``--nativeServer true`` over
-    ``rocksdb``) and its arena table stay refused by name: the worker
-    exits before it publishes a port, and says why."""
+def test_native_and_arena_workers_serve_like_the_reference(tmp_path, extra,
+                                                           env):
+    """The reference's native-plane worker (``--nativeServer true`` over
+    ``rocksdb`` or over its default arena) and its arena table run in the
+    port: a port worker, then a reference worker on the same journal (and,
+    for the arena, on the arena directory the port's worker left), answer
+    GET, MGET, COUNT, TOPK and TOPKV with the same bytes."""
     _seed(tmp_path, 1)
-    proc, port_file, log_path = _spawn_worker(tmp_path, 0, extra=extra,
-                                              env=env)
-    try:
-        assert proc.wait(timeout=WAIT_S) != 0
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-    assert not port_file.exists()
-    assert "ROADMAP.md, Queue 1, item 'Arena and native store'" in \
-        log_path.read_text(errors="replace")
+    users = [str(u) for u in range(20)] + ["nobody"]
+    reqs = ([f"GET\t{STATE}\t{k_}" for k_ in ALL_KEYS[::7]]
+            + [f"MGET\t{STATE}\t" + ",".join(ALL_KEYS + ["nope"]),
+               f"COUNT\t{STATE}"]
+            + [f"TOPK\t{STATE}\t{u}\t5" for u in users]
+            + [f"TOPKV\t{STATE}\t4\t1.0;-0.5;0.25;2.0"])
+    replies, logs = {}, {}
+    for package in ("port", "ref"):
+        spawned = _spawn_worker(tmp_path, 0, 1, extra=extra,
+                                package=package, env=env)
+        try:
+            port = _wait_port(spawned)
+            with QueryClient("127.0.0.1", port, timeout_s=60) as c:
+                deadline = time.time() + WAIT_S
+                while c.count(STATE) < 50 and time.time() < deadline:
+                    time.sleep(0.05)
+                replies[package] = [c._roundtrip(r) for r in reqs]
+                plane = c.metrics()["meta"]["plane"]
+                assert plane == ("native" if "--nativeServer" in extra
+                                 else "python")
+        finally:
+            stop_worker_procs([spawned[0]])
+        logs[package] = spawned[2].read_text(errors="replace")
+    assert replies["port"] == replies["ref"]
+    assert replies["port"][len(ALL_KEYS[::7]) + 1] == "C\t50"
+    assert "not ported" not in logs["port"]
+    if "rocksdb" in extra:
+        assert list((tmp_path / "chk-port").glob("**/data.log"))
+    else:
+        assert "table: arena" in logs["port"]
+        assert os.path.isdir(tmp_path / "bus" /
+                             "models.arena-ALS_MODEL-w0of1-r0-g0")
 
 
 def test_clients_and_workers_cross_the_packages(tmp_path):
-    """A port fleet and a reference fleet (the reference's default table
-    for a fleet member, its arena) over one journal: each client package
-    against each worker package gives the same bytes for GET, MGET and
-    COUNT, and the same TOPK lists; each port worker answers a raw MGET
-    of its slice with the reference worker's bytes."""
+    """A port fleet and a reference fleet over one journal, each on its
+    default table for a fleet member, the arena (the port's fleet is
+    replica 1 of its own group, so that the two fleets' arena directories
+    differ): each client package against each worker package gives the
+    same bytes for GET, MGET and COUNT, and the same TOPK lists; each port
+    worker answers a raw MGET of its slice with the reference worker's
+    bytes."""
     n = 2
     _seed(tmp_path, 2)
     procs = []
     try:
-        p_procs, p_ports = _start_cluster(tmp_path, n, "port")
+        p_procs, p_ports = _start_cluster(
+            tmp_path, n, "port",
+            extra=("--replicaIndex", "1", "--jobGroup", "portfleet"))
         procs += p_procs
         r_procs, r_ports = _start_cluster(tmp_path, n, "ref")
         procs += r_procs

@@ -184,27 +184,43 @@ def test_registry_snapshot_record_is_the_reference(tmp_path):
         ref_registry._snapshot_path(scope)
 
 
-class _ArenaLike(PortTable):
-    def quiesce_copy(self, path):
-        raise AssertionError("never called")
+@pytest.mark.parametrize("writer,reader", [("reference", "port"),
+                                           ("port", "reference")])
+def test_arena_snapshots_cross_the_packages(tmp_path, writer, reader):
+    """An arena table of either package publishes ``arena/1`` (one copy of
+    its mapped file); the other package lists it, reads it back row for
+    row, and bootstraps a dict table and an arena table from it."""
+    from flink_ms_tpu.serve import arena as RA
+    from flink_ms_tpu_torch.serve import arena as PA
 
-
-def test_arena_snapshots_are_refused_by_name(tmp_path):
+    ARENA = {"reference": RA, "port": PA}
+    rows = [(f"{i % 300}-{'UI'[i % 2]}", ";".join(f"{0.5 * j + i}"
+                                                    for j in range(5)))
+            for i in range(700)]
+    table = ARENA[writer].ArenaModelTable(2, dir=str(tmp_path / "live"),
+                                          capacity=64)
+    table.put_many_columns([k for k, _ in rows], [v for _, v in rows])
+    want = dict(rows)
+    W, R = PKG[writer][0], PKG[reader][0]
     root = str(tmp_path / "snaps")
-    with pytest.raises(ValueError, match="'Arena and native store'"):
-        PS.publish(root, _ArenaLike(2), 5)
-    # an arena/1 manifest the reference published is listed, then refused
-    # at restore, and the refusal ends the bootstrap with a ValueError
-    arena = os.path.join(root, "snap-1-0-9-1")
-    os.makedirs(arena)
-    with open(os.path.join(arena, "MANIFEST.json"), "w") as f:
-        json.dump({"format": RS.ARENA_FORMAT, "shard": 0, "num_shards": 1,
-                   "offset": 9, "rows": 1, "checksum": 0, "ts": 1.0}, f)
-    (m,) = PS.list_manifests(root)
-    with pytest.raises(ValueError, match="arena snapshots .* not ported yet"):
-        PS.read_columns(m)
-    with pytest.raises(ValueError, match="'Arena and native store'"):
-        PS.bootstrap(PortTable(2), root, owner=(0, 1))
+    m = W.publish(root, table, 77)
+    table.close()
+    assert m["format"] == RS.ARENA_FORMAT == PS.ARENA_FORMAT
+    (listed,) = R.list_manifests(root)
+    assert listed["rows"] == len(want) and listed["offset"] == 77
+    keys, vals = R.read_columns(listed)
+    assert dict(zip(keys, vals)) == want and len(keys) == len(want)
+    dict_table = PKG[reader][1](2)
+    info = R.bootstrap(dict_table, root, owner=(0, 1))
+    assert info["offset"] == 77 and dict(dict_table.items()) == want
+    arena_table = ARENA[reader].ArenaModelTable(
+        2, dir=str(tmp_path / "restored"))
+    try:
+        assert R.bootstrap(arena_table, root, owner=(0, 1))["rows"] == \
+            len(want)
+        assert dict(arena_table.items()) == want
+    finally:
+        arena_table.close()
 
 
 # ---------------------------------------------------------------------------
@@ -327,7 +343,10 @@ def test_snapshots_off_and_corrupt_snapshots_replay(tmp_path, monkeypatch,
         job.stop()
 
 
-def test_an_arena_snapshot_does_not_bootstrap_a_port_job(tmp_path, capfd):
+def test_an_arena_snapshot_does_not_bootstrap_a_port_job(tmp_path):
+    """An ``arena/1`` member whose arena file is missing is corrupt: the
+    port's job counts it and falls down the chain to a full replay, as
+    the reference's job does."""
     d = _seed(tmp_path, n=50)
     root = PS.snapshot_root(d, "als")
     arena = os.path.join(root, "snap-1-0-999999-1")
@@ -335,13 +354,21 @@ def test_an_arena_snapshot_does_not_bootstrap_a_port_job(tmp_path, capfd):
     with open(os.path.join(arena, "MANIFEST.json"), "w") as f:
         json.dump({"format": "arena/1", "shard": 0, "num_shards": 1,
                    "offset": 999999, "rows": 1, "checksum": 0, "ts": 1.0}, f)
-    job = _run("port", d)
-    try:
-        assert job.bootstrap_source == "replay" and len(job.table) == 50
-    finally:
-        job.stop()
-    assert "arena snapshots (the arena/1 format) is not ported yet" in \
-        capfd.readouterr().err
+    (m,) = PS.list_manifests(root)
+    with pytest.raises(PS.SnapshotCorruptError, match="unreadable arena"):
+        PS.read_columns(m)
+    with pytest.raises(RS.SnapshotCorruptError, match="unreadable arena"):
+        RS.read_columns(RS.list_manifests(root)[0])
+    failures = port_metrics.get_registry().counter(
+        "tpums_snapshot_restore_failures_total", state="ALS_MODEL")
+    before = failures.value
+    for name in ("port", "reference"):
+        job = _run(name, d)
+        try:
+            assert job.bootstrap_source == "replay" and len(job.table) == 50
+        finally:
+            job.stop()
+    assert failures.value == before + 1
 
 
 @pytest.mark.parametrize("name", ["reference", "port"])

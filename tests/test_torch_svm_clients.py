@@ -26,6 +26,7 @@ from flink_ms_tpu.serve.client import QueryClient as RefClient
 from flink_ms_tpu_torch.client import range_partition_svm_predict as P_range
 from flink_ms_tpu_torch.client import svm_predict as P_repl
 from flink_ms_tpu_torch.client import svm_predict_random as P_random
+from flink_ms_tpu_torch.core import formats as PF
 from flink_ms_tpu_torch.core.params import Params
 from flink_ms_tpu_torch.serve import consumer as PC
 from flink_ms_tpu_torch.serve import journal as PJ
@@ -255,3 +256,23 @@ def test_range_harness_equals_the_reference(range_job, tmp_path, capsys,
         vec = R_random.random_sparse_vector(rng, N_FEATURES, 20)
         want = sum(w[f - 1] * v for f, v in vec.items() if f // RANGE != 3)
         assert float(row[2]) == pytest.approx(want, rel=1e-9, abs=1e-12)
+
+
+@pytest.mark.parametrize("partitioned", [False, True])
+def test_read_svm_model_equals_the_reference(tmp_path, partitioned):
+    """The port's ``read_svm_model`` reads flat and range-partitioned SVM
+    rows (repeated indices: the last row wins) into the reference's dense
+    vector, exactly, with and without a wider ``n_features``."""
+    rng = np.random.default_rng(7 + partitioned)
+    w = np.where(rng.random(40) < 0.6, rng.normal(size=40), 0.0)
+    rows = (list(RF.format_svm_range_rows(w, 6)) if partitioned
+            else list(RF.format_svm_flat_rows(w)))
+    rows += rows[:3]
+    path = str(tmp_path / "model")
+    with open(path, "w") as f:
+        f.write("".join(r + "\n" for r in rows))
+    for nf in (0, 40, 55):
+        got = PF.read_svm_model(path, n_features=nf, partitioned=partitioned)
+        want = RF.read_svm_model(path, n_features=nf, partitioned=partitioned)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)

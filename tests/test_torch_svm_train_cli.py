@@ -65,8 +65,10 @@ def test_port_cli_output_matches_jax_formatters(tmp_path, libsvm_file, capsys,
     with open(port_out) as f:
         assert f.read() == "".join(row + "\n" for row in want)
     # and the rows parse back to the weights, by either package's parser
-    w = JF.read_svm_model(port_out, n_features=15, partitioned=partition)
+    w = TF.read_svm_model(port_out, n_features=15, partitioned=partition)
     np.testing.assert_array_equal(w, model.weights)
+    np.testing.assert_array_equal(
+        w, JF.read_svm_model(port_out, n_features=15, partitioned=partition))
     got = np.zeros(15)
     for line in TF.iter_lines(port_out):
         if partition:

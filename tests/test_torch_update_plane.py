@@ -21,6 +21,7 @@ from flink_ms_tpu.serve import update_plane as rup
 from flink_ms_tpu.serve.table import ModelTable as RefTable
 from flink_ms_tpu_torch.core import formats as F
 from flink_ms_tpu_torch.online.sgd import SGDStep
+from flink_ms_tpu_torch.serve import registry
 from flink_ms_tpu_torch.serve import update_plane as up
 from flink_ms_tpu_torch.serve.consumer import (ALS_STATE, ServingJob,
                                                make_backend,
@@ -419,6 +420,10 @@ def test_visibility_probe_against_live_serving_job(base):
                      poll_interval_s=0.01, device="cpu").start()
     try:
         assert job.wait_ready(20)
+        # the registry's ready flag lags the job's ready event: wait for it
+        # before the worker resolves anything through the registry
+        assert _wait(lambda: (registry.resolve(job.job_id) or {}).get("ready"),
+                     20)
         w = up.UpdateWorker(base, "models", 0, 1, job=job,
                             model_journal=journal, partitions=4,
                             batch_size=8, poll_s=0.005)
