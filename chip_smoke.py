@@ -4,7 +4,8 @@ CoCoA SVM training, each through its hand-written CUDA kernels, top-k
 serving of the trained ALS model, staged ALS with resume, the SVM's opt-in
 modes, the model generators, the autopilot's retrain, the multi-rank
 paths over ``torch.distributed``, the serving job in a process of its
-own, the serving fleet, and the arena and native store.
+own, the serving fleet, the arena and native store, and the closed loop
+(blue/green rollout around the autopilot's retrain on the card).
 
 Run from the repository root, on a machine with one CUDA card:
 
@@ -153,10 +154,10 @@ Phases, each printing lines of its own (``[smoke] ...``):
             registry (seconds to ready, ingest rows/s); 256 TOPK over the
             wire equal byte for byte to the in-process
             ``make_als_topk_handler`` and to a float64 top-k, TOPKV, GET and
-            MGET, p50/p99 of 1,000 sequential TOPK, ``als_predict_random``
-            for 2,000 queries (its CSV's p50/p99); the live MSE of 200,000
+            MGET, p50/p99 of 500 sequential TOPK, ``als_predict_random``
+            for 1,000 queries (its CSV's p50/p99); the live MSE of 50,000
             training ratings (seed 7) equal to the offline ``--model`` MSE
-            at rtol 1e-5; ``online.sgd`` on 50,000 fresh ratings (seed 1,
+            at rtol 1e-5; ``online.sgd`` on 12,500 fresh ratings (seed 1,
             batch 256): updates/s, seconds until the job's offset and its
             index catch up, 64 sampled keys serving their last journal row,
             64 updated users' TOPK equal to a float64 top-k of the served
@@ -169,7 +170,7 @@ Phases, each printing lines of its own (``[smoke] ...``):
             restart with the checkpoint moved away, from the snapshot
             alone.  The push plane: 256 TOPK subscriptions (k 10, each the
             user's served row) and 64 KEY subscriptions over one B2
-            ``su=1`` connection, one TOPK subscription over tab; 50 journal
+            ``su=1`` connection, one TOPK subscription over tab; 25 journal
             batches of 100 rewritten item rows, then every folded TOPK
             subscription equal to a pull TOPKV of its query and to a
             float64 top-k, every KEY subscription equal to GET, the
@@ -201,7 +202,31 @@ Phases, each printing lines of its own (``[smoke] ...``):
             members with the in-place CAS: updates/s, publish ->
             queryable p50/p99, CAS swaps against re-puts, both audits at 0
             lost and 0 doubled, the duplicate-free rows equal to one
-            ``SGDStep`` run.
+            ``SGDStep`` run;
+20. loop — the closed loop on the same topic, every member a ``--device``
+            process on the arena: (a) the port's ``RolloutController``
+            rolls the topic out as generation 1 of group ``loop`` (1 x 1,
+            row floor 165,239, an MSE probe of 256 held-out ratings gated
+            at the served rows' own offline MSE); (b) 500,000 ratings of
+            5,000 users x 2,000 items (seed 26; each served row moved by
+            N(0, 0.3 std), plus N(0, 0.05)) through the update plane's 16
+            input partitions; (c) one ``AutopilotController.tick()`` at
+            rank 50 and the reference's defaults under GETs at 300 q/s
+            open loop: each step's seconds, the window, ``train_s``, both
+            ALS kernels' launches on the tick alone (``autopilot_tick``),
+            both held-out MSEs (the candidate must win), generation 2's
+            cutover, GET p50/p99 by window, 0 failed queries; (d)
+            ``ModelQualityCanary`` through the group's ``ElasticClient``:
+            its ``tpums_model_live_mse`` equals the offline
+            ``compute_mse`` of the candidate at rtol 1e-5, coverage 1.0;
+            (e) a ``model_drift`` alert record: the next tick rolls back
+            to generation 3, whose 256 TOPK replies equal generation 1's
+            byte for byte, a member's HEALTH carries the alert, and a
+            further tick does nothing (the latch); (f) 100,000 more
+            ratings (seed 27), then ``python -m
+            flink_ms_tpu_torch.serve.autopilot --once`` in a process of
+            its own takes the lease, resumes the state record and
+            windows only the new ratings.
 
 Each kernel's ``ms`` is the median over calls timed one CUDA event pair
 each, the wrapper's host work included where it outlasts the device's;
@@ -2558,10 +2583,10 @@ def multi_gpu_only(torch, dev) -> int:
 # -- phase 17: the serving job ------------------------------------------------
 
 JOB_TOPK_USERS = 256      # TOPK replies held against the in-process handler
-JOB_LATENCY_CALLS = 1000  # sequential TOPK requests timed over the wire
-JOB_HARNESS_QUERIES = 2000
-JOB_MSE_RATINGS = 200_000
-JOB_SGD_RATINGS = 50_000
+JOB_LATENCY_CALLS = 500   # sequential TOPK requests timed over the wire
+JOB_HARNESS_QUERIES = 1000
+JOB_MSE_RATINGS = 50_000
+JOB_SGD_RATINGS = 12_500
 JOB_SAMPLE = 64           # keys and users checked after the updates
 JOB_CHECKPOINT_MS = 20_000
 JOB_WAIT_S = 300.0        # the longest any step may wait for the job
@@ -2711,7 +2736,7 @@ def write_ratings_tsv(path, users, items, ratings, header=True):
 
 JOB_PUSH_USERS = 256      # TOPK subscriptions over one B2 su=1 connection
 JOB_PUSH_KEYS = 64        # KEY subscriptions on item rows
-JOB_PUSH_BATCHES = 50     # journal batches of rewritten item rows
+JOB_PUSH_BATCHES = 25     # journal batches of rewritten item rows
 # item rows a batch rewrites: under the index's in-place cap
 # (TPUMS_TOPK_APPLY_CAP, 1,024), so no background rebuild starts
 JOB_PUSH_ROWS = 100
@@ -3629,13 +3654,13 @@ def serving_job_phase(torch, model, ratings_t, serve_p50, dev) -> dict:
 # -- phase 18: the serving fleet ----------------------------------------------
 
 FLEET_MGET_KEYS = 1000      # keys every topology must serve byte for byte
-FLEET_LATENCY_CALLS = 1000  # sequential fan-out TOPK timed
+FLEET_LATENCY_CALLS = 500   # sequential fan-out TOPK timed
 FLEET_RATE_QPS = 300.0      # the reference bench's open-loop stream
-FLEET_WINDOW_S = 3.0        # each latency window of the stream
+FLEET_WINDOW_S = 2.0        # each latency window of the stream
 FLEET_PARTITIONS = 16       # the update plane's default partitions
 FLEET_BATCH = 256           # its default batch
 FLEET_RESHARD_RATINGS = 20_000  # streamed through a live 2 -> 4 cutover
-FLEET_RATINGS = 200_000     # then at 4 shards (seed 23)
+FLEET_RATINGS = 50_000      # then at 4 shards (seed 23)
 FLEET_WAIT_S = 300.0        # the longest any fleet step may wait
 FLEET_CHECKPOINT_MS = 2000
 # the reference bench's cadence; a 5 s TTL leaves headroom for workers
@@ -4283,11 +4308,11 @@ def fleet_phase(torch, base, dev) -> dict:
 
 # -- phase 19: the arena and the native store --------------------------------
 
-ARENA_LATENCY_CALLS = 1000    # sequential wire TOPK on the arena member
-ARENA_NATIVE_CALLS = 2000     # GET, MGET and B2 GET each on the native plane
+ARENA_LATENCY_CALLS = 500     # sequential wire TOPK on the arena member
+ARENA_NATIVE_CALLS = 1000     # GET, MGET and B2 GET each on the native plane
 ARENA_MGET_KEYS = 64          # keys of one MGET
-ARENA_DFREE_RATINGS = 20_000  # duplicate-free, held against one SGDStep run
-ARENA_RATINGS = 200_000       # timed at 4 shards, as phase 18 (d)
+ARENA_DFREE_RATINGS = 10_000  # duplicate-free, held against one SGDStep run
+ARENA_RATINGS = 50_000        # timed at 4 shards, as phase 18 (d)
 
 
 def arena_dir(run, worker=0, shards=1, replica=0, gen=0) -> str:
@@ -4724,6 +4749,522 @@ def arena_phase(torch, base, dev) -> dict:
     return out
 
 
+# -- phase 20: the closed loop -----------------------------------------------
+
+LOOP_GROUP = "loop"
+LOOP_USERS, LOOP_ITEMS = 5_000, 2_000  # the window's slice of the id space
+LOOP_RATINGS = 500_000        # the window, through the update plane (seed 26)
+LOOP_MORE_RATINGS = 100_000   # then for the CLI's tick (seed 27)
+LOOP_PERTURB = 0.3            # each served row moves by N(0, 0.3 std)
+LOOP_NOISE = 0.05             # and each rating by N(0, 0.05)
+LOOP_PROBE = 256              # held-out ratings of each MSE probe
+LOOP_STREAM_KEYS = 1000       # window users the open-loop GETs sample
+LOOP_ALERT_TTL_S = 60.0       # the model_drift record's time to live
+LOOP_DRIFT = {"firing": 1, "max_severity": "warn", "max_severity_level": 2,
+              "alerts": [{"rule": "model_drift", "severity": "warn",
+                          "description": "live held-out MSE above drift "
+                                         "threshold"}]}
+
+
+class LoopWorld:
+    """Where the window's ratings come from: phase 17's served rows of
+    ``LOOP_USERS`` users and ``LOOP_ITEMS`` items, each row moved once by
+    N(0, ``LOOP_PERTURB`` x the std of those served factors), so the
+    served model is stale on them; a rating is the dot product of the
+    moved rows plus N(0, ``LOOP_NOISE``)."""
+
+    def __init__(self, rows, seed):
+        self.rng = np.random.default_rng(seed)
+        ids = {side: np.asarray(sorted(int(k[:-2]) for k in rows
+                                       if k.endswith(f"-{side}")
+                                       and not k.startswith("MEAN")))
+               for side in "UI"}
+        self.users = self.rng.choice(ids["U"], LOOP_USERS, replace=False)
+        self.items = self.rng.choice(ids["I"], LOOP_ITEMS, replace=False)
+
+        def rows_of(ids_, side):
+            return np.stack([np.asarray(rows[f"{x}-{side}"].split(";"),
+                                        np.float64) for x in ids_])
+
+        U, V = rows_of(self.users, "U"), rows_of(self.items, "I")
+        sd = LOOP_PERTURB * float(np.std(np.concatenate([U, V]).ravel()))
+        self.U = U + self.rng.normal(0.0, sd, U.shape)
+        self.V = V + self.rng.normal(0.0, sd, V.shape)
+
+    def ratings(self, n, rng=None):
+        rng = self.rng if rng is None else rng
+        ui = rng.integers(0, LOOP_USERS, n)
+        ii = rng.integers(0, LOOP_ITEMS, n)
+        r = np.einsum("nd,nd->n", self.U[ui], self.V[ii]) \
+            + rng.normal(0.0, LOOP_NOISE, n)
+        return self.users[ui], self.items[ii], r
+
+
+class ProcessStream:
+    """``OpenLoopStream`` through one ``ElasticClient`` of ``LOOP_GROUP``
+    in a process of its own, so that the controller's Python in this
+    process does not hold up the stream's thread: the latencies are the
+    fleet's, not this interpreter's lock's.  The two processes' samples
+    share one clock (``time.perf_counter`` is the system's monotonic
+    clock).  ``stop`` ends the process on every path."""
+
+    window = OpenLoopStream.window
+
+    def __init__(self, work, keys):
+        self.paths = {k: os.path.join(work, f"stream.{k}")
+                      for k in ("keys", "out", "stop", "ready")}
+        with open(self.paths["keys"], "w") as f:
+            json.dump(list(keys), f)
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [os.path.dirname(os.path.abspath(__file__))]
+            + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "sys.exit(chip_smoke.stream_child(*sys.argv[1:]))",
+             self.paths["keys"], self.paths["out"], self.paths["stop"],
+             self.paths["ready"], str(FLEET_RATE_QPS)], env=env)
+        self.samples, self.errors = [], []
+        wait_until(lambda: os.path.exists(self.paths["ready"])
+                   or self.proc.poll() is not None, "the stream's process")
+        check(self.proc.poll() is None,
+              f"the stream's process exited {self.proc.returncode}")
+
+    def stop(self):
+        if self.proc is None:
+            return
+        open(self.paths["stop"], "w").close()
+        try:
+            self.proc.wait(timeout=60)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+            self.proc = None
+        with open(self.paths["out"]) as f:
+            got = json.load(f)
+        self.samples, self.errors = got["samples"], got["errors"]
+
+
+def stream_child(keys_path, out_path, stop_path, ready_path, rate) -> int:
+    """The body of a ``ProcessStream``'s process."""
+    from flink_ms_tpu_torch.serve.client import RetryPolicy
+    from flink_ms_tpu_torch.serve.elastic import ElasticClient
+
+    with open(keys_path) as f:
+        keys = json.load(f)
+    retry = RetryPolicy(attempts=6, backoff_s=0.02, max_backoff_s=0.5)
+    stream = OpenLoopStream(lambda: ElasticClient(
+        LOOP_GROUP, timeout_s=10, retry=retry), keys,
+        rate_qps=float(rate)).start()
+    while not stream.samples:
+        time.sleep(0.01)
+    open(ready_path, "w").close()
+    while not os.path.exists(stop_path):
+        time.sleep(0.02)
+    stream.stop()
+    with open(out_path, "w") as f:
+        json.dump({"samples": stream.samples, "errors": stream.errors}, f)
+    return 0
+
+
+def loop_submit(run, ratings) -> float:
+    """Ratings into the update plane's 16 input partitions -> seconds."""
+    from flink_ms_tpu_torch.serve.update_plane import UpdatePlaneClient
+
+    t0 = time.perf_counter()
+    ucli = UpdatePlaneClient(run.path("ratings"), "models",
+                             partitions=FLEET_PARTITIONS)
+    u, i, r = ratings
+    triples = list(zip(u.tolist(), i.tolist(), r.tolist()))
+    for s in range(0, len(triples), 50_000):
+        ucli.submit_many(triples[s:s + 50_000])
+    ucli.sync()
+    return time.perf_counter() - t0
+
+
+def loop_member(gen):
+    """(host, port) of the one ready member of generation `gen`."""
+    from flink_ms_tpu_torch.serve import registry
+    from flink_ms_tpu_torch.serve.elastic import generation_group
+    from flink_ms_tpu_torch.serve.ha import shard_group
+
+    entries = [e for e in registry.resolve_replicas(shard_group(
+        generation_group(LOOP_GROUP, gen), 0)) if e.get("ready")]
+    check(len(entries) == 1,
+          f"generation {gen} has {len(entries)} ready members")
+    return entries[0]["host"], entries[0]["port"]
+
+
+def loop_health(gen) -> dict:
+    """Generation `gen`'s member's HEALTH."""
+    from flink_ms_tpu_torch.serve.client import QueryClient
+
+    host, port = loop_member(gen)
+    with QueryClient(host, port, timeout_s=60) as c:
+        return c.health(JOB_STATE)
+
+
+def fmt_boot(h) -> str:
+    return (f"its member bootstrapped from {h.get('bootstrap_source')} in "
+            f"{h.get('bootstrap_seconds') or 0.0:.2f}s")
+
+
+def loop_topk(gen, users) -> list:
+    """Generation `gen`'s raw TOPK replies (k 10) for `users`."""
+    from flink_ms_tpu_torch.serve.client import QueryClient
+
+    host, port = loop_member(gen)
+    with QueryClient(host, port, timeout_s=60) as c:
+        return c.pipeline([f"TOPK\t{JOB_STATE}\t{u}\t{TOPK_K}"
+                           for u in users], window=8)
+
+
+def stop_loop_orphans(ctl) -> int:
+    """Stop the members of generations this controller does not own (the
+    CLI's rollout spawns workers that outlive it) -> how many."""
+    import signal
+
+    from flink_ms_tpu_torch.serve import registry
+
+    pids = [e["pid"] for e in registry.list_jobs(gc=False)
+            if registry.generation_of(e, LOOP_GROUP) not in
+            (None, *ctl.supervisors)]
+    for pid in pids:
+        try:
+            os.kill(pid, signal.SIGTERM)
+        except OSError:
+            pass
+    deadline = time.time() + 30
+    for pid in pids:
+        while time.time() < deadline:
+            try:
+                os.kill(pid, 0)
+            except OSError:
+                break
+            time.sleep(0.05)
+        else:
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except OSError:
+                pass
+    return len(pids)
+
+
+def timed_steps(pilot, spans, captured):
+    """Wrap the controller's steps so each records its (start, end) time;
+    the candidate of ``_train`` is kept for the canary."""
+    for name in ("_tail_ratings", "_seal_window", "_train", "_evaluate",
+                 "_roll_out"):
+        fn = getattr(pilot, name)
+
+        def wrapper(*a, _fn=fn, _name=name, **kw):
+            t0 = time.perf_counter()
+            try:
+                out = _fn(*a, **kw)
+            finally:
+                spans[_name] = (t0, time.perf_counter())
+            if _name == "_train":
+                captured["candidate"] = out
+            return out
+
+        setattr(pilot, name, wrapper)
+
+
+def loop_bootstrap(run, world):
+    """(a) The port's ``RolloutController`` rolls phase 17's topic out as
+    generation 1 of ``LOOP_GROUP``: 1 shard x 1 replica on the arena, the
+    row floor every published row, the MSE probe ``LOOP_PROBE`` held-out
+    ratings gated at the served rows' own offline MSE."""
+    from flink_ms_tpu_torch.eval.mse import compute_mse
+    from flink_ms_tpu_torch.serve.rollout import RolloutController
+
+    rows = run.rows
+    pu, pi, pr = world.ratings(LOOP_PROBE)
+
+    def parsed(k):
+        p = rows.get(k)
+        return None if p is None else np.asarray(p.split(";"), np.float64)
+
+    offline, n_off, _ = compute_mse(pu, pi, pr, parsed,
+                                    lookup_many=lambda ks: [parsed(k)
+                                                            for k in ks])
+    offline = float(offline)
+    check(n_off == LOOP_PROBE, f"the probe scored {n_off} offline")
+    ctl = RolloutController(LOOP_GROUP, port_dir=run.path("ports-loop"),
+                            journal_dir=run.path("journal"), topic=JOB_TOPIC,
+                            ready_timeout_s=FLEET_WAIT_S,
+                            device=run.dev_name)
+    run.ctls.append(ctl)
+    t0 = time.perf_counter()
+    rec = ctl.rollout(run.path("journal"), JOB_TOPIC, model_id="seed",
+                      shards=1, replicas=1, verify_min_rows=len(rows),
+                      probe={"users": pu, "items": pi, "ratings": pr,
+                             "max_mse": offline * (1 + 1e-9)})
+    boot_s = time.perf_counter() - t0
+    verified = [e for e in ctl.events if e["kind"] == "verified"]
+    log(f"loop (a) bootstrap: generation {rec['gen']} of {LOOP_GROUP!r} "
+        f"serves phase 17's topic ({rec['shards']} shard x "
+        f"{rec['replicas']} replica, --device {run.dev_name}) in "
+        f"{boot_s:.2f}s ({fmt_boot(loop_health(1))}); verified {[{k: v for k, v in e.items() if k not in ('t', 'kind')} for e in verified]}"
+        f" against a row floor of {len(rows)} and the probe's offline MSE "
+        f"{offline!r}")
+    check(rec["gen"] == 1 and rec["model"]["model_id"] == "seed"
+          and len(verified) == 2, f"the bootstrap {rec}")
+    return ctl, boot_s
+
+
+def loop_tick(run, ctl, pilot, world):
+    """(c) One in-process tick under the open-loop GET stream (a process
+    of its own): windowing, training on the card, evaluating, rolling out
+    generation 2."""
+    from flink_ms_tpu_torch.ops import cholesky as CH
+    from flink_ms_tpu_torch.ops import gather_assembly as GA
+
+    keys = [f"{u}-U" for u in world.users[:LOOP_STREAM_KEYS]]
+    stream = ProcessStream(run.work, keys)
+    run.streams.append(stream)
+    spans, captured = {}, {}
+    timed_steps(pilot, spans, captured)
+    t_a = time.perf_counter()
+    time.sleep(FLEET_WINDOW_S)
+    reset_als_launches(CH, GA)
+    t_tick = time.perf_counter()
+    out = pilot.tick()
+    t_end = time.perf_counter()
+    launches = als_launches(CH, GA)
+    time.sleep(FLEET_WINDOW_S)
+    stream.stop()
+    cand = captured.get("candidate")
+    secs = {"windowing": spans["_tail_ratings"][1] - spans["_tail_ratings"][0]
+            + spans["_seal_window"][1] - spans["_seal_window"][0]}
+    for phase, step in (("training", "_train"), ("evaluating", "_evaluate"),
+                        ("rolling-out", "_roll_out")):
+        if step in spans:
+            secs[phase] = spans[step][1] - spans[step][0]
+    roll = spans.get("_roll_out", (t_end, t_end))
+    names = ("before", "windowing to evaluating", "cutover", "after")
+    wins = [stream.window(t_a, t_tick), stream.window(t_tick, roll[0]),
+            stream.window(*roll), stream.window(t_end, time.perf_counter())]
+    cut = [e for e in ctl.events if e["kind"] == "cutover"]
+    boot2 = fmt_boot(loop_health(2)) if out.get("rollout_gen") == 2 else ""
+    log(f"loop (c) one tick in {t_end - t_tick:.2f}s: "
+        + ", ".join(f"{k} {v:.2f}s" for k, v in secs.items())
+        + f"; window {out.get('new_ratings')} new ratings, "
+        f"{out.get('window_rows')} rows (last write wins), version "
+        f"{out.get('window_version')}; train_s {out.get('train_s')} "
+        f"({pilot.iterations} iterations, rank {pilot.num_factors}, warm "
+        f"{out.get('warm_start')}); held-out MSE incumbent "
+        f"{out.get('incumbent_mse')!r}, candidate {out.get('candidate_mse')!r}"
+        f" ({out.get('model_id')}): win {out.get('win')}; generation "
+        f"{out.get('rollout_gen')} cut over in "
+        f"{cut[-1]['cutover_s'] if cut else float('nan'):.2f}s ({boot2}); "
+        "launches "
+        f"on the tick: cholesky {launches['cholesky']} (batch-major "
+        f"{launches['cholesky_batch_major']}), assembly "
+        f"{launches['assembly']}; GETs at {FLEET_RATE_QPS:.0f} q/s: "
+        + "; ".join(fmt_window(n, x) for n, x in zip(names, wins))
+        + f"; {len(stream.errors)} failed queries")
+    check(out.get("win") is True, "the candidate did not win: held-out MSE "
+          f"candidate {out.get('candidate_mse')!r}, incumbent "
+          f"{out.get('incumbent_mse')!r}")
+    check(out.get("rollout_gen") == 2 and "rollout_error" not in out,
+          f"the rollout: {out}")
+    check(not stream.errors, f"loop errors: {stream.errors[:3]}")
+    check(cand is not None and all(k in cand["tables"] for k in keys),
+          "a streamed key is missing from the candidate")
+    check(launches["cholesky"] == 2 * pilot.iterations
+          and launches["assembly"] >= 2 * pilot.iterations
+          and launches["cholesky_batch_major"] == 0,
+          f"tick launches {launches}")
+    return out, cand, launches, secs, wins, cut[-1]["cutover_s"]
+
+
+def loop_canary(run, pilot, cand) -> dict:
+    """(d) ``ModelQualityCanary`` over the group's ``ElasticClient`` on the
+    candidate's held-out probe: the live MSE gauge is the offline
+    ``compute_mse`` of the candidate's tables at rtol 1e-5."""
+    from flink_ms_tpu_torch.eval.mse import compute_mse
+    from flink_ms_tpu_torch.obs.metrics import get_registry
+    from flink_ms_tpu_torch.obs.watch import ModelQualityCanary
+    from flink_ms_tpu_torch.serve.elastic import ElasticClient
+
+    probe = pilot._probe_slice(cand["heldout"])
+    tables = cand["tables"]
+    with ElasticClient(LOOP_GROUP, timeout_s=60, retry=run.retry) as client:
+        canary = ModelQualityCanary(probe["users"], probe["items"],
+                                    probe["ratings"], client,
+                                    max_probe=LOOP_PROBE)
+        t0 = time.perf_counter()
+        res = canary.probe()
+        probe_s = time.perf_counter() - t0
+    live = get_registry().gauge("tpums_model_live_mse").value
+    offline, n_off, _ = compute_mse(
+        probe["users"], probe["items"], probe["ratings"], tables.get,
+        lookup_many=lambda ks: [tables.get(k) for k in ks])
+    offline = float(offline)
+    log(f"loop (d) canary: tpums_model_live_mse {live!r} over "
+        f"{res['n_scored']} held-out ratings in {probe_s:.3f}s, coverage "
+        f"{res['coverage']}; offline compute_mse of the candidate "
+        f"{offline!r} ({n_off} ratings): relative difference "
+        f"{abs(live - offline) / offline:.3e}")
+    check(res["coverage"] == 1.0 and n_off == len(probe["ratings"]),
+          f"canary coverage {res['coverage']}")
+    check(abs(live - offline) <= 1e-5 * abs(offline),
+          f"the canary's MSE {live!r} is not the offline {offline!r}")
+    return {"live_mse": live, "offline_mse": offline}
+
+
+def loop_drift(run, ctl, pilot, gen1) -> dict:
+    """(e) A ``model_drift`` alert record: the next tick rolls back to
+    generation 3 (the seed model, its TOPK replies generation 1's byte
+    for byte), a member's HEALTH carries the alert, and a further tick
+    with the alert still firing does nothing (the latch)."""
+    from flink_ms_tpu_torch.serve import registry
+
+    registry.publish_alerts("fleet", LOOP_DRIFT, ttl_s=LOOP_ALERT_TTL_S)
+    t0 = time.perf_counter()
+    out = pilot.tick()
+    rollback_s = time.perf_counter() - t0
+    topo = ctl.current()
+    gen3 = loop_topk(3, run.base["users"]) if out.get("rollback") == 3 \
+        else []
+    same = sum(a == b for a, b in zip(gen3, gen1))
+    health = loop_health(topo["gen"])
+    t1 = time.perf_counter()
+    latch = pilot.tick()
+    latch_s = time.perf_counter() - t1
+    log(f"loop (e) drift: alert {out.get('drift')!r} -> rollback to "
+        f"generation {out.get('rollback')} ({topo['model']['model_id']}) in "
+        f"{rollback_s:.2f}s ({fmt_boot(health)}); {same} of {len(gen1)} "
+        f"TOPK replies (k "
+        f"{TOPK_K}) equal generation 1's byte for byte; HEALTH of its "
+        f"member: alerts_firing {health.get('alerts_firing')}, "
+        f"alerts_max_severity {health.get('alerts_max_severity')!r}; a "
+        f"further tick with the alert firing ({latch_s:.2f}s): "
+        f"{ {k: v for k, v in latch.items() if k not in ('ts', 'group')} }, "
+        f"generation {ctl.current()['gen']}")
+    check(out.get("drift") == "alert:model_drift" and out.get("rollback") == 3
+          and topo["model"]["model_id"] == "seed", f"the rollback: {out}")
+    check(same == len(gen1) and len(gen3) == len(gen1),
+          f"generation 3 answers {len(gen1) - same} TOPK replies otherwise "
+          "than generation 1")
+    check(health.get("alerts_firing") == 1
+          and health.get("alerts_max_severity") == "warn",
+          f"HEALTH without the alert hint: {health}")
+    check("rollback" not in latch and "drift" not in latch
+          and latch.get("new_ratings") == 0 and ctl.current()["gen"] == 3,
+          f"the latch: {latch}")
+    registry.drop_alerts("fleet")
+    return {"rollback_s": rollback_s}
+
+
+def loop_cli(run, ctl, world) -> dict:
+    """(f) 100,000 more ratings, then ``python -m
+    flink_ms_tpu_torch.serve.autopilot --once`` in a process of its own:
+    it takes the lease, resumes from ``autopilot_state.json`` and windows
+    only the new ratings."""
+    submit_s = loop_submit(run, world.ratings(
+        LOOP_MORE_RATINGS, np.random.default_rng(27)))
+    cmd = [sys.executable, "-m", "flink_ms_tpu_torch.serve.autopilot",
+           "--group", LOOP_GROUP, "--ratingsDir", run.path("ratings"),
+           "--workDir", run.path("autopilot"), "--once",
+           "--device", run.dev_name, "--numFactors", str(RANK),
+           "--portDir", run.path("ports-cli"),
+           "--readyTimeoutS", str(FLEET_WAIT_S)]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__))]
+        + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          timeout=4 * FLEET_WAIT_S)
+    cli_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the autopilot CLI exited "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    out = json.JSONDecoder().raw_decode(proc.stdout[proc.stdout.index("{"):])[0]
+    with open(run.path("autopilot", "autopilot_state.json")) as f:
+        state = json.load(f)
+    stopped = stop_loop_orphans(ctl)
+    log(f"loop (f) CLI: {LOOP_MORE_RATINGS} more ratings (seed 27) "
+        f"submitted in {submit_s:.2f}s; python -m "
+        "flink_ms_tpu_torch.serve.autopilot --once: result in "
+        f"{cli_s:.2f}s from spawn; {out.get('new_ratings')} new ratings "
+        f"windowed, {out.get('window_rows')} rows in window version "
+        f"{out.get('window_version')}; train_s {out.get('train_s')}, "
+        f"held-out MSE incumbent {out.get('incumbent_mse')!r}, candidate "
+        f"{out.get('candidate_mse')!r}: win {out.get('win')}, rollout "
+        f"generation {out.get('rollout_gen')}; state record: retrains "
+        f"{state['retrains']}, rollouts {state['rollouts']}, rollbacks "
+        f"{state['rollbacks']}; {stopped} member(s) the CLI spawned "
+        "stopped")
+    check(out.get("state") != "standby", "the CLI did not take the lease")
+    check(out.get("new_ratings") == LOOP_MORE_RATINGS
+          and "resumed_window" not in out and out.get("window_version") == 2,
+          f"the CLI's tick: {out}")
+    check(state["retrains"] == 2 and state["rollbacks"] == 1
+          and state["window_version"] == 2, f"the state record {state}")
+    return {"cli_s": cli_s, "cli_window_rows": out.get("window_rows")}
+
+
+def loop_phase(torch, base, dev) -> dict:
+    """Phase 20: the closed loop on phase 17's published topic, every
+    member a ``--device`` process on this card: (a) a port
+    ``RolloutController`` bootstraps generation 1, (b) a window of ratings
+    through the update plane, (c) one ``AutopilotController.tick()`` that
+    retrains on the card and rolls the candidate out under a 300 q/s GET
+    stream, (d) the canary's live MSE against the offline one, (e) a
+    ``model_drift`` alert rolls back, (f) the autopilot's CLI resumes the
+    loop from its state record."""
+    import tempfile
+
+    from flink_ms_tpu_torch.serve.autopilot import AutopilotController
+
+    t_phase = time.perf_counter()
+    prior = {k: os.environ.get(k)
+             for k in list(FLEET_ENV) + ["TPUMS_REGISTRY_DIR"]}
+    out = {}
+    with tempfile.TemporaryDirectory() as work:
+        os.environ.update(FLEET_ENV)
+        os.environ["TPUMS_REGISTRY_DIR"] = os.path.join(work, "registry")
+        run = ctl = None
+        try:
+            run = FleetRun(work, base, dev)
+            world = LoopWorld(run.rows, 26)
+            t0 = time.perf_counter()
+            window = world.ratings(LOOP_RATINGS)
+            gen_s = time.perf_counter() - t0
+            ctl, out["bootstrap_s"] = loop_bootstrap(run, world)
+            gen1 = loop_topk(1, base["users"])
+            submit_s = loop_submit(run, window)
+            log(f"loop (b) window: {LOOP_RATINGS} ratings of {LOOP_USERS} "
+                f"users x {LOOP_ITEMS} items (seed 26) made in {gen_s:.2f}s, "
+                f"submitted into {FLEET_PARTITIONS} input partitions in "
+                f"{submit_s:.2f}s")
+            pilot = AutopilotController(
+                LOOP_GROUP, run.path("ratings"), run.path("autopilot"),
+                rollout=ctl, num_factors=RANK, partitions=FLEET_PARTITIONS,
+                device=dev)
+            tick, cand, out["launches"], out["tick_s"], out["get_windows"], \
+                out["cutover_s"] = loop_tick(run, ctl, pilot, world)
+            out.update(train_s=tick["train_s"],
+                       candidate_mse=tick["candidate_mse"],
+                       incumbent_mse=tick["incumbent_mse"])
+            out.update(loop_canary(run, pilot, cand))
+            out.update(loop_drift(run, ctl, pilot, gen1))
+            pilot.release_lease()
+            out.update(loop_cli(run, ctl, world))
+        finally:
+            if ctl is not None:
+                stop_loop_orphans(ctl)
+            if run is not None:
+                run.close()
+            for k, v in prior.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    log(f"loop phase: {time.perf_counter() - t_phase:.1f}s")
+    return out
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -4748,6 +5289,14 @@ def main(argv=None) -> int:
     if argv:
         return multi_gpu_only(torch, dev)
     t_start = time.perf_counter()
+    laps = [t_start]
+
+    def lap(label):
+        now = time.perf_counter()
+        log(f"clock: {label} done at {now - t_start:.1f}s "
+            f"(+{now - laps[-1]:.1f}s)")
+        laps.append(now)
+
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
@@ -4819,16 +5368,23 @@ def main(argv=None) -> int:
         e["launches_by_path"] = {"svm_rcv1": svm_launches[e["name"]]}
         entries.append(e)
 
+    lap("phases 1-9 (build, kernels, ALS and SVM)")
     serve = serve_phase(torch, final, (users, items, ratings),
                         final["rmse"][2], dev)
+    lap("phase 10 (serve)")
     serve_scale_phase(torch, dev)
+    lap("phase 11 (serve scale)")
 
     staged = staged_phase(torch, TA, CH, GA, problem, (users, items, ratings),
                           init, final["model"], final["sec_per_iter"], dev)
+    lap("phase 12 (staged ALS)")
     modes = svm_modes_phase(torch, TS, SK, svm_run, dev)
+    lap("phase 13 (SVM modes)")
     gen_phase(torch, dev)
+    lap("phase 14 (generators)")
     retrain = retrain_phase(torch, CH, GA, final["model"],
                             (users, items, ratings), dev)
+    lap("phase 15 (retrain)")
     multi_world1_phase(torch, TA, CH, GA, TS, SK, problem,
                        (users, items, ratings), init, runs, svm_run["w"],
                        dev)
@@ -4841,14 +5397,21 @@ def main(argv=None) -> int:
         log("multi (d): NCCL over 2 and 4 ranks needs two or more cards; "
             f"this machine has {torch.cuda.device_count()} "
             "(run python3 chip_smoke.py --multi-gpu on one that has them)")
+    lap("phase 16 (multi-rank)")
     job = serving_job_phase(torch, final["model"], (users, items, ratings),
                             serve["p50_ms"], dev)
+    lap("phase 17 (serving job)")
     fleet_phase(torch, job["fleet_base"], dev)
+    lap("phase 18 (fleet)")
     arena_phase(torch, job["fleet_base"], dev)
+    lap("phase 19 (arena)")
+    loop = loop_phase(torch, job["fleet_base"], dev)
+    lap("phase 20 (loop)")
     for e, key in zip(entries[:3], ("cholesky", "cholesky_batch_major",
                                     "assembly")):
         e["launches_by_path"]["als_staged"] = staged[key]
         e["launches_by_path"]["autopilot_retrain"] = retrain[key]
+        e["launches_by_path"]["autopilot_tick"] = loop["launches"][key]
         for label in ("als_d2", "als_d2_fused", "als_routed"):
             e["launches_by_path"][label] = multi[label][key]
     for e in entries[3:]:

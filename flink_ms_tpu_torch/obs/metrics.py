@@ -11,9 +11,11 @@ exemplars (``TPUMS_EXEMPLARS=1``: each histogram bucket keeps the last
 traced observation), and the snapshot the ``METRICS`` verb renders as one
 JSON line, in the reference's schema.  The port's registry is its own; the
 JAX package's is not shared.  The fleet merge (``merge_snapshots``) and
-``snapshot_quantile`` serve the fleet scrape (``obs/scrape.py``); the
-Prometheus text rendering and bench deltas are not ported yet
-(ROADMAP.md, Queue 1, item 'Observability').
+``snapshot_quantile`` serve the fleet scrape (``obs/scrape.py``);
+``render_prometheus`` is the reference's text exposition, byte for byte;
+``bucketed_quantiles`` and ``diff_snapshots`` are the bench's percentile
+and delta helpers; ``set_enabled``/``set_exemplars`` flip the two switches
+live.
 
 Every instrument takes its own lock per observation: ``+=`` on an
 attribute is a read-modify-write that can lose updates across threads.
@@ -39,6 +41,14 @@ def metrics_enabled() -> bool:
     return _ENABLED
 
 
+def set_enabled(on: bool) -> bool:
+    """Flip metric collection live (bench A/B, tests) -> previous value.
+    Instruments keep existing either way; observations become no-ops."""
+    global _ENABLED
+    prev, _ENABLED = _ENABLED, bool(on)
+    return prev
+
+
 # Exemplars: when on, each histogram bucket remembers the last
 # ``(tid, value, ts)`` observed under an active trace, so any p99 number
 # resolves to a concrete trace id.  Off by default — the hot path then
@@ -47,6 +57,17 @@ _EXEMPLARS = os.environ.get("TPUMS_EXEMPLARS", "0") != "0"
 
 # The trace id rides INTO ``observe(v, tid=...)`` explicitly, so an
 # untraced observation pays nothing for the feature.
+
+
+def exemplars_enabled() -> bool:
+    return _EXEMPLARS
+
+
+def set_exemplars(on: bool) -> bool:
+    """Flip exemplar retention live (bench A/B, tests) -> previous value."""
+    global _EXEMPLARS
+    prev, _EXEMPLARS = _EXEMPLARS, bool(on)
+    return prev
 
 
 # ---------------------------------------------------------------------------
@@ -136,9 +157,8 @@ class Histogram:
     the implicit +Inf bucket) — one bisect into a precomputed tuple plus
     two adds, zero allocation.  ``quantile(q)`` returns the interpolated
     value the way ``histogram_quantile`` does: uniform within the winning
-    bucket, lower edge 0 for the first.  ``merge`` adds two histograms
-    bucket-wise (associative and commutative — the fleet-scrape identity
-    the tests pin)."""
+    bucket, lower edge 0 for the first.  ``fill`` bulk-loads values that
+    already exist (bench percentiles, ``StepTimer.to_histogram``)."""
 
     __slots__ = ("name", "labels", "bounds", "_lock", "_counts",
                  "_sum", "_count", "_exemplars")
@@ -181,6 +201,32 @@ class Histogram:
     @property
     def count(self) -> int:
         return self._count
+
+    @property
+    def sum(self) -> float:
+        return self._sum
+
+    def counts(self) -> List[int]:
+        with self._lock:
+            return list(self._counts)
+
+    def fill(self, values: Sequence[float]) -> "Histogram":
+        """Bulk-load observations IGNORING the enable switch: offline
+        re-bucketing of values that already exist, where the math must
+        work even under TPUMS_METRICS=0."""
+        with self._lock:
+            for v in values:
+                self._counts[bisect_left(self.bounds, v)] += 1
+                self._sum += v
+                self._count += 1
+        return self
+
+    def quantile(self, q: float) -> float:
+        """Interpolated quantile in [0, 100]; nan when empty."""
+        with self._lock:
+            entry = {"le": self.bounds, "counts": list(self._counts),
+                     "count": self._count}
+        return snapshot_quantile(entry, q)
 
 
 # ---------------------------------------------------------------------------
@@ -387,3 +433,107 @@ def snapshot_to_json_line(snapshot: dict) -> str:
     """Single-line JSON (the METRICS verb's wire payload — the protocol is
     line-framed, so the snapshot must never contain a raw newline)."""
     return json.dumps(snapshot, separators=(",", ":"))
+
+
+# ---------------------------------------------------------------------------
+# bench percentiles and deltas
+# ---------------------------------------------------------------------------
+
+def bucketed_quantiles(values: Sequence[float], qs: Sequence[float],
+                       bounds: Sequence[float] = LATENCY_BUCKETS_S
+                       ) -> List[float]:
+    """Interpolated quantiles of ``values`` computed THROUGH the shared
+    bucket ladder: the same estimate a scraped serving histogram yields for
+    the same data.  Pure computation: unaffected by the enable switch."""
+    h = Histogram("_bucketed", bounds=bounds).fill(values)
+    return [h.quantile(q) for q in qs]
+
+
+def diff_snapshots(before: dict, after: dict) -> dict:
+    """Compact before/after delta for bench detail records: counters that
+    moved, histogram count/sum deltas, and gauges at their AFTER value
+    (gauges are levels, not flows)."""
+    def index(snap, kind):
+        return {_series_key(e): e for e in snap.get(kind, [])}
+
+    out: dict = {"counters": {}, "gauges": {}, "histograms": {}}
+    b_c = index(before, "counters")
+    for k, e in index(after, "counters").items():
+        d = e["value"] - b_c.get(k, {}).get("value", 0)
+        if d:
+            out["counters"][_fmt_series(e)] = d
+    for k, e in index(after, "gauges").items():
+        if e["value"]:
+            out["gauges"][_fmt_series(e)] = round(e["value"], 6)
+    b_h = index(before, "histograms")
+    for k, e in index(after, "histograms").items():
+        prev = b_h.get(k, {"count": 0, "sum": 0.0})
+        dc = e["count"] - prev["count"]
+        if dc:
+            out["histograms"][_fmt_series(e)] = {
+                "count": dc, "sum": round(e["sum"] - prev["sum"], 6)}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Prometheus text exposition
+# ---------------------------------------------------------------------------
+
+def _fmt_series(entry: dict, name: Optional[str] = None,
+                extra: Optional[dict] = None) -> str:
+    labels = dict(entry.get("labels", {}))
+    if extra:
+        labels.update(extra)
+    base = name or entry["name"]
+    if not labels:
+        return base
+    inner = ",".join(
+        f'{k}="{_escape_label(v)}"' for k, v in sorted(labels.items()))
+    return f"{base}{{{inner}}}"
+
+
+def _escape_label(v) -> str:
+    return str(v).replace("\\", "\\\\").replace('"', '\\"').replace(
+        "\n", "\\n")
+
+
+def _fmt_float(v: float) -> str:
+    if v == float("inf"):
+        return "+Inf"
+    return repr(float(v))
+
+
+def render_prometheus(snapshot: dict) -> str:
+    """Snapshot -> Prometheus text exposition format 0.0.4 (counters as
+    ``counter``, gauges as ``gauge``, histograms as cumulative ``_bucket``
+    series plus ``_sum``/``_count``)."""
+    lines: List[str] = []
+    seen_type: set = set()
+
+    def typ(name: str, kind: str) -> None:
+        if name not in seen_type:
+            seen_type.add(name)
+            lines.append(f"# TYPE {name} {kind}")
+
+    for e in snapshot.get("counters", []):
+        typ(e["name"], "counter")
+        lines.append(f"{_fmt_series(e)} {e['value']}")
+    for e in snapshot.get("gauges", []):
+        typ(e["name"], "gauge")
+        lines.append(f"{_fmt_series(e)} {_fmt_float(e['value'])}")
+    for e in snapshot.get("histograms", []):
+        name = e["name"]
+        typ(name, "histogram")
+        cum = 0
+        for bound, c in zip(e["le"], e["counts"]):
+            cum += c
+            lines.append(
+                f"{_fmt_series(e, name + '_bucket', {'le': _fmt_float(bound)})}"
+                f" {cum}")
+        if len(e["counts"]) > len(e["le"]):
+            cum += e["counts"][len(e["le"])]
+        lines.append(
+            f"{_fmt_series(e, name + '_bucket', {'le': '+Inf'})} {cum}")
+        lines.append(f"{_fmt_series(e, name + '_sum')} {_fmt_float(e['sum'])}")
+        lines.append(f"{_fmt_series(e, name + '_count')} {e['count']}")
+    return "\n".join(lines) + ("\n" if lines else "")

@@ -12,39 +12,39 @@ reference reads; a series that no module of the port publishes (alert,
 recall, arena, edge, autopilot, profiler gauges) reads as the reference
 reads it when the series is absent: zero, or None, and the alert fields
 fall back to the registry's published alert record.  The profile scrape,
-the Prometheus rendering, the push-freshness series and the CLI are not
-ported yet (ROADMAP.md, Queue 1, item 'Observability').
+``push_freshness`` (the reset-aware update->push freshness over a series
+of scrapes) and the CLI (``--prom``, ``--raw``) are the reference's.  The
+profile scrape waits for the continuous profiler: ``scrape_fleet_profiles``
+refuses (ROADMAP.md, Queue 1, item 'Observability').
+
+CLI::
+
+    python -m flink_ms_tpu_torch.obs.scrape            # aggregated JSON
+    python -m flink_ms_tpu_torch.obs.scrape --prom     # Prometheus text
+    python -m flink_ms_tpu_torch.obs.scrape --raw      # per-replica snapshots
 """
 
 from __future__ import annotations
 
 import json
 import socket
+import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
-from ..serve import registry
-from .metrics import LATENCY_BUCKETS_S, merge_snapshots, snapshot_quantile
+from ..serve import not_ported, registry
+from .metrics import (LATENCY_BUCKETS_S, merge_snapshots, render_prometheus,
+                      snapshot_quantile)
 
 __all__ = ["scrape_endpoint", "scrape_fleet", "fleet_signals",
-           "snapshot_quantile"]
+           "scrape_fleet_profiles", "push_freshness", "snapshot_quantile",
+           "main"]
 
 # scrape fan-out width: enough that one wedged endpoint can't stretch the
 # scrape past ~one timeout even on a wide fleet, small enough that a
 # watch tick doesn't spawn a thread herd
 _SCRAPE_POOL_MAX = 16
-
-# the watch plane's severity ladder (the reference's obs/rules.py)
-SEVERITY_LEVEL = {"info": 1, "warn": 2, "page": 3}
-
-
-def severity_name(level: float) -> Optional[str]:
-    for name, lv in SEVERITY_LEVEL.items():
-        if lv == int(level):
-            return name
-    return None
-
 
 def scrape_endpoint(host: str, port: int, timeout_s: float = 2.0
                     ) -> Optional[dict]:
@@ -170,6 +170,14 @@ def scrape_fleet(timeout_s: float = 2.0) -> dict:
 # so a scrape/health poller can't talk an autoscaler into scaling out
 _NON_QUERY_VERBS = frozenset({"HEALTH", "METRICS", "PING", "PROFILE",
                               "SUBSCRIBE", "RESUME", "UNSUB"})
+
+
+def scrape_fleet_profiles(timeout_s: float = 2.0) -> dict:
+    """The fleet's merged PROFILE replies: refused until the continuous
+    profiler is ported."""
+    raise NotImplementedError(not_ported(
+        "scrape_fleet_profiles (the PROFILE verb's fleet merge)",
+        "Observability"))
 
 
 def _query_hists(snapshot: dict) -> List[dict]:
@@ -411,6 +419,8 @@ def fleet_signals(before: dict, after: dict,
         rec = registry.resolve_alerts()
         alerts_firing = rec.get("firing", 0) if rec else 0
         alerts_sev_level = rec.get("max_severity_level", 0) if rec else 0
+    from .rules import severity_name
+
     alerts_max_severity = (severity_name(alerts_sev_level)
                            if alerts_sev_level else None)
     # autopilot loop progress (serve/autopilot.py): counter
@@ -630,3 +640,92 @@ def fleet_signals(before: dict, after: dict,
         "dt_s": dt_s,
         "requests": requests,
     }
+
+
+def push_freshness(samples: Sequence[Tuple[float, dict]]) -> dict:
+    """Reset-aware update->push freshness over a SERIES of fleet scrapes.
+
+    ``fleet_signals`` differences two snapshots, which is blind to counter
+    resets in between: a generation cutover replaces the processes whose
+    counters held the window's history.  Here each CONSECUTIVE scrape pair
+    contributes its increment, with the standard reset rule: when a
+    fleet-merged total shrinks, the new snapshot's value IS the increment.
+    While two generations are co-registered their merged total covers
+    both, so a cutover costs at most one scrape interval of re-counted
+    traffic: an overcount for a freshness gate, never an undercount.
+
+    ``samples`` are ``(unix_ts, fleet_snapshot)`` pairs.  Returns::
+
+        {"deltas": accumulated tpums_push_deltas_total increments,
+         "p99_s": update->push p99 over the accumulated window ladder
+                  (None when no observation landed),
+         "dt_s": wall span of the series}
+    """
+    def _total(snap, name):
+        return sum(c["value"] for c in snap.get("counters", [])
+                   if c["name"] == name)
+
+    def _hists(snap):
+        return {tuple(sorted(h.get("labels", {}).items())): h
+                for h in snap.get("histograms", [])
+                if h["name"] == "tpums_push_latency_seconds"}
+
+    deltas = 0.0
+    window: Optional[dict] = None
+    for (_, before), (_, after) in zip(samples, samples[1:]):
+        inc = _total(after, "tpums_push_deltas_total") \
+            - _total(before, "tpums_push_deltas_total")
+        if inc < 0:  # reset: the survivors' total is the increment
+            inc = _total(after, "tpums_push_deltas_total")
+        deltas += inc
+        prev = _hists(before)
+        for key, h in _hists(after).items():
+            p = prev.get(key)
+            if p is None or h["count"] < p["count"] \
+                    or list(p["le"]) != list(h["le"]):
+                p = {"counts": [0] * len(h["counts"]), "count": 0,
+                     "sum": 0.0}
+            dc = h["count"] - p["count"]
+            if dc <= 0:
+                continue
+            dcounts = [a - b for a, b in zip(h["counts"], p["counts"])]
+            if any(d < 0 for d in dcounts):  # partial reset mid-merge
+                dcounts, dc = list(h["counts"]), h["count"]
+            dsum = max(h["sum"] - p["sum"], 0.0)
+            if window is None:
+                window = {"name": "push_window", "le": list(h["le"]),
+                          "counts": dcounts, "count": dc, "sum": dsum}
+            elif window["le"] == list(h["le"]):
+                window["counts"] = [a + b for a, b in
+                                    zip(window["counts"], dcounts)]
+                window["count"] += dc
+                window["sum"] += dsum
+    return {
+        "deltas": deltas,
+        "p99_s": (snapshot_quantile(window, 99) if window else None),
+        "dt_s": (samples[-1][0] - samples[0][0]) if len(samples) > 1
+                else 0.0,
+    }
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    prom = "--prom" in argv
+    raw = "--raw" in argv
+    result = scrape_fleet()
+    if prom:
+        sys.stdout.write(render_prometheus(result["fleet"]))
+    elif raw:
+        print(json.dumps(result, indent=2, default=str))
+    else:
+        print(json.dumps({
+            "scraped": result["scraped"],
+            "unreachable": result["unreachable"],
+            "per_shard": result["per_shard"],
+            "fleet": result["fleet"],
+        }, indent=2, default=str))
+    return 0 if result["scraped"] or not result["unreachable"] else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -15,11 +15,12 @@ are also appended to that file as JSON lines (``-`` = stderr), the
 reference's sink and format.  Spans (``span``, ``span_event``) and the
 pool adapter of the fleet's fan-outs (``call_with_trace``) are the
 reference's; ``sample_trace`` rolls ``TPUMS_TRACE_SAMPLE`` for the update
-plane's trace roots.  Head sampling of requests, the profiler's stage stacks,
-size-capped rotation of the file sink (``TPUMS_TRACE_MAX_BYTES``) and
-``load_events`` are not ported yet (ROADMAP.md, Queue 1, item
-'Observability'): with a rotation knob set the port says so once on stderr
-and appends without rotating.
+plane's trace roots.  The file sink rotates at ``TPUMS_TRACE_MAX_BYTES``
+(default 64 MiB), keeping ``TPUMS_TRACE_KEEP`` (default 3) older files as
+``<path>.1`` .. ``<path>.K``, the reference's names; ``load_events`` reads
+any such file, either package's.  Spans also publish their kind on a
+cross-thread stage stack (``push_stage``/``pop_stage``/``thread_stages``)
+for a sampling profiler.
 """
 
 from __future__ import annotations
@@ -38,6 +39,8 @@ from . import metrics as _metrics
 
 TID_FIELD = "tid="
 _RING_CAP = 4096
+_DEFAULT_MAX_BYTES = 64 << 20
+_DEFAULT_KEEP = 3
 
 
 class _TraceLocal(threading.local):
@@ -52,6 +55,46 @@ _ring: Deque[dict] = deque(maxlen=_RING_CAP)
 _file_lock = threading.Lock()
 _file_handle = None
 _file_path_cached: Optional[str] = None
+_file_bytes = 0
+_file_max_bytes = _DEFAULT_MAX_BYTES
+
+
+# Cross-thread stage registry for a sampling profiler: the span stack is
+# thread-LOCAL, so spans also publish their kind here, keyed by thread
+# ident.  Each thread touches only its own list and a sampler only reads;
+# under the GIL a rare torn read costs one mis-attributed sample.
+_thread_stages: Dict[int, List[str]] = {}
+
+
+def push_stage(kind: str) -> None:
+    """Mark this thread as inside ``kind`` (span enter does this)."""
+    ident = threading.get_ident()
+    stack = _thread_stages.get(ident)
+    if stack is None:
+        stack = _thread_stages[ident] = []
+    stack.append(kind)
+
+
+def pop_stage() -> None:
+    ident = threading.get_ident()
+    stack = _thread_stages.get(ident)
+    if stack:
+        stack.pop()
+        if not stack:
+            _thread_stages.pop(ident, None)
+
+
+def thread_stages() -> Dict[int, str]:
+    """Sampler view: thread ident -> innermost active stage name; threads
+    outside any stage are absent."""
+    out: Dict[int, str] = {}
+    for ident, stack in list(_thread_stages.items()):
+        try:
+            if stack:
+                out[ident] = stack[-1]
+        except IndexError:  # racing pop on the owner thread
+            continue
+    return out
 
 
 def new_trace_id() -> str:
@@ -134,6 +177,7 @@ class span:
         if _local.spans is None:
             _local.spans = []
         _local.spans.append(self.sid)
+        push_stage(self.kind)
         self._t0 = time.time()
         return self
 
@@ -141,6 +185,7 @@ class span:
         if self.sid is None:
             return
         _local.spans.pop()
+        pop_stage()
         if exc_type is not None:
             self.fields.setdefault("error", repr(exc))
         event(self.kind, tid=self.tid, sid=self.sid, psid=self._psid,
@@ -255,6 +300,13 @@ def _trace_file() -> Optional[str]:
     return v
 
 
+def trace_file_path() -> Optional[str]:
+    """The active JSONL spill path (None when TPUMS_TRACE is off or the
+    stderr sink ``-``)."""
+    p = _trace_file()
+    return None if p == "-" else p
+
+
 def event(kind: str, tid: Optional[str] = None, **fields) -> dict:
     """Record one structured event: always into the in-process ring, and
     as one JSON line to ``TPUMS_TRACE`` when that names a path."""
@@ -280,8 +332,15 @@ def event(kind: str, tid: Optional[str] = None, **fields) -> dict:
     return ev
 
 
+def _env_int(name: str, default: int) -> int:
+    try:
+        return int(os.environ.get(name, "") or default)
+    except ValueError:
+        return default
+
+
 def _append_line(path: str, line: str) -> None:
-    global _file_handle, _file_path_cached
+    global _file_handle, _file_path_cached, _file_bytes, _file_max_bytes
     with _file_lock:
         if _file_handle is None or _file_path_cached != path:
             if _file_handle is not None:
@@ -291,13 +350,41 @@ def _append_line(path: str, line: str) -> None:
                     pass
             _file_handle = open(path, "a", buffering=1)
             _file_path_cached = path
-            if os.environ.get("TPUMS_TRACE_MAX_BYTES") or \
-                    os.environ.get("TPUMS_TRACE_KEEP"):
-                print("[trace] rotation of the trace file is not ported yet "
-                      "(ROADMAP.md, Queue 1, item 'Observability'); "
-                      f"appending to {path} without a size cap",
-                      file=sys.stderr)
+            try:
+                _file_bytes = os.path.getsize(path)
+            except OSError:
+                _file_bytes = 0
+            # the rotation knobs are read once per open
+            _file_max_bytes = _env_int("TPUMS_TRACE_MAX_BYTES",
+                                       _DEFAULT_MAX_BYTES)
+        if _file_bytes >= _file_max_bytes > 0:
+            _rotate_locked(path)
         _file_handle.write(line + "\n")
+        _file_bytes += len(line) + 1
+
+
+def _rotate_locked(path: str) -> None:
+    """Size-capped keep-K rotation: path -> path.1 -> ... -> path.K, the
+    oldest dropped.  Caller holds ``_file_lock``."""
+    global _file_handle, _file_bytes
+    try:
+        _file_handle.close()
+    except OSError:
+        pass
+    keep = max(0, _env_int("TPUMS_TRACE_KEEP", _DEFAULT_KEEP))
+    try:
+        if keep == 0:
+            os.remove(path)
+        else:
+            for i in range(keep - 1, 0, -1):
+                src = f"{path}.{i}"
+                if os.path.exists(src):
+                    os.replace(src, f"{path}.{i + 1}")
+            os.replace(path, f"{path}.1")
+    except OSError:
+        pass  # cross-process rotation race: the loser keeps appending
+    _file_handle = open(path, "a", buffering=1)
+    _file_bytes = 0
 
 
 def recent_events(tid: Optional[str] = None,
@@ -310,6 +397,31 @@ def recent_events(tid: Optional[str] = None,
     if kind is not None:
         evs = [e for e in evs if e.get("kind") == kind]
     return evs
+
+
+def clear_events() -> None:
+    with _ring_lock:
+        _ring.clear()
+
+
+def load_events(path: str) -> List[dict]:
+    """Parse a JSONL event file of either package (cross-process
+    correlation).  Malformed lines are skipped: the file is append-shared
+    across processes."""
+    out: List[dict] = []
+    try:
+        with open(path) as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    out.append(json.loads(line))
+                except ValueError:
+                    continue
+    except OSError:
+        pass
+    return out
 
 
 def events_counter(kind: str, **labels) -> None:

@@ -552,7 +552,7 @@ class ServingJob:
         """The HEALTH verb's payload (the key count is added server-side),
         the reference's keys."""
         ready = self.ready
-        return {
+        payload = {
             "state": self.state_name,
             "job_id": self.job_id,
             "ready": ready,
@@ -568,6 +568,32 @@ class ServingJob:
             "bootstrap_source": self.bootstrap_source,
             "bootstrap_seconds": self.bootstrap_seconds,
         }
+        alerts = self._alert_hint()
+        if alerts is not None:
+            # the fields appear ONLY while a watcher's alert record is
+            # fresh (and TPUMS_WATCH_HEALTH_HINT is not 0), so a fleet
+            # without a watch loop keeps its HEALTH bytes unchanged
+            payload["alerts_firing"] = alerts["firing"]
+            payload["alerts_max_severity"] = alerts["max_severity"]
+        return payload
+
+    # HEALTH is a hot poll path (supervisors, elastic clients): the
+    # registry's alert record is read at most once a second
+    _ALERT_HINT_TTL_S = 1.0
+
+    def _alert_hint(self) -> Optional[dict]:
+        if os.environ.get("TPUMS_WATCH_HEALTH_HINT", "1") == "0":
+            return None
+        now = time.time()
+        cached = getattr(self, "_alert_hint_cache", None)
+        if cached is not None and now - cached[0] < self._ALERT_HINT_TTL_S:
+            return cached[1]
+        try:
+            rec = registry.resolve_alerts()
+        except Exception:  # noqa: BLE001 - a hint must never break HEALTH
+            rec = None
+        self._alert_hint_cache = (now, rec)
+        return rec
 
     def _recover_truncated(self, err: OffsetTruncatedError) -> int:
         """The consume loop hit journal history that no longer exists byte

@@ -27,14 +27,16 @@ lost race raises ``TopologyConflict``).  ``gc_generation_entries`` reaps
 dead worker entries of superseded generations.  A controller LEASE
 (``acquire_controller_lease``) makes rescaling single-writer per group; a
 dead holder's lease is stolen under a link-based steal lock.  Tenants are
-a name prefix on group ids (``qualify_group``, ``TPUMS_TENANT``).
+a name prefix on group ids (``qualify_group``, ``TPUMS_TENANT``), listed
+by ``list_tenants``/``list_tenant_jobs`` and reaped one tenant at a time
+by ``gc_tenant_entries``, which cannot reach another tenant's entries.
 
 Push epochs (``next_push_epoch``), snapshot records (``publish_snapshot``)
-and the alert records a watcher publishes (read here by
-``resolve_alerts``) are the reference's records in the reference's files.
-Every record and lease either package writes is read and honoured by the
-other.  Tenant listing and GC, regions, the edge namespace and alert
-publishing are not ported yet (ROADMAP.md, Queue 1).  Registration is
+and the alert records a watcher publishes (``publish_alerts`` with a TTL,
+``resolve_alerts``, ``drop_alerts``) are the reference's records in the
+reference's files.  Every record and lease either package writes is read
+and honoured by the other.  Regions and the edge namespace are not ported
+yet (ROADMAP.md, Queue 1, item 'Geo-replication and edge').  Registration is
 best-effort: registry I/O failures never take down a serving job, but a
 topology publish raises (a controller must know its cutover failed).
 """
@@ -307,6 +309,70 @@ def split_tenant(name: str) -> Tuple[Optional[str], str]:
         t, _, base = name.partition(TENANT_SEP)
         return (t or None), base
     return None, name
+
+
+def tenant_of(name: str) -> Optional[str]:
+    return split_tenant(name)[0]
+
+
+def _entry_tenant(entry: dict) -> Optional[str]:
+    return tenant_of(entry.get("replica_of") or entry.get("job_id") or "")
+
+
+def list_tenants() -> List[str]:
+    """Tenants with any registry presence (live worker entries or
+    topology records), sorted.  The shared namespace is not a tenant and
+    is never listed."""
+    seen = set()
+    for e in list_jobs(gc=False):
+        t = _entry_tenant(e)
+        if t:
+            seen.add(t)
+    try:
+        names = os.listdir(registry_dir())
+    except OSError:
+        names = []
+    for name in names:
+        if not name.endswith(".topo.json"):
+            continue
+        rec = _read_record(os.path.join(registry_dir(), name), "topology")
+        if rec:
+            t = tenant_of(rec.get("group") or "")
+            if t:
+                seen.add(t)
+    return sorted(seen)
+
+
+def list_tenant_jobs(tenant: Optional[str], gc: bool = True) -> List[dict]:
+    """Live entries belonging to one tenant's namespace (``tenant=None``
+    selects the shared namespace)."""
+    return [e for e in list_jobs(gc=gc) if _entry_tenant(e) == tenant]
+
+
+def gc_tenant_entries(tenant: str) -> int:
+    """Reap DEAD worker entries of ONE tenant -> count reaped.  Only
+    entries whose identifiers carry ``<tenant>::`` are reachable: other
+    tenants and the shared namespace are structurally out of reach.  Scans
+    the raw registry dir, as ``gc_generation_entries`` does."""
+    if not tenant:
+        raise ValueError("gc_tenant_entries needs a tenant name")
+    reaped = 0
+    try:
+        names = os.listdir(registry_dir())
+    except OSError:
+        return 0
+    for name in names:
+        if not name.endswith(".json"):
+            continue
+        path = os.path.join(registry_dir(), name)
+        entry = _load_json_retry(path)
+        if not isinstance(entry, dict) or "port" not in entry:
+            continue
+        if _entry_tenant(entry) != tenant:
+            continue
+        if entry_is_dead(entry) and _reap_if_unchanged(path, entry) is None:
+            reaped += 1
+    return reaped
 
 
 def _pid_is_ours_and_dead(entry: dict) -> bool:
@@ -688,12 +754,43 @@ def resolve_snapshot(scope: str) -> Optional[dict]:
     return record.get("manifest") if record else None
 
 # ---------------------------------------------------------------------------
-# alert records: a watcher (the reference's obs/watch.py) publishes them;
-# the fleet signals read them when no scraped process carries the gauges
+# alert records: a watcher publishes them; HEALTH hints, the autopilot's
+# drift step and the fleet signals read them.  Each record carries its own
+# TTL, so a dead watcher's last word expires.
 # ---------------------------------------------------------------------------
 
 def _alerts_path(scope: str) -> str:
     return _group_path(f"alerts/{scope}", "alerts.json")
+
+
+def publish_alerts(scope: str, summary: dict, ttl_s: float = 15.0) -> None:
+    """Publish a watcher's alert summary (``RulesEngine.summary()`` shape:
+    ``{"firing", "max_severity", "max_severity_level", "alerts"}``) under
+    ``scope`` (a group name, or ``"fleet"`` for a whole-fleet watcher).
+    Best-effort, like the snapshot records."""
+    os.makedirs(registry_dir(), exist_ok=True)
+    path = _alerts_path(scope)
+    record = {"kind": "alerts", "scope": scope,
+              "published_at": time.time(), "ttl_s": float(ttl_s),
+              "summary": dict(summary)}
+    tmp = f"{path}.{os.getpid()}.tmp"
+    try:
+        with open(tmp, "w") as f:
+            json.dump(record, f)
+        os.replace(tmp, path)
+    except OSError:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+
+
+def drop_alerts(scope: str) -> None:
+    """Remove a scope's alert record (watcher teardown; best-effort)."""
+    try:
+        os.unlink(_alerts_path(scope))
+    except OSError:
+        pass
 
 
 def resolve_alerts(scope: Optional[str] = None) -> Optional[dict]:
@@ -707,10 +804,7 @@ def resolve_alerts(scope: Optional[str] = None) -> Optional[dict]:
             return None
         if time.time() - record.get("published_at", 0) > \
                 record.get("ttl_s", 15.0):
-            try:
-                os.unlink(_alerts_path(scope))
-            except OSError:
-                pass
+            drop_alerts(scope)
             return None
         return record.get("summary")
     merged: Optional[dict] = None
@@ -743,7 +837,6 @@ def resolve_alerts(scope: Optional[str] = None) -> Optional[dict]:
             merged["max_severity_level"] = s["max_severity_level"]
             merged["max_severity"] = s.get("max_severity")
     return merged
-
 
 
 def merge_endpoint(entry: Optional[dict], explicit_host: Optional[str],

@@ -9,6 +9,7 @@ profiler, and ``StepTimer`` is the reference's, copied.
 from __future__ import annotations
 
 import contextlib
+import json
 import math
 import os
 import time
@@ -80,6 +81,21 @@ class StepTimer:
         self.durations_s.append(time.perf_counter() - self._t0)
         self._t0 = None
 
+    def merge(self, other: "StepTimer") -> "StepTimer":
+        """Absorb another timer's observations (per-worker timers into one
+        distribution: percentiles over the merged sample are exact, unlike
+        averaged per-worker percentiles).  Returns self."""
+        self.durations_s.extend(other.durations_s)
+        return self
+
+    def to_histogram(self):
+        """This timer's observations on the serving plane's shared latency
+        ladder (``obs.metrics.LATENCY_BUCKETS_S``), so a bench percentile
+        and a scraped serving percentile use the same buckets."""
+        from ..obs.metrics import Histogram
+
+        return Histogram(self.name).fill(self.durations_s)
+
     def percentile(self, q: float) -> float:
         if not self.durations_s:
             return float("nan")
@@ -109,3 +125,8 @@ class StepTimer:
             f"mean {s['mean_s'] * 1e3:.2f}ms, p50 {s['p50_s'] * 1e3:.2f}ms, "
             f"p99 {s['p99_s'] * 1e3:.2f}ms"
         )
+
+    def write_json(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump(self.stats(), f)
+            f.write("\n")

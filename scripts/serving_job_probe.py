@@ -3,13 +3,16 @@
 its own), on a model trained at phase 4's ML-20M shape and init-free
 defaults (3 iterations, rank 50), for a quick look at the serving job on
 one CUDA card without the other phases; with ``--fleet``, phase 18 (the
-serving fleet) after it, on phase 17's published topic:
+serving fleet) after it, and with ``--loop``, phase 20 (the closed loop:
+rollout, the autopilot's tick, the canary, a drift rollback, the
+autopilot's CLI), each on phase 17's published topic:
 
-    python3 scripts/serving_job_probe.py [--fleet]
+    python3 scripts/serving_job_probe.py [--fleet | --loop]
 
-It builds the kernels, trains, runs ``serving_job_phase`` (and
-``fleet_phase``) and prints their numbers and the card's name and power
-limit.  Without CUDA it exits 2 before any output.
+It builds the kernels (and, for ``--loop``, the native library), trains,
+runs ``serving_job_phase`` (and ``fleet_phase`` or ``loop_phase``) and
+prints their numbers and the card's name and power limit.  Without CUDA
+it exits 2 before any output.
 """
 
 import os
@@ -21,8 +24,8 @@ def main(argv=None) -> int:
     import torch
 
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--fleet"]):
-        print(f"unknown arguments {argv} (none, or --fleet)",
+    if argv not in ([], ["--fleet"], ["--loop"]):
+        print(f"unknown arguments {argv} (none, --fleet or --loop)",
               file=sys.stderr)
         return 2
 
@@ -38,6 +41,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     print(S.card_line(), flush=True)
     _build.build_all()
+    if argv == ["--loop"]:
+        from flink_ms_tpu_torch.native import _build as native_build
+
+        native_build.build()
     users, items, ratings = S.synth_ratings(S.N_USERS, S.N_ITEMS, S.NNZ,
                                             seed=0)
     dev = torch.device("cuda", 0)
@@ -49,8 +56,10 @@ def main(argv=None) -> int:
                                   0.8, dev)
         base = job.pop("fleet_base")
         print(job)
-        if argv:
+        if argv == ["--fleet"]:
             print(S.fleet_phase(torch, base, dev))
+        elif argv == ["--loop"]:
+            print(S.loop_phase(torch, base, dev))
     except S.SmokeFailure as e:
         S.log(f"FAIL: {e}")
         return 1

@@ -71,8 +71,16 @@ def test_port_and_chip_smoke_load_no_jax():
                 "flink_ms_tpu_torch.obs.scrape",
                 "flink_ms_tpu_torch.serve.native_store",
                 "flink_ms_tpu_torch.serve.arena",
-                "flink_ms_tpu_torch.native._build"
+                "flink_ms_tpu_torch.native._build",
+                "flink_ms_tpu_torch.obs.tsdb",
+                "flink_ms_tpu_torch.obs.slo",
+                "flink_ms_tpu_torch.obs.rules",
+                "flink_ms_tpu_torch.obs.watch",
+                "flink_ms_tpu_torch.serve.rollout"
                 } <= set(names)
+        from flink_ms_tpu_torch.serve import autopilot
+        assert {"AutopilotController", "main", "retrain_candidate"} <= \
+            set(vars(autopilot))
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
                      or m == "flink_ms_tpu" or m.startswith("flink_ms_tpu."))
@@ -141,6 +149,52 @@ def test_serving_clis_load_no_jax(tmp_path):
     assert ha.startswith("RuntimeError: replica s0r0 died at spawn rc=1")
     assert elastic.startswith("RuntimeError: replica s0r0 died at spawn")
     assert last == "11 []"
+
+
+def test_loop_clis_load_no_jax(tmp_path):
+    """The closed loop's CLIs, run as ``python -m`` would run them, load no
+    JAX: without CUDA the autopilot stops at its device before any file,
+    the rollout's worker stops at its device (its supervisor raises, as
+    the reference's does), and the status and scrape CLIs answer."""
+    code = textwrap.dedent(f"""
+        import runpy, sys
+        runs = [("flink_ms_tpu_torch.serve.autopilot",
+                 ["--group", "g", "--ratingsDir", {str(tmp_path / "bus")!r},
+                  "--workDir", {str(tmp_path / "work")!r}, "--once"]),
+                ("flink_ms_tpu_torch.serve.rollout",
+                 ["--group", "g", "--journalDir", {str(tmp_path)!r},
+                  "--portDir", {str(tmp_path / "ports")!r},
+                  "--readyTimeoutS", "60"]),
+                ("flink_ms_tpu_torch.serve.rollout", ["--group", "g",
+                                                      "--status"]),
+                ("flink_ms_tpu_torch.obs.scrape", ["--prom"])]
+        out = []
+        for mod, argv in runs:
+            sys.argv = [mod] + argv
+            try:
+                runpy.run_module(mod, run_name="__main__")
+            except SystemExit as e:
+                out.append(f"exit {{e.code}}")
+            except Exception as e:
+                out.append(type(e).__name__ + ": " + str(e)[:60])
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                     or m == "flink_ms_tpu" or m.startswith("flink_ms_tpu."))
+        print(" | ".join(out))
+        print(bad)
+    """)
+    env = dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES="",
+               TPUMS_REGISTRY_DIR=str(tmp_path / "registry"))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=180)
+    assert out.returncode == 0, out.stderr
+    runs, bad = out.stdout.strip().splitlines()[-2:]
+    pilot, rollout, status, scrape = runs.split(" | ")
+    assert pilot.startswith("RuntimeError: device 'cuda' was asked for")
+    assert not os.path.exists(tmp_path / "work")
+    assert rollout.startswith("RuntimeError: replica s0r0 died at spawn")
+    assert (status, scrape) == ("exit 0", "exit 0")
+    assert bad == "[]"
 
 
 def test_native_library_is_the_ports_own_build():
