@@ -4,8 +4,10 @@ CoCoA SVM training, each through its hand-written CUDA kernels, top-k
 serving of the trained ALS model, staged ALS with resume, the SVM's opt-in
 modes, the model generators, the autopilot's retrain, the multi-rank
 paths over ``torch.distributed``, the serving job in a process of its
-own, the serving fleet, the arena and native store, and the closed loop
-(blue/green rollout around the autopilot's retrain on the card).
+own, the serving fleet, the arena and native store, the closed loop
+(blue/green rollout around the autopilot's retrain on the card), and
+observability (the continuous profiler, forensics, the watch loop and the
+rehearsal workload engine).
 
 Run from the repository root, on a machine with one CUDA card:
 
@@ -15,6 +17,11 @@ or, on a machine with two or more cards, for phase 16 (d) alone (the
 kernels' build, then the NCCL runs):
 
     python3 chip_smoke.py --multi-gpu
+
+or phase 21 alone on seeded random rows at the served model's shape,
+then its rehearsal again at each user count given:
+
+    python3 chip_smoke.py --obs-only [USERS ...]
 
 Phases, each printing lines of its own (``[smoke] ...``):
 
@@ -226,7 +233,29 @@ Phases, each printing lines of its own (``[smoke] ...``):
             ratings (seed 27), then ``python -m
             flink_ms_tpu_torch.serve.autopilot --once`` in a process of
             its own takes the lease, resumes the state record and
-            windows only the new ratings.
+            windows only the new ratings;
+21. obs   — observability on the same topic, every member a ``--device``
+            process on the arena: (a) a member with the continuous
+            profiler (its default) under 500 sequential TOPK, 5,000 SGD
+            ratings (seed 28) published into its journal and 32 TOPK
+            push subscriptions: PROFILE parsed (samples > 0, the server's
+            request path among the sampled frames), the window's top 10
+            stacks and the host CPU shares of the server's request path,
+            the push engine and the update path, then TOPK p50/p99 in 4
+            blocks of 200 against a member with ``TPUMS_PROF=0`` (not
+            gated); (b) 500 traced fan-out TOPK into 2 shards, every
+            process appending to one ``TPUMS_TRACE`` file: all 500 trees
+            with a client span and both shards' ``server_reply``, the
+            slowest tree's critical path and the slow/fast diff; (d) the
+            forensics (equal to the in-process report), ``watch --once``
+            and ``profiler --fleet`` CLIs, each a process of its own, at
+            once; (c) ``run_rehearsal(device="cuda")`` at the reference
+            CLI's defaults with 40,000 users at rank 50 (cut from
+            ML-20M's 138,493) and a 5 s replica TTL, the watch loop,
+            8 push subscribers, a kill and the live autoscaler: the
+            report valid, no unattributed error or page, every scheduled
+            op run, the kill detected; each breach with its attribution,
+            per-verb p50/p99, push p99 and the card's memory at its peak.
 
 Each kernel's ``ms`` is the median over calls timed one CUDA event pair
 each, the wrapper's host work included where it outlasts the device's;
@@ -284,6 +313,90 @@ def log(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+# set in this process's environment when the script starts, so that every
+# process it starts carries it, also one whose parent died before it
+RUN_MARK = "CHIP_SMOKE_RUN"
+
+
+# multiprocessing's helper processes: each ends by itself when its parent
+# does
+MP_HELPERS = ("multiprocessing.resource_tracker", "multiprocessing.forkserver")
+
+
+def own_processes(helpers: bool = True) -> dict:
+    """{pid: command line} of the live processes this run started: those
+    whose environment carries this run's ``RUN_MARK`` and this process's
+    descendants, this process itself and zombies left out, and
+    multiprocessing's helpers too unless ``helpers``."""
+    me = os.getpid()
+    mark = os.environ.get(RUN_MARK)
+    tag = f"{RUN_MARK}={mark}".encode() if mark else None
+    parent, marked, cmd = {}, set(), {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit() or int(name) == me:
+            continue
+        pid = int(name)
+        try:
+            with open(f"/proc/{pid}/stat", "rb") as f:
+                stat = f.read()
+            # the fields after the command's closing parenthesis
+            fields = stat[stat.rindex(b")") + 2:].split()
+            if fields[0] == b"Z":
+                continue
+            parent[pid] = int(fields[1])
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd[pid] = f.read().replace(b"\0", b" ").decode(
+                    errors="replace").strip()
+            if tag is not None:
+                with open(f"/proc/{pid}/environ", "rb") as f:
+                    if tag in f.read().split(b"\0"):
+                        marked.add(pid)
+        except (OSError, ValueError, IndexError):
+            continue      # gone meanwhile, or not ours to read
+    ours, grew = set(marked), True
+    while grew:
+        more = {p for p, pp in parent.items()
+                if p not in ours and (pp == me or pp in ours)}
+        ours |= more
+        grew = bool(more)
+    return {p: cmd.get(p, "") for p in sorted(ours)
+            if helpers or not any(h in cmd.get(p, "") for h in MP_HELPERS)}
+
+
+def stop_leftovers(label, say=log, grace_s: float = 5.0,
+                   helpers: bool = True) -> dict:
+    """Stop every process of ``own_processes(helpers)``: SIGTERM, then
+    SIGKILL for those still alive after ``grace_s`` -> the ones found, each
+    reported through ``say`` with its command line."""
+    import signal
+
+    found = own_processes(helpers)
+    if not found:
+        return found
+    say(f"processes left running after {label}: {len(found)}: " + "; ".join(
+        f"{pid} {cmd[:160]}" for pid, cmd in found.items()))
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        for pid in found:
+            try:
+                os.kill(pid, sig)
+            except OSError:
+                pass
+        deadline = time.time() + grace_s
+        while time.time() < deadline and set(found) & set(own_processes()):
+            time.sleep(0.05)
+        for pid in found:       # reap those that were this process's own
+            try:
+                os.waitpid(pid, os.WNOHANG)
+            except OSError:
+                pass
+        if not set(found) & set(own_processes()):
+            break
+    alive = set(found) & set(own_processes())
+    say(f"stopped {len(found) - len(alive)} of them"
+        + (f"; still alive: {sorted(alive)}" if alive else ""))
+    return found
 
 
 def synth_ratings(n_users, n_items, nnz, seed=0):
@@ -3751,15 +3864,15 @@ def fleet_baseline(published, dev, n_users, n_keys=None):
                 ready_s=float("nan"), wire_p50_ms=float("nan"))
 
 
-def fleet_worker(work, idx, n, dev_name, label, extra=()):
+def fleet_worker(work, idx, n, dev_name, label, extra=(), env=None):
     """One ``flink_ms_tpu_torch.serve.sharded`` worker process (as
-    ``spawn_worker_procs`` starts it, with its log kept) -> (proc, port
-    file, log path)."""
+    ``spawn_worker_procs`` starts it, with its log kept; ``env`` added to
+    this process's environment) -> (proc, port file, log path)."""
     pf = os.path.join(work, f"port-{label}-{idx}.json")
     if os.path.exists(pf):
         os.unlink(pf)
     log_path = os.path.join(work, f"worker-{label}-{idx}.log")
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+    env = dict(os.environ, **(env or {}), PYTHONPATH=os.pathsep.join(
         [os.path.dirname(os.path.abspath(__file__))]
         + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     with open(log_path, "w") as log_f:
@@ -5265,6 +5378,571 @@ def loop_phase(torch, base, dev) -> dict:
     return out
 
 
+OBS_TOPK_CALLS = 500     # (a)'s profiled TOPK stream; (b)'s traced fan-outs
+OBS_AB_BLOCKS = 4        # TOPK blocks, TPUMS_PROF=0 and the default in turn
+OBS_AB_CALLS = 200       # sequential TOPK in each block
+OBS_PUSH_SUBS = 32       # TOPK subscriptions on one B2 su=1 connection
+OBS_SGD_RATINGS = 5_000  # SGD ratings published into (a)'s journal (seed 28)
+OBS_TOP_STACKS = 10
+# the reference CLI's rehearsal defaults at the served model's width; its
+# depth cut from ML-20M's 138,493 users (``_seed_journal`` writes as many
+# item rows) to 40,000, the one cut phase 21 takes: at 138,493, (c) alone
+# outlasts the phase's 150 s (``--obs-only 138493``; PERF.md, section 4)
+OBS_REHEARSAL = dict(users=40_000, dim=RANK, shards=2, replication=2,
+                     base_qps=120.0, peak_qps=240.0, burst_qps=480.0,
+                     duration_s=12.0, threads=4, autoscale="live", kill=True,
+                     watch=True, subscribers=8)
+# module prefixes whose frames name a part of a member's host CPU: the
+# server's request path, the push engine, the update path (the ingest of
+# the published rows)
+OBS_PARTS = (("server", ("flink_ms_tpu_torch.serve.server.",)),
+             ("push", ("flink_ms_tpu_torch.serve.push.",)),
+             ("update", ("flink_ms_tpu_torch.serve.consumer.",)))
+# (c)'s members also host the update plane, and their indexes rebuild
+OBS_FLEET_PARTS = OBS_PARTS + (
+    ("update_plane", ("flink_ms_tpu_torch.serve.update_plane.",)),
+    ("index", ("flink_ms_tpu_torch.serve.topk.",)))
+
+
+def profile_window(before, after) -> dict:
+    """The stacks' seconds between two PROFILE snapshots of one process."""
+    b = before["stacks"]
+    return {k: v - b.get(k, 0.0) for k, v in after["stacks"].items()
+            if v - b.get(k, 0.0) > 1e-9}
+
+
+def profile_parts(stacks, parts=OBS_PARTS) -> dict:
+    """Each part's share of a window's seconds: the stacks with a frame of
+    its modules (a stack may count in two parts)."""
+    total = sum(stacks.values()) or 1.0
+    out = {}
+    for name, prefixes in parts:
+        out[name] = sum(v for k, v in stacks.items()
+                        if any(f.startswith(prefixes)
+                               for f in k.split(";")[1:])) / total
+    return out
+
+
+def short_stack(key, frames=4) -> str:
+    """A folded key as its stage and its last ``frames`` frames."""
+    parts = key.split(";")
+    tail = parts[1:][-frames:]
+    return parts[0] + ";" + ("…;" if len(parts) - 1 > frames else "") + \
+        ";".join(tail)
+
+
+def obs_members(run, spill):
+    """(a)'s members, alike but for ``TPUMS_PROF=0`` in the second, and
+    (b)'s two workers (every one writing ``TPUMS_TRACE=spill``), spawned
+    together -> {label: (proc, port)}."""
+    specs = [("prof", 0, 1, ["--jobId", "obs-prof", "--replicaIndex", "0",
+                             "--jobGroup", "obs-prof"], {}),
+             ("off", 0, 1, ["--jobId", "obs-off", "--replicaIndex", "1",
+                            "--jobGroup", "obs-off"], {"TPUMS_PROF": "0"}),
+             ("fx0", 0, 2, ["--jobId", "obs-fx-0"], {"TPUMS_TRACE": spill}),
+             ("fx1", 1, 2, ["--jobId", "obs-fx-1"], {"TPUMS_TRACE": spill})]
+    started = []
+    for label, idx, n, extra, env in specs:
+        proc, pf, log_path = fleet_worker(run.work, idx, n, run.dev_name,
+                                          f"obs-{label}", extra, env)
+        run.procs.append(proc)
+        started.append((label, proc, pf, log_path))
+    out = {}
+    for label, proc, pf, log_path in started:
+        out[label] = (proc, wait_port_file(proc, pf, log_path))
+    wait_health_ready([p for _, p in out.values()],
+                      [proc for proc, _ in out.values()])
+    return out
+
+
+def obs_profile(run, members, card) -> dict:
+    """(a) the member's profiler under a TOPK stream, SGD rows published
+    into its journal (phase 17's update -> push path) and
+    ``OBS_PUSH_SUBS`` push subscriptions: PROFILE parsed, the window's top
+    stacks and the parts' shares of its host CPU; then TOPK p50/p99 in
+    blocks against the ``TPUMS_PROF=0`` member."""
+    from flink_ms_tpu_torch.obs import profiler as PP
+    from flink_ms_tpu_torch.online.sgd import SGDStep
+    from flink_ms_tpu_torch.serve.client import QueryClient
+    from flink_ms_tpu_torch.serve.table import ModelTable
+
+    (_, port), (_, off_port) = members["prof"], members["off"]
+    users = run.base["users"]
+    sub = QueryClient("127.0.0.1", port, proto="b2", push=True,
+                      timeout_s=60)
+    pushes, stop = [0], threading.Event()
+    for u in users[:OBS_PUSH_SUBS]:   # each the user's served row
+        sub.subscribe_topk(JOB_STATE, run.rows[f"{u}-U"], TOPK_K)
+
+    def drain():
+        while not stop.is_set():
+            if sub.next_push(timeout_s=0.05) is not None:
+                pushes[0] += 1
+
+    rng = np.random.default_rng(28)
+    u_all = [k[:-2] for k in run.rows if k.endswith("-U") and k != "MEAN-U"]
+    i_all = [i for i in run.item_ids if i != "MEAN"]
+    ratings = list(zip(
+        [int(u_all[j]) for j in rng.integers(0, len(u_all),
+                                             OBS_SGD_RATINGS)],
+        [int(i_all[j]) for j in rng.integers(0, len(i_all),
+                                             OBS_SGD_RATINGS)],
+        np.round(rng.uniform(1.0, 5.0, OBS_SGD_RATINGS), 3).tolist()))
+    table = ModelTable()
+    table.put_many(list(run.rows.items()))
+    step = SGDStep(table.get, run.rows["MEAN-U"], run.rows["MEAN-I"],
+                   lookup_many=lambda ks: [table.get(k) for k in ks])
+
+    def produce():
+        # batches of the update plane's size, paced so that they ride the
+        # TOPK stream
+        for s in range(0, OBS_SGD_RATINGS, FLEET_BATCH):
+            run.journal.append(step.process_batch(
+                ratings[s:s + FLEET_BATCH]))
+            time.sleep(0.05)
+
+    before = PP.scrape_profile("127.0.0.1", port, timeout_s=30)
+    check(before is not None, "the member's PROFILE did not parse")
+    drainer = threading.Thread(target=drain, daemon=True)
+    producer = threading.Thread(target=produce, daemon=True)
+    drainer.start()
+    t0 = time.perf_counter()
+    producer.start()
+    lat = [users[j] for j in rng.integers(0, len(users), OBS_TOPK_CALLS)]
+    with QueryClient("127.0.0.1", port, timeout_s=60) as c:
+        p50, p99 = latency_ms(lambda j: c._roundtrip(
+            f"TOPK\t{JOB_STATE}\t{lat[j]}\t{TOPK_K}"), len(lat))
+    producer.join(timeout=FLEET_WAIT_S)
+    end = run.journal.end_offset()
+    with QueryClient("127.0.0.1", port, timeout_s=60) as c:
+        wait_until(lambda: c.health(JOB_STATE)["offset"] >= end,
+                   "the member's ingest of the SGD rows")
+    window_s = time.perf_counter() - t0
+    time.sleep(0.3)   # the last deltas of the last rows
+    stop.set()
+    drainer.join(timeout=30)
+    sub.close()
+    with QueryClient("127.0.0.1", port, timeout_s=60) as c:
+        line = c._roundtrip("PROFILE")
+    after = PP.parse_profile_reply(line)
+    check(after is not None and after["enabled"] is True,
+          f"PROFILE answered {line[:80]!r}")
+    window = profile_window(before, after)
+    total = sum(window.values())
+    parts = profile_parts(window)
+    top = sorted(window.items(), key=lambda kv: -kv[1])[:OBS_TOP_STACKS]
+    stages = sorted({k.split(";")[0] for k in after["stacks"]})
+    log(f"obs (a) profiler ({card}): a one-of-one member ({run.dev_name}); "
+        f"{OBS_TOPK_CALLS} sequential TOPK p50 "
+        f"{p50:.4f} ms, p99 {p99:.4f} ms under {OBS_SGD_RATINGS} SGD "
+        f"ratings and {OBS_PUSH_SUBS} TOPK subscriptions ({pushes[0]} push "
+        f"frames) over {window_s:.2f}s; PROFILE: {after['samples']} "
+        f"samples at {after['hz']} Hz, stages {stages}; the window "
+        f"{total:.4f} s of host CPU in {len(window)} stacks, shares "
+        + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()))
+    for j, (k, v) in enumerate(top, 1):
+        log(f"obs (a) #{j} {v:.4f}s ({v / max(total, 1e-12):.4f}) "
+            f"{short_stack(k)}")
+    check(after["samples"] > 0, "the member's profiler took no sample")
+    check(parts["server"] > 0, "no sample of the server's request path")
+    # TOPK p50 in blocks, TPUMS_PROF=0 and the default in turn
+    blocks = []
+    for b in range(OBS_AB_BLOCKS):
+        label, p = (("off", off_port), ("on", port))[b % 2]
+        q = [users[j] for j in rng.integers(0, len(users), OBS_AB_CALLS)]
+        with QueryClient("127.0.0.1", p, timeout_s=60) as c:
+            c._roundtrip(f"TOPK\t{JOB_STATE}\t{q[0]}\t{TOPK_K}")
+            bp50, bp99 = latency_ms(lambda j: c._roundtrip(
+                f"TOPK\t{JOB_STATE}\t{q[j]}\t{TOPK_K}"), len(q))
+        blocks.append((label, bp50, bp99))
+    arm = {lab: float(np.mean([b[1] for b in blocks if b[0] == lab]))
+           for lab in ("off", "on")}
+    log(f"obs (a) TOPK p50/p99 in blocks of {OBS_AB_CALLS} ({card}): "
+        + ", ".join(f"{lab} {a:.4f}/{b:.4f} ms" for lab, a, b in blocks)
+        + f"; mean p50 off {arm['off']:.4f}, on {arm['on']:.4f} ms "
+        f"({100 * (arm['on'] / arm['off'] - 1):+.1f}%; not gated)")
+    for label in ("prof", "off"):
+        stop_member(run, members.pop(label)[0])
+    return dict(obs_topk_p50_ms=p50, obs_topk_p99_ms=p99,
+                obs_samples=after["samples"], obs_window_cpu_s=total,
+                obs_parts=parts, obs_ab=blocks)
+
+
+def obs_forensics(run, members, spill, card):
+    """(b) ``OBS_TOPK_CALLS`` traced fan-out TOPK into the 2-shard group,
+    every process appending to one ``TPUMS_TRACE`` file: every tree
+    assembled with its client span and both shards' ``server_reply``; the
+    slowest tree's critical path and the slow/fast diff's stages -> (the
+    spill's copy, its report, the numbers)."""
+    from flink_ms_tpu_torch.obs import forensics as FX
+    from flink_ms_tpu_torch.obs import tracing as PT
+    from flink_ms_tpu_torch.serve.sharded import ShardedQueryClient
+
+    ports = [members[f"fx{i}"][1] for i in range(2)]
+    users = run.base["users"]
+    rng = np.random.default_rng(29)
+    lat = [users[j] for j in rng.integers(0, len(users), OBS_TOPK_CALLS)]
+    tids = []
+    client = ShardedQueryClient([("127.0.0.1", p) for p in ports],
+                                timeout_s=60)
+    prior = os.environ.get("TPUMS_TRACE")
+    try:
+        for u in users[:16]:     # untraced: the indexes' first builds
+            client.topk(JOB_STATE, u, TOPK_K)
+        os.environ["TPUMS_TRACE"] = spill
+
+        def traced(j):
+            tid = PT.new_trace_id()
+            tids.append(tid)
+            with PT.trace_span(tid):
+                client.topk(JOB_STATE, lat[j], TOPK_K)
+
+        p50, p99 = latency_ms(traced, len(lat))
+    finally:
+        client.close()
+        if prior is None:
+            os.environ.pop("TPUMS_TRACE", None)
+        else:
+            os.environ["TPUMS_TRACE"] = prior
+    # the members go on appending their own events: (b) and (d) read a
+    # copy of the spill as it stands after the traced requests
+    frozen = spill + ".b"
+    shutil.copyfile(spill, frozen)
+    t0 = time.perf_counter()
+    rep = FX.report([frozen])
+    trees = FX.assemble(FX.collect([frozen]))
+    report_s = time.perf_counter() - t0
+    whole = 0
+    for tid in tids:
+        tree = trees.get(tid)
+        if tree is None:
+            continue
+        evs = list(tree.spans.values())
+        client_span = any(str(e.get("kind", "")).startswith("client_")
+                          for e in evs)
+        shard_ports = {e.get("port") for e in evs
+                       if e.get("kind") == "server_reply"}
+        whole += client_span and set(ports) <= shard_ports
+    slow = rep["slowest"][0] if rep["slowest"] else None
+    d = rep["diff"]
+    log(f"obs (b) forensics ({card}): {OBS_TOPK_CALLS} traced fan-out TOPK "
+        f"over 2 shards ({run.dev_name}) p50 {p50:.4f} ms, p99 {p99:.4f} "
+        f"ms; the spill: {rep['events']} events, {rep['traces']} trees "
+        f"({whole} with a client span and both shards' server_reply), "
+        f"report {report_s:.2f}s; trace p50 "
+        f"{d['quantiles']['p50'] * 1e3:.4f} ms, p90 "
+        f"{d['quantiles']['p90'] * 1e3:.4f}, p99 "
+        f"{d['quantiles']['p99'] * 1e3:.4f}; slow tail (n {d['slow_n']}, "
+        f"mean {d['slow_mean_s'] * 1e3:.4f} ms) against the median band "
+        f"(n {d['fast_n']}, mean {d['fast_mean_s'] * 1e3:.4f} ms): "
+        + "; ".join(f"{st['stage']} {st['delta_s'] * 1e6:+.1f} us "
+                    f"({st['delta_share']:.3f})" for st in d["stages"][:4]))
+    if slow is not None:
+        log(f"obs (b) slowest tree {slow['tid']} "
+            f"{slow['total_s'] * 1e3:.4f} ms: "
+            + "; ".join(f"{r['stage']} {r['self_s'] * 1e6:.1f} us "
+                        f"({r['share']:.3f})"
+                        for r in slow["critical_path"]))
+    check(rep["traces"] == OBS_TOPK_CALLS and whole == OBS_TOPK_CALLS,
+          f"{rep['traces']} trees, {whole} whole, of {OBS_TOPK_CALLS}")
+    return frozen, rep, dict(obs_fanout_p50_ms=p50, obs_fanout_p99_ms=p99,
+                     obs_diff_stage=d["stages"][0]["stage"]
+                     if d["stages"] else None)
+
+
+def tie_order(rep) -> dict:
+    """A forensics report with its stages in one order: stages of equal
+    delta come out of a set, in an order that differs between processes
+    (string hashing is salted per process)."""
+    d = dict(rep["diff"], stages=sorted(
+        rep["diff"]["stages"], key=lambda r: (-r["delta_s"], r["stage"])))
+    return dict(rep, diff=d)
+
+
+def obs_clis(spill, rep, card) -> dict:
+    """(d) the forensics, watch and profiler CLIs, each in a process of its
+    own, all three at once, against (b)'s group before it stops."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__))]
+        + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    runs = {"forensics": ["flink_ms_tpu_torch.obs.forensics", spill,
+                          "--json"],
+            "watch": ["flink_ms_tpu_torch.obs.watch", "--once"],
+            "profiler": ["flink_ms_tpu_torch.obs.profiler", "--fleet"]}
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen([sys.executable, "-m", *argv], env=env,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+             for k, argv in runs.items()}
+    outs = {}
+    for k, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=FLEET_WAIT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        outs[k] = (proc.returncode, out, err)
+    cli_s = time.perf_counter() - t0
+    for k, (rc, out, err) in outs.items():
+        check(rc == 0, f"the {k} CLI exited {rc}: {err[-1000:]}")
+    check(tie_order(json.loads(outs["forensics"][1])) == tie_order(rep),
+          "the forensics CLI's report differs from the in-process one")
+    watch = json.loads(outs["watch"][1].split("\n# ")[0])
+    head = outs["profiler"][1].splitlines()[0]
+    samples = int(head.split()[1]) if head.startswith("# ") else 0
+    log(f"obs (d) CLIs ({card}), 3 processes at once in {cli_s:.2f}s: "
+        f"forensics --json equals the in-process report (stages of equal "
+        f"delta in one order); watch --once: "
+        f"{watch['ticks']} tick, {watch['firing']} firing, "
+        f"{watch['fired_total']} fired, unattributed pages "
+        f"{watch['unattributed_page']}, tick {watch['avg_tick_s']}s; "
+        f"profiler --fleet: {head[2:]}")
+    check(samples > 0, f"the fleet profile has no sample: {head!r}")
+    return dict(obs_cli_s=cli_s, obs_fleet_samples=samples)
+
+
+def fleet_profile_poller(stop, seen):
+    """Scrape every live member's PROFILE each second until ``stop`` and
+    keep each member's last answer in ``seen`` ({(job id, port):
+    profile}), so a member that dies keeps the profile of its life."""
+    from flink_ms_tpu_torch.obs.scrape import scrape_fleet_profiles
+
+    while not stop.wait(1.0):
+        # the rehearsal names its registry while its group is up
+        if not os.environ.get("TPUMS_REGISTRY_DIR"):
+            continue
+        try:
+            fp = scrape_fleet_profiles(timeout_s=2.0)
+        except Exception:
+            continue
+        for r in fp["replicas"]:
+            if r["profile"] is not None:
+                seen[(r["job_id"], r["port"])] = r["profile"]
+
+
+def obs_rehearsal(torch, dev, card, users=None) -> dict:
+    """(c) ``run_rehearsal`` at the served model's width: the reference
+    CLI's defaults (``OBS_REHEARSAL``, at ``users`` users when given), the
+    watch loop on, push subscribers, a kill and the live autoscaler; the
+    card's memory at its peak, the members' merged profile (the last
+    PROFILE of each, scraped through the run) and this process's own
+    (its engine, clients and watch loop)."""
+    from flink_ms_tpu_torch.obs import profiler as PP
+    from flink_ms_tpu_torch.obs.slo import validate_report
+    from flink_ms_tpu_torch.obs.workload import run_rehearsal
+
+    kw = dict(OBS_REHEARSAL)
+    if users is not None:
+        kw["users"] = users
+    dur = kw.pop("duration_s")
+    peak, stop = [0], threading.Event()
+    members = {}
+    # the card's memory in use before the members start: this process's
+    # own tensors and cache from the earlier phases
+    if dev.type == "cuda":
+        free, total_b = torch.cuda.mem_get_info(dev)
+        peak[0] = before_b = total_b - free
+
+    def sample_memory():
+        while not stop.wait(0.25):
+            free, total_b = torch.cuda.mem_get_info(dev)
+            peak[0] = max(peak[0], total_b - free)
+
+    sampler = None
+    if dev.type == "cuda":
+        sampler = threading.Thread(target=sample_memory, daemon=True)
+        sampler.start()
+    # the rehearsal's own registry and heartbeat, as its CLI makes them,
+    # and the fleet phases' TTL: at the CLI's 1.5 s a member whose replay
+    # of the journal holds its heartbeat back is taken for dead by its
+    # supervisor and respawned, over and over (PERF.md, section 4)
+    saved = {k: os.environ.pop(k, None) for k in
+             ("TPUMS_REGISTRY_DIR", "TPUMS_HEARTBEAT_S",
+              "TPUMS_REPLICA_TTL_S", "TPUMS_UPDATE_POLL_S")}
+    os.environ["TPUMS_REPLICA_TTL_S"] = FLEET_ENV["TPUMS_REPLICA_TTL_S"]
+    prof = PP.ensure_started()
+    if prof is not None:
+        prof.clear()
+    poller = threading.Thread(target=fleet_profile_poller,
+                              args=(stop, members), daemon=True)
+    poller.start()
+    t0 = time.perf_counter()
+    try:
+        rep = run_rehearsal(
+            warm_s=dur * 2 / 12, ramp_s=dur * 3 / 12, burst_s=dur * 4 / 12,
+            cool_s=dur * 3 / 12, seed=0, device=str(dev.type), **kw)
+    finally:
+        seconds = time.perf_counter() - t0
+        own = prof.snapshot() if prof is not None else None
+        PP.stop_profiler()
+        stop.set()
+        poller.join(timeout=10)
+        if sampler is not None:
+            sampler.join(timeout=10)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    problems = validate_report(rep)
+    wl, alerts, push = rep["workload"], rep["alerts"], rep["push"]
+    det = alerts["detection"]
+    cuts = sum(1 for e in rep["timeline"]
+               if e.get("kind") == "elastic_cutover")
+    mem = (f"{peak[0] / 2**30:.2f} GiB ({before_b / 2**30:.2f} GiB in use "
+           "before the members started)" if sampler is not None
+           else "not measured")
+    log(f"obs (c) rehearsal ({card}): {kw['users']} users x rank "
+        f"{kw['dim']}, {kw['shards']} shards x {kw['replication']} "
+        f"replicas ({dev.type}), autoscale {kw['autoscale']}, kill, watch, "
+        f"{kw['subscribers']} subscribers, {seconds:.2f}s in all: ok "
+        f"{rep['ok']}; {wl['completed']} of {wl['scheduled']} ops, "
+        f"achieved {wl['achieved_qps']} q/s, max lag "
+        f"{wl['max_sched_lag_s']}s; errors {rep['errors']['total']} "
+        f"({rep['errors']['unattributed']} unattributed); {cuts} cutovers; "
+        f"alerts fired {alerts['fired_total']}, unattributed pages "
+        f"{alerts['unattributed_page']}, kill detection {det}; push "
+        f"{push['pushes_received']} deltas, p99 {push['p99_ms']} ms "
+        f"(budget {push['p99_budget_ms']}); the card's memory at its peak "
+        f"{mem}")
+    log("obs (c) per verb p50/p99 ms: " + "; ".join(
+        f"{v} {s.get('p50_ms')}/{s.get('p99_ms')} "
+        f"(service p99 {s.get('service_p99_ms')})"
+        for v, s in sorted(rep["verbs"].items())))
+    if own is not None and own["stacks"]:
+        total = sum(own["stacks"].values())
+        reads = sum(v for k, v in own["stacks"].items()
+                    if "flink_ms_tpu_torch.serve.registry." in k) / total
+        top = sorted(own["stacks"].items(), key=lambda kv: -kv[1])[:3]
+        log(f"obs (c) this process's profile over the rehearsal: "
+            f"{own['samples']} samples, {total:.3f} s; stacks reading the "
+            f"registry {reads:.4f}; top: " + "; ".join(
+                f"{v / total:.4f} {short_stack(k)}" for k, v in top))
+    kinds = {}
+    for e in rep["timeline"]:
+        kinds[e.get("kind")] = kinds.get(e.get("kind"), 0) + 1
+    log(f"obs (c) timeline: {dict(sorted(kinds.items()))}; "
+        + (f"{cuts} live cutover(s)" if cuts else
+           f"no cutover: autoscale {kw['autoscale']}" if
+           kw["autoscale"] != "live" else
+           "the live cutover was not exercised (the autoscaler trips at "
+           f"{kw['peak_qps'] / kw['shards'] * 1.3:g} q/s a shard, and "
+           f"the open loop reached {wl['achieved_qps']} q/s in all)"))
+    fleet = PP.merge_profiles(list(members.values()))
+    if fleet["stacks"]:
+        total = sum(fleet["stacks"].values())
+        parts = profile_parts(fleet["stacks"], OBS_FLEET_PARTS)
+        top = sorted(fleet["stacks"].items(), key=lambda kv: -kv[1])[:5]
+        log(f"obs (c) the members' profile ({len(members)} members, the "
+            f"last PROFILE of each): {fleet['samples']} samples, "
+            f"{total:.3f} s of host CPU over {seconds:.2f}s on "
+            f"{os.cpu_count()} cores; shares " + ", ".join(
+                f"{k} {v:.4f}" for k, v in parts.items()) + "; top: "
+            + "; ".join(f"{v / total:.4f} {short_stack(k)}"
+                        for k, v in top))
+    for b in rep["breaches"]:
+        cause = b.get("attributed_to")
+        log(f"obs (c) breach {b['verb']}.{b['objective']} measured "
+            f"{b['measured']} target {b['target']} -> "
+            f"{cause['kind'] if cause else 'UNATTRIBUTED'}"
+            + (f"/{cause.get('phase')}" if cause and cause.get("phase")
+               else ""))
+    loose = [f"{b['verb']}.{b['objective']}" for b in rep["breaches"]
+             if not b.get("attributed_to")]
+    if loose:
+        # an open fault, filed in ROADMAP.md's Queue 3: the open loop
+        # falls behind its schedule, the run outlasts its phases, and a
+        # latency breach (placed at the run's midpoint) lands past every
+        # timeline event
+        log(f"obs (c) OPEN FAULT (ROADMAP Queue 3, 'Rehearsal at full "
+            f"width'): the rehearsal's own verdict is ok {rep['ok']}, with "
+            f"{len(loose)} unattributed breaches ({', '.join(loose)}); the "
+            f"open loop ran {wl['duration_s']}s for a "
+            f"{wl['planned_duration_s']}s schedule")
+    check(not problems, f"the rehearsal's report is malformed: {problems}")
+    check(rep["errors"]["unattributed"] == 0,
+          f"{rep['errors']['unattributed']} unattributed errors")
+    check(alerts["unattributed_page"] == 0,
+          f"{alerts['unattributed_page']} unattributed pages")
+    check(wl["completed"] == wl["scheduled"],
+          f"{wl['completed']} of {wl['scheduled']} scheduled ops ran")
+    check(det["max_s"] is not None, f"the kill was not detected: {det}")
+    return dict(obs_rehearsal_s=seconds, obs_rehearsal_ok=rep["ok"],
+                obs_detection_s=det["max_s"], obs_peak_mem_b=peak[0])
+
+
+def obs_phase(torch, base, dev, card) -> dict:
+    """Phase 21: observability on phase 17's published topic, every member
+    a ``--device`` process on this card: (a) the continuous profiler of a
+    member under load, with its PROFILE verb; (b) forensics over one spill
+    of traced fan-outs; (d) the forensics, watch and profiler CLIs; (c) the
+    rehearsal workload engine's closed loop at full width."""
+    import tempfile
+
+    from flink_ms_tpu_torch.serve.sharded import stop_worker_procs
+
+    t_phase = time.perf_counter()
+    prior = {k: os.environ.get(k)
+             for k in list(FLEET_ENV) + ["TPUMS_REGISTRY_DIR"]}
+    out = {}
+    with tempfile.TemporaryDirectory() as work:
+        os.environ.update(FLEET_ENV)
+        os.environ["TPUMS_REGISTRY_DIR"] = os.path.join(work, "registry")
+        run = None
+        try:
+            run = FleetRun(work, base, dev)
+            spill = run.path("spill.jsonl")
+            t0 = time.perf_counter()
+            members = obs_members(run, spill)
+            log(f"obs: 4 members ({run.dev_name}) ready "
+                f"{time.perf_counter() - t0:.2f}s after their spawn")
+            out.update(obs_profile(run, members, card))
+            frozen, rep, fx = obs_forensics(run, members, spill, card)
+            out.update(fx)
+            out.update(obs_clis(frozen, rep, card))
+            stop_worker_procs(run.procs)
+            run.procs = []
+        finally:
+            if run is not None:
+                run.close()
+            for k, v in prior.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    out.update(obs_rehearsal(torch, dev, card))
+    log(f"obs phase: {time.perf_counter() - t_phase:.1f}s")
+    return out
+
+
+def obs_only(torch, dev, users) -> int:
+    """Phase 21 alone, for a look at observability without the other
+    phases: seeded random rows at the served model's shape (phase 17's
+    165,239 rows at rank 50) stand in for phase 17's topic; then (c) again
+    at each count of ``users``."""
+    from flink_ms_tpu_torch.core import formats as F
+    from flink_ms_tpu_torch.native import _build as native_build
+
+    t0 = time.perf_counter()
+    card = card_line()
+    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    native_build.build()
+    rng = np.random.default_rng(0)
+    uf = rng.normal(0.0, 0.3, (N_USERS, RANK)).astype(np.float32)
+    itf = rng.normal(0.0, 0.3, (N_ITEMS, RANK)).astype(np.float32)
+    published = [F.format_als_row(u, "U", uf[u]) for u in range(N_USERS)]
+    published += [F.format_als_row(i, "I", itf[i]) for i in range(N_ITEMS)]
+    published += [F.format_als_row("MEAN", side, m.mean(axis=0))
+                  for side, m in (("U", uf), ("I", itf))]
+    base = fleet_baseline(published, dev, JOB_TOPK_USERS)
+    obs_phase(torch, base, dev, card)
+    for n in users:
+        obs_rehearsal(torch, dev, card, users=n)
+    log(f"done in {time.perf_counter() - t0:.1f}s")
+    print(card)
+    return 0
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -5273,9 +5951,11 @@ def main(argv=None) -> int:
         print("[smoke] CUDA is not available: nothing to drive",
               file=sys.stderr)
         return 2
-    if argv not in ([], ["--multi-gpu"]):
-        print(f"[smoke] unknown arguments {argv} (none, or --multi-gpu)",
-              file=sys.stderr)
+    obs_users = argv[1:] if argv[:1] == ["--obs-only"] else None
+    if argv not in ([], ["--multi-gpu"]) and not (
+            obs_users is not None and all(u.isdigit() for u in obs_users)):
+        print(f"[smoke] unknown arguments {argv} (none, --multi-gpu, or "
+              "--obs-only [USERS ...])", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from flink_ms_tpu_torch.ops import _build
@@ -5286,6 +5966,8 @@ def main(argv=None) -> int:
     from flink_ms_tpu_torch.ops import svm_kernels as SK
 
     dev = torch.device("cuda", 0)
+    if obs_users is not None:
+        return obs_only(torch, dev, [int(u) for u in obs_users])
     if argv:
         return multi_gpu_only(torch, dev)
     t_start = time.perf_counter()
@@ -5296,6 +5978,11 @@ def main(argv=None) -> int:
         log(f"clock: {label} done at {now - t_start:.1f}s "
             f"(+{now - laps[-1]:.1f}s)")
         laps.append(now)
+        # a phase stops what it starts: name any process still alive here
+        alive = own_processes(helpers=False)
+        if alive:
+            log(f"processes alive after {label}: {len(alive)}: " + "; ".join(
+                f"{pid} {c[:160]}" for pid, c in alive.items()))
 
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -5407,6 +6094,8 @@ def main(argv=None) -> int:
     lap("phase 19 (arena)")
     loop = loop_phase(torch, job["fleet_base"], dev)
     lap("phase 20 (loop)")
+    obs_phase(torch, job["fleet_base"], dev, card)
+    lap("phase 21 (observability)")
     for e, key in zip(entries[:3], ("cholesky", "cholesky_batch_major",
                                     "assembly")):
         e["launches_by_path"]["als_staged"] = staged[key]
@@ -5421,6 +6110,7 @@ def main(argv=None) -> int:
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "device_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
+    stop_leftovers("phases 1-21", helpers=False)
     log(f"done in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": [{key: e[key] for key in keys}
                                   for e in entries]}))
@@ -5432,8 +6122,13 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    os.environ[RUN_MARK] = f"{os.getpid()}-{time.time_ns()}"
     try:
         sys.exit(main(sys.argv[1:]))
     except SmokeFailure as e:
         log(f"FAIL: {e}")
         sys.exit(1)
+    finally:
+        # whatever way the run ends, nothing it started outlives it
+        stop_leftovers("the run", say=lambda m: print(
+            f"[smoke] {m}", file=sys.stderr, flush=True))

@@ -92,6 +92,21 @@ def log_buckets(lo: float, hi: float, per_decade: int = 16) -> Tuple[float, ...]
 LATENCY_BUCKETS_S: Tuple[float, ...] = log_buckets(1e-6, 100.0, 16)
 SIZE_BUCKETS: Tuple[float, ...] = log_buckets(1.0, 65536.0, 8)
 
+# Metric-name hygiene contract (the reference's): every series name matches
+# NAME_PATTERN, counters end in ``_total``, and label KEYS come from this
+# closed vocabulary (label VALUES stay free-form).
+NAME_PATTERN = r"^tpums_[a-z0-9_]+$"
+LABEL_VOCABULARY = frozenset({
+    "verb",     # wire verb (GET/MGET/TOPK/...)
+    "state",    # model state / table name
+    "tenant",   # admission-control tenant id
+    "kind",     # generic discriminator (event kind, rollout kind, ...)
+    "result",   # outcome discriminator (won/lost/fired/...)
+    "pid",      # per-process series that must NOT sum across a fleet
+    "topic",    # journal/georepl topic
+    "region",   # geo region id
+})
+
 # ---------------------------------------------------------------------------
 # instruments
 # ---------------------------------------------------------------------------
@@ -209,6 +224,11 @@ class Histogram:
     def counts(self) -> List[int]:
         with self._lock:
             return list(self._counts)
+
+    def exemplars(self) -> Dict[int, tuple]:
+        """Snapshot of the per-bucket (tid, value, ts) exemplars."""
+        with self._lock:
+            return dict(self._exemplars)
 
     def fill(self, values: Sequence[float]) -> "Histogram":
         """Bulk-load observations IGNORING the enable switch: offline

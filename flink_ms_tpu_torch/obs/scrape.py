@@ -11,11 +11,12 @@ and ``fleet_signals``, whole.  ``fleet_signals`` reads every series the
 reference reads; a series that no module of the port publishes (alert,
 recall, arena, edge, autopilot, profiler gauges) reads as the reference
 reads it when the series is absent: zero, or None, and the alert fields
-fall back to the registry's published alert record.  The profile scrape,
-``push_freshness`` (the reset-aware update->push freshness over a series
-of scrapes) and the CLI (``--prom``, ``--raw``) are the reference's.  The
-profile scrape waits for the continuous profiler: ``scrape_fleet_profiles``
-refuses (ROADMAP.md, Queue 1, item 'Observability').
+fall back to the registry's published alert record.  ``push_freshness``
+(the reset-aware update->push freshness over a series of scrapes), the CLI
+(``--prom``, ``--raw``) and ``scrape_fleet_profiles`` (one ``PROFILE``
+round trip per live entry, merged with ``profiler.merge_profiles``: Python
+sample seconds and the native server's per-verb ``native;<verb>``
+self-time in one profile) are the reference's.
 
 CLI::
 
@@ -33,9 +34,10 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from ..serve import not_ported, registry
+from ..serve import registry
 from .metrics import (LATENCY_BUCKETS_S, merge_snapshots, render_prometheus,
                       snapshot_quantile)
+from .profiler import merge_profiles, scrape_profile
 
 __all__ = ["scrape_endpoint", "scrape_fleet", "fleet_signals",
            "scrape_fleet_profiles", "push_freshness", "snapshot_quantile",
@@ -173,11 +175,52 @@ _NON_QUERY_VERBS = frozenset({"HEALTH", "METRICS", "PING", "PROFILE",
 
 
 def scrape_fleet_profiles(timeout_s: float = 2.0) -> dict:
-    """The fleet's merged PROFILE replies: refused until the continuous
-    profiler is ported."""
-    raise NotImplementedError(not_ported(
-        "scrape_fleet_profiles (the PROFILE verb's fleet merge)",
-        "Observability"))
+    """``scrape_fleet`` for the continuous-profiling plane: one PROFILE
+    round-trip per live registry entry, merged with the associative
+    ``profiler.merge_profiles`` fold (per-stack seconds sum — exactly how
+    METRICS snapshots merge through ``merge_snapshots``).
+
+    Returns::
+
+        {"replicas": [{"job_id", "host", "port", "profile"|None}, ...],
+         "fleet":    merged profile (Python sample-seconds and native
+                     per-verb CPU self-time in ONE stacks dict),
+         "scraped": N, "unreachable": M, "scrape_duration_s": ...}
+
+    A replica that answers METRICS but not PROFILE (pre-profiler build)
+    counts unreachable here but is NOT an error — the fleet profile is
+    simply missing that plane until its next rollout."""
+    t_start = time.time()
+    entries = registry.list_jobs()
+
+    def poll(entry: dict) -> Optional[dict]:
+        return scrape_profile(entry.get("host", "localhost"),
+                              entry["port"], timeout_s=timeout_s)
+
+    if entries:
+        with ThreadPoolExecutor(
+                max_workers=min(len(entries), _SCRAPE_POOL_MAX),
+                thread_name_prefix="tpums-profscrape") as pool:
+            polled = list(pool.map(poll, entries))
+    else:
+        polled = []
+
+    replicas = []
+    profiles = []
+    for entry, prof in zip(entries, polled):
+        replicas.append({"job_id": entry.get("job_id"),
+                         "host": entry.get("host"),
+                         "port": entry.get("port"),
+                         "profile": prof})
+        if prof is not None:
+            profiles.append(prof)
+    return {
+        "replicas": replicas,
+        "fleet": merge_profiles(profiles),
+        "scraped": len(profiles),
+        "unreachable": len(entries) - len(profiles),
+        "scrape_duration_s": round(time.time() - t_start, 6),
+    }
 
 
 def _query_hists(snapshot: dict) -> List[dict]:

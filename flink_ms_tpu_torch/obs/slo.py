@@ -3,10 +3,9 @@
 Own copy of ``flink_ms_tpu/obs/slo.py``, whole: the same objectives,
 burn-rate math, attribution and ``tpums.slo_report/1`` schema, so one
 snapshot timeline gives the same report JSON and summary text in either
-package.  The workload engine that produces the client-side histograms
-(the reference's ``obs/workload.py``) is not ported yet (ROADMAP.md,
-Queue 1, item 'Observability'); ``build_report`` takes any recorder with
-its duck-typed surface.
+package.  The port's workload engine (``obs/workload.py``) produces the
+client-side histograms; ``build_report`` takes any recorder with its
+duck-typed surface.
 
 The serving plane already exposes one shared latency ladder
 (``metrics.LATENCY_BUCKETS_S``) from both ends: the workload engine's

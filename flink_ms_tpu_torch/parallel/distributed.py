@@ -31,6 +31,7 @@ importable from the port, since a spawned child imports it by name.
 
 from __future__ import annotations
 
+import contextlib
 import multiprocessing
 import os
 import queue
@@ -107,6 +108,9 @@ def maybe_init_distributed(params: Optional[Params] = None) -> bool:
     if backend not in ("nccl", "gloo"):
         raise ValueError(f"--backend {backend!r} must be nccl|gloo")
     if device.type == "cuda":
+        from .mesh import resolve_device
+
+        resolve_device(device)  # no CUDA here: raise, never fall back
         local = os.environ.get("LOCAL_RANK")
         torch.cuda.set_device(int(local) if local is not None
                               else pid % torch.cuda.device_count())
@@ -114,6 +118,22 @@ def maybe_init_distributed(params: Optional[Params] = None) -> bool:
     dist.init_process_group(backend, init_method=init, world_size=n,
                             rank=pid)
     return True
+
+
+@contextlib.contextmanager
+def joined_group(params: Optional[Params] = None):
+    """``maybe_init_distributed`` for a CLI's whole run: a group that this
+    call joins ends as ``launch_local``'s ranks end theirs, with a barrier
+    after a run that returned and ``destroy_process_group`` on every path.
+    A process already in a group (a spawned rank) keeps it."""
+    joined = not in_group() and maybe_init_distributed(params)
+    try:
+        yield
+        if joined:
+            dist.barrier()
+    finally:
+        if joined:
+            dist.destroy_process_group()
 
 
 def is_primary() -> bool:

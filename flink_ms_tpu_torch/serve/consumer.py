@@ -94,6 +94,7 @@ import numpy as np
 from ..core.formats import CHUNK_ALS, CHUNK_SVM, split_journal_chunk
 from ..core.params import Params
 from ..obs import metrics as obs_metrics
+from ..obs import profiler as obs_profiler
 from ..obs import tracing as obs_tracing
 from ..parallel.mesh import resolve_device
 from . import not_ported
@@ -508,6 +509,10 @@ class ServingJob:
                 file=sys.stderr,
             )
         self.server.start()
+        # continuous profiling is part of serving: the process-wide sampler
+        # starts with the first job and is shared by all of them;
+        # TPUMS_PROF=0 is the kill switch
+        obs_profiler.ensure_started()
         print(f"[serve:{self.state_name}] table: {self.table_kind}",
               file=sys.stderr)
         # announce jobId -> endpoint so clients resolve this job without

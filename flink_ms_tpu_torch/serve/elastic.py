@@ -167,6 +167,7 @@ class ScaleController:
         self.device = device
         self.supervisors: Dict[int, ReplicaSupervisor] = {}  # gen -> sup
         self.warming: Optional[ReplicaSupervisor] = None  # chaos target
+        self._stops = 0   # stop() calls: a cutover begun before one aborts
         self.events: List[dict] = []  # cutover timeline (bench/smoke)
         self.scales = 0
 
@@ -273,6 +274,7 @@ class ScaleController:
         token = self._acquire_lease()
         new_sup: Optional[ReplicaSupervisor] = None
         cur_gen = 0
+        stops = self._stops
         try:
             topo = self.current()
             cur_gen = int(topo["gen"]) if topo else 0
@@ -299,7 +301,13 @@ class ScaleController:
                 if new_sup.wait_all_ready(timeout_s=1.0):
                     ready = True
                     break
+                if self._stops != stops:
+                    break
                 registry.refresh_controller_lease(self.group, token)
+            if self._stops != stops:
+                raise ScaleError(
+                    f"generation {gen} of {self.group!r}: the controller "
+                    "was stopped during the cutover")
             if not ready:
                 raise ScaleError(
                     f"generation {gen} of {self.group!r} not ready after "
@@ -355,7 +363,16 @@ class ScaleController:
     def stop(self, drop_topology: bool = False) -> None:
         """Stop every generation this controller owns (teardown, not a
         cutover).  ``drop_topology`` also removes the group's record."""
-        self.warming = None
+        # a cutover running on another thread (the autoscaler's) sees the
+        # count move and aborts, and its warming generation is stopped
+        # here, so no member outlives this call
+        self._stops += 1
+        warming, self.warming = self.warming, None
+        if warming is not None:
+            try:
+                warming.stop()
+            except Exception:
+                pass
         for gen in sorted(self.supervisors):
             try:
                 self.supervisors.pop(gen).stop()

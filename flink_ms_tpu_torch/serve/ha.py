@@ -565,22 +565,28 @@ class ReplicaSupervisor:
         pf = os.path.join(self.port_dir, f"ha-port-{shard}-{replica}.json")
         if os.path.exists(pf):
             os.unlink(pf)
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "flink_ms_tpu_torch.serve.sharded",
-             "--workerIndex", str(shard), "--device", self.device,
-             "--numWorkers", str(self.num_workers),
-             "--replicaIndex", str(replica),
-             "--jobGroup", self.job_group,
-             "--journalDir", self.journal_dir, "--topic", self.topic,
-             "--stateBackend", self.state_backend, "--host", self.host,
-             "--port", "0", "--portFile", pf, *self.extra_args],
-            env=base_env, cwd=repo,
-            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
-        )
         # own the proc before waiting on the port file: if the wait below
         # raises, stop() must still be able to kill this replica, and the
-        # monitor must supervise it rather than the corpse it replaced
+        # monitor must supervise it rather than the corpse it replaced.
+        # The stop flag is read under the lock stop() takes to collect the
+        # procs, so a launch either lands in that collection or never runs
         with self._lock:
+            if self._stop.is_set():
+                raise RuntimeError(
+                    f"replica s{shard}r{replica}: the supervisor of "
+                    f"{self.job_group!r} is stopped")
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "flink_ms_tpu_torch.serve.sharded",
+                 "--workerIndex", str(shard), "--device", self.device,
+                 "--numWorkers", str(self.num_workers),
+                 "--replicaIndex", str(replica),
+                 "--jobGroup", self.job_group,
+                 "--journalDir", self.journal_dir, "--topic", self.topic,
+                 "--stateBackend", self.state_backend, "--host", self.host,
+                 "--port", "0", "--portFile", pf, *self.extra_args],
+                env=base_env, cwd=repo,
+                stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
+            )
             self.procs[(shard, replica)] = proc
         return shard, replica, proc, pf
 
@@ -629,6 +635,10 @@ class ReplicaSupervisor:
         with self._lock:
             members = list(self.procs.items())
         for (shard, replica), proc in members:
+            if self._stop.is_set():
+                # stop() runs beside this check when its join times out:
+                # the members it killed are not this loop's to respawn
+                return
             key = (shard, replica)
             dead = proc.poll() is not None
             if not dead:

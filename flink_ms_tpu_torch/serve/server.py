@@ -44,10 +44,8 @@ built at the first subscription (it attaches table listeners, which make
 ingest run the Python listener path), and a connection's subscriptions
 end with it.
 
-Not ported yet, refused rather than ignored: ``PROFILE``
-(``obs/profiler.py``; ROADMAP.md, Queue 1, item 'Observability') answers
-``E\\t`` naming the item, where the reference's server answers its
-profiler's stacks.
+``PROFILE`` answers the process profiler's stage-keyed folded stacks as
+one ``P\\t<json>`` line (``obs/profiler.py``), as the reference's does.
 """
 
 from __future__ import annotations
@@ -59,13 +57,12 @@ from typing import Dict, Optional
 
 from ..core.formats import RangePayloadCache, gather_sorted, sort_dedup_last
 from ..obs import metrics as obs_metrics
+from ..obs import profiler as obs_profiler
 from ..obs import tracing as obs_tracing
 from . import admission as admission_ctl
-from . import not_ported, proto
+from . import proto
 from . import push as push_plane
 from .table import ModelTable
-
-PROFILE_REFUSAL = "E\t" + not_ported("the PROFILE verb", "Observability")
 
 
 class _ConnPushSink:
@@ -508,7 +505,10 @@ class LookupServer:
             return self._finish(verb, tid, t0, self._metrics_reply(),
                                 echo=echo_tid, stale=stale)
         if verb == "PROFILE" and len(parts) == 1:
-            return self._finish(verb, tid, t0, PROFILE_REFUSAL,
+            # the profiling plane's scrape verb: the process profiler's
+            # folded stacks as one P\t<json> line (the METRICS pattern
+            # applied to profiles — obs/profiler.py)
+            return self._finish(verb, tid, t0, self._profile_reply(),
                                 echo=echo_tid, stale=stale)
         reply = self._handle(parts, burst, push_sink)
         if isinstance(reply, _DeferredReply):
@@ -706,6 +706,18 @@ class LookupServer:
             return "J\t" + obs_metrics.snapshot_to_json_line(snap)
         except Exception as e:
             return f"E\tmetrics failed: {e}"
+
+    def _profile_reply(self) -> str:
+        """The PROFILE verb: the process profiler's stage-keyed folded
+        stacks as ONE ``P\\t<json>`` line.  Always answers — with the
+        profiler off the stacks are empty but the line still parses, so
+        fleet scrapes see 'no samples', not an error."""
+        try:
+            return obs_profiler.profile_reply_line(
+                meta={"job_id": self.job_id, "port": self.port,
+                      "plane": "python"})
+        except Exception as e:
+            return f"E\tprofile failed: {e}"
 
     def _push(self) -> push_plane.PushEngine:
         """The lazily built push engine (serve/push.py).  The first call,

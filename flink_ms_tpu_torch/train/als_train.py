@@ -73,11 +73,17 @@ def spawn_ranks(rank_fn, params: Params, ranks: int, device):
 
 
 def run(params: Params) -> ALSModel | None:
+    """The CLI's fit; a process group that the flags name is joined
+    for the run and left at its end."""
+    with pdist.joined_group(params):
+        return _run(params)
+
+
+def _run(params: Params) -> ALSModel | None:
     if not params.has("input"):
         print("Use --input to specify file input.")
         return None
     device = resolve_device(params.get("device", "cuda"))
-    pdist.maybe_init_distributed(params)
     ranks = ranks_for_blocks(params.get_int("blocks"),
                              params.get_int("devices"), device)
     if ranks > 1 and not pdist.in_group():

@@ -51,9 +51,15 @@ def _rank_run(params: Params):
 
 
 def run(params: Params) -> SVMModel:
+    """The CLI's fit; a process group that the flags name is joined
+    for the run and left at its end."""
+    with pdist.joined_group(params):
+        return _run(params)
+
+
+def _run(params: Params) -> SVMModel:
     training_path = params.get_required("training")
     device = resolve_device(params.get("device", "cuda"))
-    pdist.maybe_init_distributed(params)
     # blocks = K logical SDCA chains, ceil(K/D) of them on each rank
     blocks = params.get_int("blocks", 10)
     ranks = ranks_for_blocks(blocks, params.get_int("devices"), device)

@@ -521,11 +521,10 @@ def test_svm_cli_on_two_ranks_writes_once(tmp_path, capfd):
             TF.format_svm_flat_rows(got.weights))
 
 
-def test_svm_cli_joins_a_job_started_elsewhere(tmp_path):
-    """``--coordinatorAddress/--numProcesses/--processId``: two commands,
-    one per rank, meet at a rendezvous file and write the model once."""
-    path = _libsvm_file(tmp_path)
-    out = str(tmp_path / "model")
+def _cli_ranks(tmp_path, module, flags):
+    """Two commands of ``module``, one per rank, joined through
+    ``--coordinatorAddress/--numProcesses/--processId`` at a rendezvous
+    file -> (return codes, [(stdout, stderr)] per rank)."""
     rendezvous = "file://" + str(tmp_path / "rendezvous")
     env = {k: v for k, v in os.environ.items() if k not in RANK_ENV}
     env["PYTHONPATH"] = ROOT
@@ -538,10 +537,10 @@ def test_svm_cli_joins_a_job_started_elsewhere(tmp_path):
     for r, (o, e) in enumerate(logs):
         with open(o, "w") as fo, open(e, "w") as fe:
             procs.append(subprocess.Popen(
-                [sys.executable, "-m", "flink_ms_tpu_torch.train.svm_train",
-                 "--training", path, "--output", out, "--coordinatorAddress",
-                 rendezvous, "--numProcesses", "2", "--processId", str(r)]
-                + SVM_FLAGS, cwd=ROOT, env=env, stdout=fo, stderr=fe))
+                [sys.executable, "-m", module, *flags,
+                 "--coordinatorAddress", rendezvous, "--numProcesses", "2",
+                 "--processId", str(r)],
+                cwd=ROOT, env=env, stdout=fo, stderr=fe))
     deadline = time.monotonic() + CLI_JOB_S
     try:
         for p in procs:
@@ -550,8 +549,21 @@ def test_svm_cli_joins_a_job_started_elsewhere(tmp_path):
         for p in procs:
             p.kill()
             p.wait(timeout=30)
-    outs = [(o.read_text(), e.read_text()) for o, e in logs]
-    assert [p.returncode for p in procs] == [0, 0], outs
+    return ([p.returncode for p in procs],
+            [(o.read_text(), e.read_text()) for o, e in logs])
+
+
+def test_svm_cli_joins_a_job_started_elsewhere(tmp_path):
+    """``--coordinatorAddress/--numProcesses/--processId``: two commands,
+    one per rank, meet at a rendezvous file and write the model once; both
+    leave the group at their end (barrier, then
+    ``destroy_process_group``) and exit 0."""
+    path = _libsvm_file(tmp_path)
+    out = str(tmp_path / "model")
+    rcs, outs = _cli_ranks(tmp_path, "flink_ms_tpu_torch.train.svm_train",
+                           ["--training", path, "--output", out]
+                           + SVM_FLAGS)
+    assert rcs == [0, 0], outs
     assert "2 device(s)" in outs[0][0] and "[SVM]" not in outs[1][0]
     want = svm_train.run(Params.from_args(["--training", path]
                                           + SVM_FLAGS))
@@ -560,3 +572,26 @@ def test_svm_cli_joins_a_job_started_elsewhere(tmp_path):
     assert len(rows) == len(want.weights)
     w = np.array([float(row.split(",")[1]) for row in rows])
     np.testing.assert_allclose(w, want.weights, rtol=2e-4, atol=1e-6)
+
+
+def test_als_cli_joins_a_job_started_elsewhere(tmp_path):
+    """The ALS CLI the same way: rank 0 alone writes the model, which
+    equals the ``--devices 2`` job's (same blocks, same collectives), and
+    both ranks exit 0."""
+    path = _ratings_file(tmp_path)
+    joined, spawned = str(tmp_path / "joined"), str(tmp_path / "spawned")
+    for d in (joined, spawned):
+        os.makedirs(d)
+    rcs, outs = _cli_ranks(tmp_path, "flink_ms_tpu_torch.train.als_train",
+                           _als_flags(path, joined))
+    assert rcs == [0, 0], outs
+    assert "2 device(s)" in outs[0][0] and "[ALS]" not in outs[1][0]
+    assert sorted(os.listdir(joined)) == ["itf", "uf"]
+    als_train.run(Params.from_args(_als_flags(path, spawned)
+                                   + ["--devices", "2"]))
+    for name in ("uf", "itf"):
+        ids_j, _, m_j = TF.read_als_model(os.path.join(joined, name))
+        ids_s, _, m_s = TF.read_als_model(os.path.join(spawned, name))
+        assert ids_j == ids_s
+        # tolerance: the same float32 collectives on both jobs
+        np.testing.assert_allclose(m_j, m_s, rtol=1e-6, atol=1e-7)

@@ -76,7 +76,11 @@ def test_port_and_chip_smoke_load_no_jax():
                 "flink_ms_tpu_torch.obs.slo",
                 "flink_ms_tpu_torch.obs.rules",
                 "flink_ms_tpu_torch.obs.watch",
-                "flink_ms_tpu_torch.serve.rollout"
+                "flink_ms_tpu_torch.serve.rollout",
+                "flink_ms_tpu_torch.obs.profdiff",
+                "flink_ms_tpu_torch.obs.forensics",
+                "flink_ms_tpu_torch.obs.profiler",
+                "flink_ms_tpu_torch.obs.workload"
                 } <= set(names)
         from flink_ms_tpu_torch.serve import autopilot
         assert {"AutopilotController", "main", "retrain_candidate"} <= \
@@ -91,7 +95,7 @@ def test_port_and_chip_smoke_load_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 67  # every module of the port was imported
+    assert int(n) >= 71  # every module of the port was imported
     assert bad == "[]"
 
 
@@ -413,3 +417,46 @@ def test_chip_smoke_alone_exits_nonzero_and_prints_no_result(tmp_path):
     assert out.returncode == 1
     assert out.stdout == ""
     assert "No module named 'flink_ms_tpu_torch'" in out.stderr
+
+
+def test_observability_clis_load_no_jax(tmp_path):
+    """The observability CLIs, run as ``python -m`` would run them, load no
+    JAX: the profiler's fleet merge, forensics over a spill and the watch
+    loop's one tick answer over an empty registry; without CUDA the
+    rehearsal stops at its device before it spawns a member."""
+    spill = tmp_path / "spill.jsonl"
+    spill.write_text('{"ts": 1.0, "tid": "t", "kind": "client_rpc", '
+                     '"sid": "a", "t0": 0.5, "dur_s": 0.5}\n')
+    code = textwrap.dedent(f"""
+        import runpy, sys
+        runs = [("flink_ms_tpu_torch.obs.profiler", ["--fleet"]),
+                ("flink_ms_tpu_torch.obs.forensics", [{str(spill)!r}]),
+                ("flink_ms_tpu_torch.obs.watch", ["--once"]),
+                ("flink_ms_tpu_torch.obs.workload",
+                 ["--rehearsal", "--out", {str(tmp_path / "r.json")!r}])]
+        out = []
+        for mod, argv in runs:
+            sys.argv = [mod] + argv
+            try:
+                runpy.run_module(mod, run_name="__main__")
+            except SystemExit as e:
+                out.append(f"exit {{e.code}}")
+            except Exception as e:
+                out.append(type(e).__name__ + ": " + str(e)[:60])
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                     or m == "flink_ms_tpu" or m.startswith("flink_ms_tpu."))
+        print(" | ".join(out))
+        print(bad)
+    """)
+    env = dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES="",
+               TPUMS_REGISTRY_DIR=str(tmp_path / "registry"))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=180)
+    assert out.returncode == 0, out.stderr
+    runs, bad = out.stdout.strip().splitlines()[-2:]
+    prof, fx, watch, rehearsal = runs.split(" | ")
+    assert (prof, fx, watch) == ("exit 0", "exit 0", "exit 0")
+    assert rehearsal.startswith("RuntimeError: device 'cuda' was asked for")
+    assert not os.path.exists(tmp_path / "r.json")
+    assert bad == "[]"

@@ -2,9 +2,11 @@
 ``rules.py``) against the JAX package's on the CPU.
 
 Two kinds of check:
-- every case of ``tests/test_tsdb.py``, ``test_slo.py`` and the pure cases
-  of ``test_rules.py`` runs again with the reference's names bound to the
-  port's objects (the reference's own assertions, on the port);
+- every case of ``tests/test_tsdb.py``, ``test_slo.py`` and
+  ``test_rules.py`` runs again with the reference's names bound to the
+  port's objects (the reference's own assertions, on the port); the live
+  cases of ``test_rules.py`` run against a port serving job, with the
+  modules they import inside their bodies swapped for the port's;
 - one seeded snapshot timeline goes through both packages and must give
   equal ``SeriesStore`` queries, equal ``build_report`` JSON, an equal
   ``human_summary`` text, equal ``validate_report`` lists, equal
@@ -23,14 +25,21 @@ import pytest
 import test_rules as ref_rules_cases
 import test_slo as ref_slo_cases
 import test_tsdb as ref_tsdb_cases
+from test_torch_profiler import _port_imports
 from flink_ms_tpu.obs import rules as RR
 from flink_ms_tpu.obs import slo as RS
 from flink_ms_tpu.obs import tsdb as RT
+from flink_ms_tpu_torch.eval import mse as PMse
 from flink_ms_tpu_torch.obs import metrics as PM
 from flink_ms_tpu_torch.obs import rules as PR
+from flink_ms_tpu_torch.obs import scrape as PSc
 from flink_ms_tpu_torch.obs import slo as PS
+from flink_ms_tpu_torch.obs import tracing as PTr
 from flink_ms_tpu_torch.obs import tsdb as PT
+from flink_ms_tpu_torch.obs import watch as PW
 from flink_ms_tpu_torch.core import formats as PF
+from flink_ms_tpu_torch.serve import client as PClient
+from flink_ms_tpu_torch.serve import registry as PReg
 
 
 def _on_port(module, overrides):
@@ -70,12 +79,18 @@ SLO_PORT = _on_port(ref_slo_cases, {
         "SLOObjective", "SLOSpec", "bucket_index", "build_report",
         "burn_rate", "human_summary", "validate_report", "verb_windows")}})
 
-# the pure cases: the live ones need the watch loop (FleetWatcher), which
-# the port has not yet; the canary and HEALTH hint have their own files
+# the pure cases, and the live ones: a serving job, the watch loop
+# (FleetWatcher), the canary, the fleet scrape and HEALTH's alert hint
 RULES_PURE = [n for n in _cases(ref_rules_cases)
               if "live_job" not in inspect.signature(
                   getattr(ref_rules_cases, n)).parameters
               and "detection_latency" not in n]
+# in the reference module's order, as its suite runs them (a case leaves
+# kill events in the process's event ring that a later case's watcher
+# must not see inside its window)
+RULES_LIVE = [n for n, f in vars(ref_rules_cases).items()
+              if n.startswith("test_") and callable(f)
+              and n not in RULES_PURE]
 RULES_PORT = _on_port(ref_rules_cases, {
     "F": PF, "SeriesStore": PT.SeriesStore,
     **{n: getattr(PR, n) for n in (
@@ -101,6 +116,55 @@ def test_reference_rules_case_on_the_port(name, tmp_path):
 def test_the_mirrored_rules_cases_are_the_pure_ones():
     assert len(RULES_PURE) == 11
     assert "test_flap_suppression_latches_and_unlatches" in RULES_PURE
+
+
+@pytest.fixture
+def port_live_job(tmp_path):
+    """The reference's ``live_job`` fixture with the port's serving job."""
+    import numpy as np
+
+    from flink_ms_tpu_torch.serve.consumer import (ALS_STATE, ServingJob,
+                                                   make_backend,
+                                                   parse_als_record)
+    from flink_ms_tpu_torch.serve.journal import Journal
+
+    rng = np.random.default_rng(0)
+    n, dim = 40, 4
+    uf = rng.normal(size=(n, dim))
+    itf = rng.normal(size=(n, dim))
+    journal = Journal(str(tmp_path / "bus"), "models")
+    journal.append(
+        [PF.format_als_row(u, "U", uf[u]) for u in range(n)]
+        + [PF.format_als_row(i, "I", itf[i]) for i in range(n)])
+    job = ServingJob(journal, ALS_STATE, parse_als_record,
+                     make_backend("memory", None),
+                     host="127.0.0.1", port=0,
+                     poll_interval_s=0.01, device="cpu").start()
+    assert job.wait_ready(60)
+    yield job, journal, uf, itf
+    job.stop()
+
+
+def test_the_live_rules_cases_are_the_other_eight():
+    assert len(RULES_LIVE) == 8
+    assert "test_watcher_detection_latency_pairs_kill_with_page" in \
+        RULES_LIVE
+
+
+@pytest.mark.parametrize("name", RULES_LIVE)
+def test_reference_live_rules_case_on_the_port(name, tmp_path, monkeypatch,
+                                                request):
+    _port_imports(monkeypatch, {"flink_ms_tpu.eval.mse": PMse,
+                                "flink_ms_tpu.obs.watch": PW,
+                                "flink_ms_tpu.obs.scrape": PSc,
+                                "flink_ms_tpu.obs.tracing": PTr,
+                                "flink_ms_tpu.serve.client": PClient,
+                                "flink_ms_tpu.serve.registry": PReg})
+    fn = RULES_PORT[name]
+    have = {"tmp_path": tmp_path, "monkeypatch": monkeypatch}
+    args = {p: (request.getfixturevalue("port_live_job") if p == "live_job"
+                else have[p]) for p in inspect.signature(fn).parameters}
+    fn(**args)
 
 
 # ---------------------------------------------------------------------------

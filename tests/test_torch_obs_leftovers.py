@@ -2,7 +2,7 @@
 ``obs/metrics.py`` (the Prometheus exposition, bench deltas and
 percentiles, the two live switches), ``obs/tracing.py`` (the stage stack,
 size-capped rotation of the event file, ``load_events``, ``clear_events``),
-``obs/scrape.py`` (``push_freshness``, the CLI, the profile refusal) and
+``obs/scrape.py`` (``push_freshness``, the CLI, the profile merge) and
 ``utils/profiling.StepTimer`` (``merge``, ``to_histogram``, ``write_json``).
 
 The reference's cases of ``tests/test_obs_metrics.py`` and
@@ -322,6 +322,36 @@ def test_scrape_cli_prints_like_the_reference(monkeypatch):
         assert PSc.main([]) == 1
 
 
-def test_scrape_fleet_profiles_refuses_by_item():
-    with pytest.raises(NotImplementedError, match="'Observability'"):
-        PSc.scrape_fleet_profiles()
+def test_scrape_fleet_profiles_refuses_by_item(tmp_path):
+    """Once the port's refusal, now the fleet merge: both packages'
+    ``scrape_fleet_profiles`` over one port server merge its PROFILE reply
+    into the same stage set and seconds (exact: one reply, one sum), and
+    an empty registry merges to an empty profile in both."""
+    from flink_ms_tpu_torch.obs import profiler as PP
+    from flink_ms_tpu_torch.serve import registry as PReg
+    from flink_ms_tpu_torch.serve.server import LookupServer
+    from flink_ms_tpu_torch.serve.table import ModelTable
+
+    empty = [mod.scrape_fleet_profiles() for mod in (RSc, PSc)]
+    assert [e["scraped"] for e in empty] == [0, 0]
+    assert empty[1]["fleet"]["stacks"] == empty[0]["fleet"]["stacks"] == {}
+    prof = PP.SamplingProfiler(hz=50.0)
+    with prof._lock:
+        prof._stacks.update({"-;m.f": 3, "push;m.g": 2})
+        prof.samples = 5
+    saved, PP._global = PP._global, prof
+    srv = LookupServer({"ALS_MODEL": ModelTable(2)}, host="127.0.0.1",
+                       port=0, job_id="prof-left").start()
+    try:
+        PReg.register("prof-left", "127.0.0.1", srv.port, "ALS_MODEL",
+                      ready=True, ttl_s=300.0)
+        got = [mod.scrape_fleet_profiles() for mod in (RSc, PSc)]
+    finally:
+        srv.stop()
+        PP._global = saved
+    for g in got:
+        assert g["scraped"] == 1 and g["unreachable"] == 0
+        assert g["fleet"]["stacks"] == {"-;m.f": 0.06, "push;m.g": 0.04}
+        assert g["fleet"]["samples"] == 5
+        assert g["fleet"]["meta"]["planes"] == ["python"]
+        assert g["replicas"][0]["job_id"] == "prof-left"
