@@ -5,9 +5,9 @@ serving of the trained ALS model, staged ALS with resume, the SVM's opt-in
 modes, the model generators, the autopilot's retrain, the multi-rank
 paths over ``torch.distributed``, the serving job in a process of its
 own, the serving fleet, the arena and native store, the closed loop
-(blue/green rollout around the autopilot's retrain on the card), and
+(blue/green rollout around the autopilot's retrain on the card),
 observability (the continuous profiler, forensics, the watch loop and the
-rehearsal workload engine).
+rehearsal workload engine), and geo-replication with the edge proxy.
 
 Run from the repository root, on a machine with one CUDA card:
 
@@ -22,6 +22,10 @@ or phase 21 alone on seeded random rows at the served model's shape,
 then its rehearsal again at each user count given:
 
     python3 chip_smoke.py --obs-only [USERS ...]
+
+or phase 22 alone on such rows:
+
+    python3 chip_smoke.py --geo-only
 
 Phases, each printing lines of its own (``[smoke] ...``):
 
@@ -147,7 +151,9 @@ Phases, each printing lines of its own (``[smoke] ...``):
             at the RCV1 shape with 4,096 of the 8,192 chains a rank against
             phase 7's w at rtol 2e-4 / atol 1e-6, and each rank's launches;
             its times are labelled "gloo, one card shared", a check and not
-            a speed figure; (c) the sharded exact tier on phase 11's 1M
+            a speed figure; the ranks run beside phase 15 and (a), so
+            those phases' times are taken beside them; (c) the sharded
+            exact tier on phase 11's 1M
             catalog as 2 row slices on this card: the exact tier's ids on 64
             queries, scores within 1e-5, p50 and queries/s; (d) with two or
             more cards only, over NCCL on 1, 2 and 4 ranks of one card each:
@@ -161,8 +167,8 @@ Phases, each printing lines of its own (``[smoke] ...``):
             registry (seconds to ready, ingest rows/s); 256 TOPK over the
             wire equal byte for byte to the in-process
             ``make_als_topk_handler`` and to a float64 top-k, TOPKV, GET and
-            MGET, p50/p99 of 500 sequential TOPK, ``als_predict_random``
-            for 1,000 queries (its CSV's p50/p99); the live MSE of 50,000
+            MGET, p50/p99 of 300 sequential TOPK, ``als_predict_random``
+            for 500 queries (its CSV's p50/p99); the live MSE of 50,000
             training ratings (seed 7) equal to the offline ``--model`` MSE
             at rtol 1e-5; ``online.sgd`` on 12,500 fresh ratings (seed 1,
             batch 256): updates/s, seconds until the job's offset and its
@@ -242,7 +248,7 @@ Phases, each printing lines of its own (``[smoke] ...``):
             request path among the sampled frames), the window's top 10
             stacks and the host CPU shares of the server's request path,
             the push engine and the update path, then TOPK p50/p99 in 4
-            blocks of 200 against a member with ``TPUMS_PROF=0`` (not
+            blocks of 100 against a member with ``TPUMS_PROF=0`` (not
             gated); (b) 500 traced fan-out TOPK into 2 shards, every
             process appending to one ``TPUMS_TRACE`` file: all 500 trees
             with a client span and both shards' ``server_reply``, the
@@ -251,11 +257,34 @@ Phases, each printing lines of its own (``[smoke] ...``):
             and ``profiler --fleet`` CLIs, each a process of its own, at
             once; (c) ``run_rehearsal(device="cuda")`` at the reference
             CLI's defaults with 40,000 users at rank 50 (cut from
-            ML-20M's 138,493) and a 5 s replica TTL, the watch loop,
-            8 push subscribers, a kill and the live autoscaler: the
+            ML-20M's 138,493) at its own 1.5 s replica TTL, the watch
+            loop, 8 push subscribers, a kill and the live autoscaler: the
             report valid, no unattributed error or page, every scheduled
-            op run, the kill detected; each breach with its attribution,
-            per-verb p50/p99, push p99 and the card's memory at its peak.
+            op run, the kill detected, no respawn but the kill's; each
+            breach with its attribution, per-verb p50/p99, push p99, the
+            card's memory at its peak, and the wall-clock profiles
+            (``TPUMS_PROF_IDLE=1``) of the members and of this process
+            with what their threads wait on;
+22. geo   — geo-replication and the edge proxy on the same topic at the
+            rehearsal's liveness (heartbeat 0.25 s, TTL 1.5 s): (a) home
+            region ``us`` (2 shards x 2 replicas) and follower ``eu`` (2
+            x 1) fed by a ``JournalReplicator``: the follower journal
+            byte-equal to home's at the same offsets, 256 single TOPK
+            from eu equal to us's and to a float64 top-k, replication
+            lag p99 under 250 ms under ``GeoWriteForwarder`` SGD,
+            ``st=`` 0.000, growing across a partition, 0.000 healed; (b)
+            two proxies in front of us: GET, MGET, TOPK, TOPKV and COUNT
+            through them on tab and B2 equal to a direct client's,
+            coalesce hits, hedges past a SIGSTOPped replica, a proxy's
+            SIGKILL with no client error and push subscriptions through
+            it with no missed or duplicate delta, a proxy in eu with a
+            staleness bound going home under a partition, GET and TOPK
+            p50/p99 through the proxy beside direct; (c) the whole us
+            region SIGKILLed under eu's reads: eu promoted within 5 s,
+            no read error, the forwarder's next rating applied in eu;
+            (d) phase 21 (c)'s rehearsal with 2 proxies in front of its
+            group, its schedule cut from 12 s to 4 s, without profilers,
+            on (c)'s gates, and the proxy tier's fleet signals.
 
 Each kernel's ``ms`` is the median over calls timed one CUDA event pair
 each, the wrapper's host work included where it outlasts the device's;
@@ -368,8 +397,9 @@ def own_processes(helpers: bool = True) -> dict:
 def stop_leftovers(label, say=log, grace_s: float = 5.0,
                    helpers: bool = True) -> dict:
     """Stop every process of ``own_processes(helpers)``: SIGTERM, then
-    SIGKILL for those still alive after ``grace_s`` -> the ones found, each
-    reported through ``say`` with its command line."""
+    SIGKILL for those still alive after ``grace_s`` (at once for
+    multiprocessing's helpers, which ignore SIGTERM) -> the ones found,
+    each reported through ``say`` with its command line."""
     import signal
 
     found = own_processes(helpers)
@@ -377,6 +407,12 @@ def stop_leftovers(label, say=log, grace_s: float = 5.0,
         return found
     say(f"processes left running after {label}: {len(found)}: " + "; ".join(
         f"{pid} {cmd[:160]}" for pid, cmd in found.items()))
+
+    def waiting():
+        alive = set(found) & set(own_processes())
+        return alive and not all(any(h in found[p] for h in MP_HELPERS)
+                                 for p in alive)
+
     for sig in (signal.SIGTERM, signal.SIGKILL):
         for pid in found:
             try:
@@ -384,7 +420,7 @@ def stop_leftovers(label, say=log, grace_s: float = 5.0,
             except OSError:
                 pass
         deadline = time.time() + grace_s
-        while time.time() < deadline and set(found) & set(own_processes()):
+        while time.time() < deadline and waiting():
             time.sleep(0.05)
         for pid in found:       # reap those that were this process's own
             try:
@@ -2507,25 +2543,53 @@ def multi_world1_phase(torch, TA, CH, GA, TS, SK, problem, ratings_t, init,
           == SVM_ROUNDS, f"world-1 SVM launches {svm}")
 
 
-def multi_gloo_phase(torch, runs, svm_w, dev) -> dict:
+def multi_gloo_phase(torch, runs, svm_w, dev):
     """Phase 16 (b): 2 ranks over gloo, both on this card: ALS at the
     ML-20M shape against phase 4's fit, the float64 half-sweep checks of
     each rank's block, the fused path, a staged run resumed with one
     writer, the routed exchange against the gathered one, and SVM at the
-    RCV1 shape, K 8,192 as 2 x 4,096 chains, against phase 7's w.  ->
-    rank 0's launches per path."""
+    RCV1 shape, K 8,192 as 2 x 4,096 chains, against phase 7's w.
+    Starts the ranks and returns at once a function that waits for them,
+    checks, and returns rank 0's launches per path (the run starts them
+    before phase 15: their checks are exact or against fixed tolerances,
+    and their times are not speed figures)."""
     import tempfile
 
     from flink_ms_tpu_torch.parallel.distributed import launch_local
 
-    with tempfile.TemporaryDirectory() as d:
-        spec = job_spec(checks=True, stage=os.path.join(d, "stage"))
+    d = tempfile.mkdtemp(prefix="tpums_multi_gloo_")
+    spec = job_spec(checks=True, stage=os.path.join(d, "stage"))
+    job = {}
+
+    def run():
         t0 = time.perf_counter()
-        outs = launch_local(multi_rank_job, 2, (spec,), device=dev.type,
-                            backend="gloo", devices=[dev, dev],
-                            timeout=900)
-        job_s = time.perf_counter() - t0
-        left = sorted(os.listdir(spec["stage"]))
+        try:
+            job["outs"] = launch_local(
+                multi_rank_job, 2, (spec,), device=dev.type, backend="gloo",
+                devices=[dev, dev], timeout=900)
+        except BaseException as e:  # re-raised by finish()
+            job["error"] = e
+        job["s"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+
+    def finish():
+        thread.join()
+        try:
+            if "error" in job:
+                raise job["error"]
+            left = sorted(os.listdir(spec["stage"]))
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        return multi_gloo_checks(torch, runs, svm_w, dev, job["outs"],
+                                 job["s"], left)
+
+    return finish
+
+
+def multi_gloo_checks(torch, runs, svm_w, dev, outs, job_s, left) -> dict:
+    """Phase 16 (b)'s lines and checks of the ranks' outputs."""
     check_rank_launches(outs, "multi (b)")
     r0 = outs[0]
     want = runs["default"]["model"]
@@ -2696,8 +2760,8 @@ def multi_gpu_only(torch, dev) -> int:
 # -- phase 17: the serving job ------------------------------------------------
 
 JOB_TOPK_USERS = 256      # TOPK replies held against the in-process handler
-JOB_LATENCY_CALLS = 500   # sequential TOPK requests timed over the wire
-JOB_HARNESS_QUERIES = 1000
+JOB_LATENCY_CALLS = 300   # sequential TOPK requests timed over the wire
+JOB_HARNESS_QUERIES = 500
 JOB_MSE_RATINGS = 50_000
 JOB_SGD_RATINGS = 12_500
 JOB_SAMPLE = 64           # keys and users checked after the updates
@@ -2862,10 +2926,12 @@ JOB_COMPACT_MODELS = ("model", "model-served")
 JOB_SNAPSHOT_MIN_BYTES = None  # the job's default, 1 MiB
 
 
-def metric_sum(snap, kind, name) -> float:
+def metric_sum(snap, kind, name, **labels) -> float:
     """A counter or gauge series of a METRICS snapshot, summed over its
-    label sets."""
-    return sum(e["value"] for e in snap[kind] if e["name"] == name)
+    label sets (those with ``labels``, when given)."""
+    return sum(e["value"] for e in snap.get(kind, []) if e["name"] == name
+               and all(e.get("labels", {}).get(k) == v
+                       for k, v in labels.items()))
 
 
 def hist_of(snap, name):
@@ -3767,13 +3833,13 @@ def serving_job_phase(torch, model, ratings_t, serve_p50, dev) -> dict:
 # -- phase 18: the serving fleet ----------------------------------------------
 
 FLEET_MGET_KEYS = 1000      # keys every topology must serve byte for byte
-FLEET_LATENCY_CALLS = 500   # sequential fan-out TOPK timed
+FLEET_LATENCY_CALLS = 300   # sequential fan-out TOPK timed
 FLEET_RATE_QPS = 300.0      # the reference bench's open-loop stream
-FLEET_WINDOW_S = 2.0        # each latency window of the stream
+FLEET_WINDOW_S = 1.0        # each latency window of the stream
 FLEET_PARTITIONS = 16       # the update plane's default partitions
 FLEET_BATCH = 256           # its default batch
-FLEET_RESHARD_RATINGS = 20_000  # streamed through a live 2 -> 4 cutover
-FLEET_RATINGS = 50_000      # then at 4 shards (seed 23)
+FLEET_RESHARD_RATINGS = 10_000  # streamed through a live 2 -> 4 cutover
+FLEET_RATINGS = 25_000      # then at 4 shards (seed 23)
 FLEET_WAIT_S = 300.0        # the longest any fleet step may wait
 FLEET_CHECKPOINT_MS = 2000
 # the reference bench's cadence; a 5 s TTL leaves headroom for workers
@@ -4421,11 +4487,11 @@ def fleet_phase(torch, base, dev) -> dict:
 
 # -- phase 19: the arena and the native store --------------------------------
 
-ARENA_LATENCY_CALLS = 500     # sequential wire TOPK on the arena member
-ARENA_NATIVE_CALLS = 1000     # GET, MGET and B2 GET each on the native plane
+ARENA_LATENCY_CALLS = 300     # sequential wire TOPK on the arena member
+ARENA_NATIVE_CALLS = 500      # GET, MGET and B2 GET each on the native plane
 ARENA_MGET_KEYS = 64          # keys of one MGET
 ARENA_DFREE_RATINGS = 10_000  # duplicate-free, held against one SGDStep run
-ARENA_RATINGS = 50_000        # timed at 4 shards, as phase 18 (d)
+ARENA_RATINGS = 25_000        # timed at 4 shards, as phase 18 (d)
 
 
 def arena_dir(run, worker=0, shards=1, replica=0, gen=0) -> str:
@@ -5380,7 +5446,7 @@ def loop_phase(torch, base, dev) -> dict:
 
 OBS_TOPK_CALLS = 500     # (a)'s profiled TOPK stream; (b)'s traced fan-outs
 OBS_AB_BLOCKS = 4        # TOPK blocks, TPUMS_PROF=0 and the default in turn
-OBS_AB_CALLS = 200       # sequential TOPK in each block
+OBS_AB_CALLS = 100       # sequential TOPK in each block
 OBS_PUSH_SUBS = 32       # TOPK subscriptions on one B2 su=1 connection
 OBS_SGD_RATINGS = 5_000  # SGD ratings published into (a)'s journal (seed 28)
 OBS_TOP_STACKS = 10
@@ -5402,6 +5468,50 @@ OBS_PARTS = (("server", ("flink_ms_tpu_torch.serve.server.",)),
 OBS_FLEET_PARTS = OBS_PARTS + (
     ("update_plane", ("flink_ms_tpu_torch.serve.update_plane.",)),
     ("index", ("flink_ms_tpu_torch.serve.topk.",)))
+# (c)'s environment beside the rehearsal's own liveness (its heartbeat
+# 0.25 s, its replica TTL 1.5 s, which it sets itself): a wall-clock
+# profile of every member and of this process, so that time a thread
+# spends parked (on a lock, a batch, a socket) is sampled too
+OBS_REHEARSAL_ENV = {"TPUMS_PROF_IDLE": "1"}
+# what the time of (c)'s threads goes to, read off the wall-clock
+# profiles: (role, the frames that mark a thread of it, its parts in
+# order, each named by frames of which a stack must hold one; a part's
+# prefix ending in "$" must be the stack's last frame)
+_REPLY_LEAVES = ("socket.$", "selectors.$",
+                 "flink_ms_tpu_torch.serve.client._read_reply_frame$",
+                 "flink_ms_tpu_torch.serve.client._read_reply_line$")
+OBS_WAIT_ROLES = (
+    ("member request threads", ("flink_ms_tpu_torch.serve.server.",), (
+        # the handlers block in sock.recv, a C call: their own frame is
+        # the leaf
+        ("reading the next request", (
+            "flink_ms_tpu_torch.serve.server.handle$",
+            "flink_ms_tpu_torch.serve.server._serve_binary$")),
+        ("the batcher", ("flink_ms_tpu_torch.serve.microbatch.",)),
+        ("the index (lock or scoring)", ("flink_ms_tpu_torch.serve.topk.",)),
+        ("the registry", ("flink_ms_tpu_torch.serve.registry.",)),
+        ("the request path", ("",)))),
+    ("member batch dispatch", ("flink_ms_tpu_torch.serve.microbatch._run",), (
+        ("the card's syncs", ("flink_ms_tpu_torch.serve.topk._sync",
+                              "flink_ms_tpu_torch.serve.topk."
+                              "topk_lowest_first")),
+        ("index upkeep", ("flink_ms_tpu_torch.serve.topk._maintain_locked",)),
+        ("waiting for queries", ("queue.$", "threading.$")),
+        ("scoring on the host", ("",)))),
+    ("rehearsal op threads", ("flink_ms_tpu_torch.obs.workload.worker",), (
+        # the engine sleeps (a C call) until an op's intended time
+        ("pacing, ahead of schedule", (
+            "flink_ms_tpu_torch.obs.workload.worker$",)),
+        ("the fleet's replies", _REPLY_LEAVES),
+        ("the fan-out pool", ("concurrent.futures.",)),
+        ("the registry (client refresh)",
+         ("flink_ms_tpu_torch.serve.registry.",)),
+        ("client host code", ("",)))),
+    ("rehearsal fan-out pool", ("concurrent.futures.thread._worker",), (
+        ("the fleet's replies", _REPLY_LEAVES),
+        ("idle", ("queue.$", "threading.$")),
+        ("client host code", ("",)))),
+)
 
 
 def profile_window(before, after) -> dict:
@@ -5720,22 +5830,129 @@ def fleet_profile_poller(stop, seen):
                 seen[(r["job_id"], r["port"])] = r["profile"]
 
 
-def obs_rehearsal(torch, dev, card, users=None) -> dict:
-    """(c) ``run_rehearsal`` at the served model's width: the reference
-    CLI's defaults (``OBS_REHEARSAL``, at ``users`` users when given), the
-    watch loop on, push subscribers, a kill and the live autoscaler; the
-    card's memory at its peak, the members' merged profile (the last
-    PROFILE of each, scraped through the run) and this process's own
-    (its engine, clients and watch loop)."""
+def wait_parts(stacks, roles=OBS_WAIT_ROLES) -> dict:
+    """{role: (seconds, {part: seconds})} of a profile's stacks: a stack
+    counts in the first role one of whose frames it holds, and in that
+    role's first part whose frames match (``OBS_WAIT_ROLES``)."""
+    def holds(frames, prefixes):
+        for p in prefixes:
+            if p.endswith("$"):
+                if frames and frames[-1].startswith(p[:-1]):
+                    return True
+            elif any(f.startswith(p) for f in frames):
+                return True
+        return False
+
+    out = {role: [0.0, {part: 0.0 for part, _ in parts}]
+           for role, _, parts in roles}
+    for key, v in stacks.items():
+        frames = key.split(";")[1:]
+        for role, marks, parts in roles:
+            if holds(frames, marks):
+                out[role][0] += v
+                for part, prefixes in parts:
+                    if holds(frames, prefixes):
+                        out[role][1][part] += v
+                        break
+                break
+    return {role: (t, parts) for role, (t, parts) in out.items()}
+
+
+def fmt_wait_parts(parts) -> str:
+    return "; ".join(
+        f"{role} {t:.2f} s (" + ", ".join(
+            f"{part} {v / t:.4f}" for part, v in ps.items()) + ")"
+        for role, (t, ps) in parts.items() if t > 0)
+
+
+# what the rehearsal sets for itself, as its CLI does (its registry under
+# its own temp dir, its heartbeat and TTL), and the profilers' switches
+REHEARSAL_OWN_ENV = ("TPUMS_REGISTRY_DIR", "TPUMS_HEARTBEAT_S",
+                     "TPUMS_REPLICA_TTL_S", "TPUMS_UPDATE_POLL_S",
+                     "TPUMS_PROF", "TPUMS_PROF_IDLE")
+
+
+def rehearsal_in_process(kw, env, out_path) -> None:
+    """``run_rehearsal(**kw)`` with the environment ``env``, in the process
+    it is called in (``run_isolated`` spawns one for it, as the
+    rehearsal's CLI is a process of its own): the report, this process's
+    own profile when its profiler runs, and the first and last of the
+    rehearsal's fleet scrapes, written to ``out_path`` as JSON."""
+    os.environ.clear()
+    os.environ.update(env)
     from flink_ms_tpu_torch.obs import profiler as PP
-    from flink_ms_tpu_torch.obs.slo import validate_report
+    from flink_ms_tpu_torch.obs import scrape as obs_scrape
     from flink_ms_tpu_torch.obs.workload import run_rehearsal
 
+    real_scrape, fleets = obs_scrape.scrape_fleet, []
+
+    def scrape_fleet(*a, **k):
+        snap = real_scrape(*a, **k)
+        fleets.append(snap["fleet"])
+        return snap
+
+    obs_scrape.scrape_fleet = scrape_fleet
+    prof = PP.ensure_started()
+    rep = run_rehearsal(**kw)
+    own = prof.snapshot() if prof is not None else None
+    PP.stop_profiler()
+    with open(out_path, "w") as f:
+        json.dump({"report": rep, "own": own,
+                   "fleets": fleets[:1] + fleets[-1:]}, f, default=str)
+
+
+def run_isolated(kw, env, timeout_s) -> dict:
+    """``rehearsal_in_process(kw, env)`` in a spawned process of its own ->
+    what it wrote.  A process that outlasts ``timeout_s`` is killed (its
+    members go with the run's ``stop_leftovers``)."""
+    import multiprocessing
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "rehearsal.json")
+        proc = multiprocessing.get_context("spawn").Process(
+            target=rehearsal_in_process, args=(kw, env, out))
+        proc.start()
+        proc.join(timeout_s)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+            raise SmokeFailure(f"the rehearsal outlasted {timeout_s:.0f}s")
+        check(proc.exitcode == 0 and os.path.exists(out),
+              f"the rehearsal's process exited {proc.exitcode}")
+        with open(out) as f:
+            return json.load(f)
+
+
+def obs_rehearsal(torch, dev, card, users=None, edge=0,
+                  duration_s=None) -> dict:
+    """(c) ``run_rehearsal`` at the served model's width, in a process of
+    its own as its CLI runs: the reference CLI's defaults
+    (``OBS_REHEARSAL``, at ``users`` users when given), the watch loop on,
+    push subscribers, a kill and the live autoscaler, at the rehearsal's
+    own liveness; the card's memory at its peak, the members' merged
+    wall-clock profile (the last PROFILE of each, scraped through the
+    run) and the rehearsal process's own (its engine, clients and watch
+    loop), with what the threads of each wait on.  ``edge`` > 0 is phase
+    22 (d): as many proxies in front of the group, every client through
+    them, the fleet signals of the proxy tier, and ``GEO_REHEARSAL_ENV``
+    (no profiler) for ``OBS_REHEARSAL_ENV``; ``duration_s`` stands for
+    the schedule's 12 s."""
+    import tempfile
+
+    label = "geo (d)" if edge else "obs (c)"
+    env = GEO_REHEARSAL_ENV if edge else OBS_REHEARSAL_ENV
     kw = dict(OBS_REHEARSAL)
     if users is not None:
         kw["users"] = users
+    if edge:
+        kw["edge"] = edge
     dur = kw.pop("duration_s")
-    peak, stop = [0], threading.Event()
+    if duration_s is not None:
+        dur = duration_s
+    kw.update(warm_s=dur * 2 / 12, ramp_s=dur * 3 / 12, burst_s=dur * 4 / 12,
+              cool_s=dur * 3 / 12, seed=0, device=str(dev.type))
+    peak, stop, before_b = [0], threading.Event(), 0
     members = {}
     # the card's memory in use before the members start: this process's
     # own tensors and cache from the earlier phases
@@ -5752,38 +5969,48 @@ def obs_rehearsal(torch, dev, card, users=None) -> dict:
     if dev.type == "cuda":
         sampler = threading.Thread(target=sample_memory, daemon=True)
         sampler.start()
-    # the rehearsal's own registry and heartbeat, as its CLI makes them,
-    # and the fleet phases' TTL: at the CLI's 1.5 s a member whose replay
-    # of the journal holds its heartbeat back is taken for dead by its
-    # supervisor and respawned, over and over (PERF.md, section 4)
-    saved = {k: os.environ.pop(k, None) for k in
-             ("TPUMS_REGISTRY_DIR", "TPUMS_HEARTBEAT_S",
-              "TPUMS_REPLICA_TTL_S", "TPUMS_UPDATE_POLL_S")}
-    os.environ["TPUMS_REPLICA_TTL_S"] = FLEET_ENV["TPUMS_REPLICA_TTL_S"]
-    prof = PP.ensure_started()
-    if prof is not None:
-        prof.clear()
-    poller = threading.Thread(target=fleet_profile_poller,
-                              args=(stop, members), daemon=True)
-    poller.start()
+    # the rehearsal's own heartbeat and TTL, as its CLI makes them, and
+    # `env`; its registry is named here, so that this process reads its
+    # members' profiles while it runs
+    child_env = {k: v for k, v in os.environ.items()
+                 if k not in REHEARSAL_OWN_ENV}
+    child_env.update(env)
+    reg = tempfile.mkdtemp(prefix="tpums_rehearsal_registry_")
+    child_env["TPUMS_REGISTRY_DIR"] = reg
+    poller, saved = None, None
+    if child_env.get("TPUMS_PROF", "1") != "0":
+        saved = os.environ.get("TPUMS_REGISTRY_DIR")
+        os.environ["TPUMS_REGISTRY_DIR"] = reg
+        poller = threading.Thread(target=fleet_profile_poller,
+                                  args=(stop, members), daemon=True)
+        poller.start()
     t0 = time.perf_counter()
     try:
-        rep = run_rehearsal(
-            warm_s=dur * 2 / 12, ramp_s=dur * 3 / 12, burst_s=dur * 4 / 12,
-            cool_s=dur * 3 / 12, seed=0, device=str(dev.type), **kw)
+        got = run_isolated(kw, child_env, 2 * FLEET_WAIT_S)
     finally:
         seconds = time.perf_counter() - t0
-        own = prof.snapshot() if prof is not None else None
-        PP.stop_profiler()
         stop.set()
-        poller.join(timeout=10)
+        if poller is not None:
+            poller.join(timeout=10)
+            if saved is None:
+                os.environ.pop("TPUMS_REGISTRY_DIR", None)
+            else:
+                os.environ["TPUMS_REGISTRY_DIR"] = saved
         if sampler is not None:
             sampler.join(timeout=10)
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+        shutil.rmtree(reg, ignore_errors=True)
+    return rehearsal_checks(got, seconds, label, kw, dev, card, edge,
+                            members, peak, before_b, sampler)
+
+
+def rehearsal_checks(got, seconds, label, kw, dev, card, edge, members,
+                     peak, before_b, sampler) -> dict:
+    """Phase 21 (c)'s (and 22 (d)'s) lines and checks of one rehearsal."""
+    from flink_ms_tpu_torch.obs import profiler as PP
+    from flink_ms_tpu_torch.obs import scrape as obs_scrape
+    from flink_ms_tpu_torch.obs.slo import validate_report
+
+    rep, own, fleets = got["report"], got["own"], got["fleets"]
     problems = validate_report(rep)
     wl, alerts, push = rep["workload"], rep["alerts"], rep["push"]
     det = alerts["detection"]
@@ -5792,20 +6019,26 @@ def obs_rehearsal(torch, dev, card, users=None) -> dict:
     mem = (f"{peak[0] / 2**30:.2f} GiB ({before_b / 2**30:.2f} GiB in use "
            "before the members started)" if sampler is not None
            else "not measured")
-    log(f"obs (c) rehearsal ({card}): {kw['users']} users x rank "
+    kinds = {}
+    for e in rep["timeline"]:
+        kinds[e.get("kind")] = kinds.get(e.get("kind"), 0) + 1
+    respawns = kinds.get("replica_respawn", 0)
+    log(f"{label} rehearsal ({card}): {kw['users']} users x rank "
         f"{kw['dim']}, {kw['shards']} shards x {kw['replication']} "
-        f"replicas ({dev.type}), autoscale {kw['autoscale']}, kill, watch, "
+        f"replicas ({dev.type})" + (f" behind {edge} proxies" if edge else "")
+        + f", autoscale {kw['autoscale']}, kill, watch, "
         f"{kw['subscribers']} subscribers, {seconds:.2f}s in all: ok "
         f"{rep['ok']}; {wl['completed']} of {wl['scheduled']} ops, "
         f"achieved {wl['achieved_qps']} q/s, max lag "
         f"{wl['max_sched_lag_s']}s; errors {rep['errors']['total']} "
         f"({rep['errors']['unattributed']} unattributed); {cuts} cutovers; "
-        f"alerts fired {alerts['fired_total']}, unattributed pages "
+        f"{respawns} respawns at the replica TTL the rehearsal sets "
+        f"(1.5 s); alerts fired {alerts['fired_total']}, unattributed pages "
         f"{alerts['unattributed_page']}, kill detection {det}; push "
         f"{push['pushes_received']} deltas, p99 {push['p99_ms']} ms "
         f"(budget {push['p99_budget_ms']}); the card's memory at its peak "
         f"{mem}")
-    log("obs (c) per verb p50/p99 ms: " + "; ".join(
+    log(f"{label} per verb p50/p99 ms: " + "; ".join(
         f"{v} {s.get('p50_ms')}/{s.get('p99_ms')} "
         f"(service p99 {s.get('service_p99_ms')})"
         for v, s in sorted(rep["verbs"].items())))
@@ -5814,14 +6047,13 @@ def obs_rehearsal(torch, dev, card, users=None) -> dict:
         reads = sum(v for k, v in own["stacks"].items()
                     if "flink_ms_tpu_torch.serve.registry." in k) / total
         top = sorted(own["stacks"].items(), key=lambda kv: -kv[1])[:3]
-        log(f"obs (c) this process's profile over the rehearsal: "
-            f"{own['samples']} samples, {total:.3f} s; stacks reading the "
-            f"registry {reads:.4f}; top: " + "; ".join(
-                f"{v / total:.4f} {short_stack(k)}" for k, v in top))
-    kinds = {}
-    for e in rep["timeline"]:
-        kinds[e.get("kind")] = kinds.get(e.get("kind"), 0) + 1
-    log(f"obs (c) timeline: {dict(sorted(kinds.items()))}; "
+        log(f"{label} the rehearsal process's wall-clock profile: "
+            f"{own['samples']} samples, {total:.3f} s; stacks "
+            f"reading the registry {reads:.4f}; waits: "
+            f"{fmt_wait_parts(wait_parts(own['stacks']))}; top: "
+            + "; ".join(f"{v / total:.4f} {short_stack(k)}"
+                        for k, v in top))
+    log(f"{label} timeline: {dict(sorted(kinds.items()))}; "
         + (f"{cuts} live cutover(s)" if cuts else
            f"no cutover: autoscale {kw['autoscale']}" if
            kw["autoscale"] != "live" else
@@ -5829,20 +6061,29 @@ def obs_rehearsal(torch, dev, card, users=None) -> dict:
            f"{kw['peak_qps'] / kw['shards'] * 1.3:g} q/s a shard, and "
            f"the open loop reached {wl['achieved_qps']} q/s in all)"))
     fleet = PP.merge_profiles(list(members.values()))
-    if fleet["stacks"]:
+    if members and fleet["stacks"]:
         total = sum(fleet["stacks"].values())
         parts = profile_parts(fleet["stacks"], OBS_FLEET_PARTS)
         top = sorted(fleet["stacks"].items(), key=lambda kv: -kv[1])[:5]
-        log(f"obs (c) the members' profile ({len(members)} members, the "
-            f"last PROFILE of each): {fleet['samples']} samples, "
-            f"{total:.3f} s of host CPU over {seconds:.2f}s on "
+        log(f"{label} the members' wall-clock profile ({len(members)} "
+            f"members, the last PROFILE of each): {fleet['samples']} "
+            f"samples, {total:.3f} s over {seconds:.2f}s on "
             f"{os.cpu_count()} cores; shares " + ", ".join(
-                f"{k} {v:.4f}" for k, v in parts.items()) + "; top: "
+                f"{k} {v:.4f}" for k, v in parts.items()) + "; waits: "
+            + fmt_wait_parts(wait_parts(fleet["stacks"]))
+            + " (a thread waiting for the GIL is sampled at its next Python "
+            "frame: the GIL's share is not measured apart); top: "
             + "; ".join(f"{v / total:.4f} {short_stack(k)}"
                         for k, v in top))
+    edge_sig = {}
+    if edge and len(fleets) >= 2:
+        sig = obs_scrape.fleet_signals(fleets[0], fleets[-1])
+        edge_sig = {k: v for k, v in sig.items() if k.startswith("edge_")}
+        log(f"{label} the proxy tier's fleet signals over the run: "
+            + ", ".join(f"{k} {v}" for k, v in sorted(edge_sig.items())))
     for b in rep["breaches"]:
         cause = b.get("attributed_to")
-        log(f"obs (c) breach {b['verb']}.{b['objective']} measured "
+        log(f"{label} breach {b['verb']}.{b['objective']} measured "
             f"{b['measured']} target {b['target']} -> "
             f"{cause['kind'] if cause else 'UNATTRIBUTED'}"
             + (f"/{cause.get('phase')}" if cause and cause.get("phase")
@@ -5854,7 +6095,7 @@ def obs_rehearsal(torch, dev, card, users=None) -> dict:
         # falls behind its schedule, the run outlasts its phases, and a
         # latency breach (placed at the run's midpoint) lands past every
         # timeline event
-        log(f"obs (c) OPEN FAULT (ROADMAP Queue 3, 'Rehearsal at full "
+        log(f"{label} OPEN FAULT (ROADMAP Queue 3, 'Rehearsal at full "
             f"width'): the rehearsal's own verdict is ok {rep['ok']}, with "
             f"{len(loose)} unattributed breaches ({', '.join(loose)}); the "
             f"open loop ran {wl['duration_s']}s for a "
@@ -5867,8 +6108,13 @@ def obs_rehearsal(torch, dev, card, users=None) -> dict:
     check(wl["completed"] == wl["scheduled"],
           f"{wl['completed']} of {wl['scheduled']} scheduled ops ran")
     check(det["max_s"] is not None, f"the kill was not detected: {det}")
+    check(respawns <= 1, f"{respawns} respawns for one kill")
+    if edge:
+        check(rep["meta"].get("edge") == edge and edge_sig,
+              f"the edge arm did not run: {rep['meta']}, {edge_sig}")
     return dict(obs_rehearsal_s=seconds, obs_rehearsal_ok=rep["ok"],
-                obs_detection_s=det["max_s"], obs_peak_mem_b=peak[0])
+                obs_detection_s=det["max_s"], obs_peak_mem_b=peak[0],
+                obs_respawns=respawns, obs_edge_signals=edge_sig)
 
 
 def obs_phase(torch, base, dev, card) -> dict:
@@ -5915,18 +6161,11 @@ def obs_phase(torch, base, dev, card) -> dict:
     return out
 
 
-def obs_only(torch, dev, users) -> int:
-    """Phase 21 alone, for a look at observability without the other
-    phases: seeded random rows at the served model's shape (phase 17's
-    165,239 rows at rank 50) stand in for phase 17's topic; then (c) again
-    at each count of ``users``."""
+def seeded_published():
+    """Seeded random rows at the served model's shape (``N_USERS`` x
+    ``N_ITEMS`` at ``RANK``, the MEAN rows), as phase 17 publishes them."""
     from flink_ms_tpu_torch.core import formats as F
-    from flink_ms_tpu_torch.native import _build as native_build
 
-    t0 = time.perf_counter()
-    card = card_line()
-    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    native_build.build()
     rng = np.random.default_rng(0)
     uf = rng.normal(0.0, 0.3, (N_USERS, RANK)).astype(np.float32)
     itf = rng.normal(0.0, 0.3, (N_ITEMS, RANK)).astype(np.float32)
@@ -5934,10 +6173,861 @@ def obs_only(torch, dev, users) -> int:
     published += [F.format_als_row(i, "I", itf[i]) for i in range(N_ITEMS)]
     published += [F.format_als_row("MEAN", side, m.mean(axis=0))
                   for side, m in (("U", uf), ("I", itf))]
-    base = fleet_baseline(published, dev, JOB_TOPK_USERS)
+    return published
+
+
+def obs_only(torch, dev, users) -> int:
+    """Phase 21 alone, for a look at observability without the other
+    phases: seeded random rows at the served model's shape (phase 17's
+    165,239 rows at rank 50) stand in for phase 17's topic; then (c) again
+    at each count of ``users``."""
+    from flink_ms_tpu_torch.native import _build as native_build
+
+    t0 = time.perf_counter()
+    card = card_line()
+    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    native_build.build()
+    base = fleet_baseline(seeded_published(), dev, JOB_TOPK_USERS)
     obs_phase(torch, base, dev, card)
     for n in users:
         obs_rehearsal(torch, dev, card, users=n)
+    log(f"done in {time.perf_counter() - t0:.1f}s")
+    print(card)
+    return 0
+
+
+GEO_GROUP = "geo"             # the serving group both regions serve
+GEO_HOME, GEO_FOLLOWER = "us", "eu"
+# the rehearsal CLI's liveness, which the reference's region drill runs at
+# (``scripts/chaos_kill.py``'s region mode): a home region whose leases
+# lapse must be promoted away from within 5 s
+GEO_ENV = {"TPUMS_HEARTBEAT_S": "0.25", "TPUMS_REPLICA_TTL_S": "1.5",
+           "TPUMS_UPDATE_POLL_S": "0.005"}
+GEO_TOPK_USERS = 256          # (a) single TOPK replies, eu against us
+GEO_KEYS = 256                # (b) keys and queries through the proxy
+GEO_SGD_S = 3.0               # (a) forwarded SGD load while the lag is read
+GEO_SGD_BATCH = 20            # ratings a forwarder batch
+GEO_SGD_EVERY_S = 0.004       # the pause after each: 5,000 ratings/s
+# offered, each rewriting a user and an item row, so the write rate of the
+# reference's region drill (200 rows each 20 ms, ``chaos_kill.py``); a
+# batch is a round trip to the update planes, so fewer arrive (PERF.md)
+GEO_LAG_P99_MS = 250.0        # the reference's contract (chaos_kill.py)
+GEO_PROMOTE_S = 5.0           # ditto
+GEO_STALE_BOUND_S = 0.5       # (b) the eu proxy's clients' bound
+GEO_PUSH_SUBS = 6             # (b) KEY subscriptions (and one TOPK)
+GEO_LOAD_S = 1.0              # (b) load before and after each fault
+GEO_STOP_S = 0.8              # (b) a replica's SIGSTOP, inside its TTL
+GEO_LATENCY_CALLS = 150       # (b) sequential GET and TOPK, each client
+# (d): the rehearsal of phase 21 (c) with its edge arm, two proxies, and
+# no profiler: (c) reads what the rehearsal's threads wait on, and the
+# profilers cost its open loop a fifth of its rate on the card
+# (scripts/rehearsal_ab.py, PERF.md)
+GEO_REHEARSAL_EDGE = 2
+GEO_REHEARSAL_ENV = {"TPUMS_PROF": "0"}
+# its schedule cut from the CLI's 12 s to 4 s (the same phases at a third
+# of their lengths): through the proxies the open loop ran about 4 s behind
+# for each second of schedule on the card, so 12 s took 104.5 s
+# (PERF.md, section 4)
+GEO_REHEARSAL_DURATION_S = 4.0
+
+
+class GeoRun(FleetRun):
+    """Phase 22's two regions over phase 17's published rows: the home
+    journal (``us``, the ``FleetRun`` journal), its follower (``eu``) fed
+    by a ``JournalReplicator``, one elastic group a region, the proxies,
+    and everything to stop at the end."""
+
+    def __init__(self, work, base, dev):
+        super().__init__(work, base, dev)
+        from flink_ms_tpu_torch.serve import georepl, registry
+
+        self.us_dir, self.eu_dir = self.path("journal"), self.path("eu")
+        self.groups = {r: registry.qualify_region(GEO_GROUP, r)
+                       for r in (GEO_HOME, GEO_FOLLOWER)}
+        georepl.publish_region_topology(
+            GEO_GROUP, GEO_HOME,
+            {GEO_HOME: {"journal_dir": self.us_dir},
+             GEO_FOLLOWER: {"journal_dir": self.eu_dir}}, topic=JOB_TOPIC)
+        self.rep = georepl.JournalReplicator(
+            self.us_dir, self.eu_dir, JOB_TOPIC, GEO_FOLLOWER, poll_s=0.01)
+        self.region_ctl = None
+        self.edge_procs = []
+        self.region = {}
+        self.items = [i for i in self.item_ids if i != "MEAN"]
+        self.edge_eps, self.eu_eps = [], []
+
+    def close(self):
+        from flink_ms_tpu_torch.serve.edge import stop_edge_procs
+
+        if self.region_ctl is not None:
+            self.region_ctl.stop()
+        self.rep.stop()
+        stop_edge_procs(self.edge_procs)
+        super().close()
+
+    def start_regions(self):
+        """Both regions' groups at once, and the proxies beside them (their
+        imports and replays overlap; two in front of ``us``, one in
+        ``eu``): ``us`` 2
+        shards x 2 replicas, ``eu`` 2 x 1, every member with the
+        co-located update plane -> seconds to ready."""
+        import threading
+
+        from flink_ms_tpu_torch.serve.edge import spawn_edge_procs
+        from flink_ms_tpu_torch.serve.elastic import ScaleController
+
+        errors = []
+
+        def proxies():
+            try:
+                procs, ports = spawn_edge_procs(
+                    GEO_GROUP, 2, self.path("edge-us"), region=GEO_HOME,
+                    timeout_s=FLEET_WAIT_S)
+                self.edge_procs.extend(procs)
+                self.edge_eps = [("127.0.0.1", p) for p in ports]
+                procs, ports = spawn_edge_procs(
+                    GEO_GROUP, 1, self.path("edge-eu"), region=GEO_FOLLOWER,
+                    timeout_s=FLEET_WAIT_S)
+                self.edge_procs.extend(procs)
+                self.eu_eps = [("127.0.0.1", p) for p in ports]
+            except Exception as e:
+                errors.append(f"proxies: {e!r}")
+
+        def up(region, replicas):
+            d = self.us_dir if region == GEO_HOME else self.eu_dir
+            ctl = ScaleController(
+                self.groups[region], d, JOB_TOPIC,
+                port_dir=self.path(f"ports-{region}"),
+                ready_timeout_s=FLEET_WAIT_S, device=self.dev_name,
+                extra_args=["--updatePlane", "true",
+                            "--pollInterval", "0.005"])
+            self.ctls.append(ctl)
+            self.region[region] = ctl
+            try:
+                ctl.scale_to(2, replicas=replicas)
+            except Exception as e:
+                errors.append(f"{region}: {e!r}")
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=up, args=a)
+                   for a in ((GEO_HOME, 2), (GEO_FOLLOWER, 1))]
+        threads.append(threading.Thread(target=proxies))
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        check(not errors, f"a region did not start: {errors}")
+        return time.perf_counter() - t0
+
+    def client(self, region, **kw):
+        from flink_ms_tpu_torch.serve.elastic import ElasticClient
+
+        kw.setdefault("timeout_s", 30)
+        return ElasticClient(self.groups[region], retry=self.retry, **kw)
+
+    def member(self, region, shard=0, replica=0):
+        sup = self.region[region].active_supervisor
+        return sup.procs[(shard, replica)], sup.ports[(shard, replica)]
+
+
+def journal_files(d) -> dict:
+    """A journal dir's segments and folds -> {name: sha256}."""
+    import hashlib
+
+    out = {}
+    for name in sorted(os.listdir(d)):
+        if name == f"{JOB_TOPIC}.log" or name.startswith(
+                (f"{JOB_TOPIC}.log.", f"{JOB_TOPIC}.clog.")):
+            h = hashlib.sha256()
+            with open(os.path.join(d, name), "rb") as f:
+                for block in iter(lambda: f.read(1 << 24), b""):
+                    h.update(block)
+            out[name] = h.hexdigest()
+    return out
+
+
+def geo_byte_equal(g, label) -> str:
+    """The follower journal equals home's: the same segment and fold files
+    at the same global offsets, byte for byte (read again if home grew
+    while the files were read)."""
+    from flink_ms_tpu_torch.serve.journal import Journal
+
+    t0 = time.perf_counter()
+    while True:
+        g.rep.run_until_caught_up(timeout_s=FLEET_WAIT_S)
+        us, eu = Journal(g.us_dir, JOB_TOPIC), Journal(g.eu_dir, JOB_TOPIC)
+        end = us.end_offset()
+        offsets = ((us.start_offset(), end),
+                   (eu.start_offset(), eu.end_offset()))
+        a, b = journal_files(g.us_dir), journal_files(g.eu_dir)
+        if (offsets[0] == offsets[1] and a == b) or \
+                Journal(g.us_dir, JOB_TOPIC).end_offset() == end:
+            break
+        check(time.perf_counter() - t0 < FLEET_WAIT_S,
+              f"{label}: the home journal never stood still")
+    check(offsets[0] == offsets[1],
+          f"{label}: follower offsets {offsets[1]} against home's "
+          f"{offsets[0]}")
+    check(a == b, f"{label}: follower files differ from home's: "
+          f"{sorted(set(a.items()) ^ set(b.items()))[:4]}")
+    return (f"{len(a)} segment/fold files, offsets {offsets[0][0]}.."
+            f"{offsets[0][1]} ({offsets[0][1] - offsets[0][0]} bytes), "
+            "byte for byte")
+
+
+def geo_regions(g, card) -> dict:
+    """(a) both regions up over a follower journal fed from home's: the
+    files, and single TOPK replies of eu against us's."""
+    g.rep.run_until_caught_up(timeout_s=FLEET_WAIT_S)
+    t0 = time.perf_counter()
+    ready_s = g.start_regions()
+    g.rep.start()
+    same = geo_byte_equal(g, "(a) at start")
+    users = g.base["users"][:GEO_TOPK_USERS]
+    replies = {}
+    for region in (GEO_HOME, GEO_FOLLOWER):
+        with g.client(region) as c:
+            replies[region] = [c.topk(JOB_STATE, u, TOPK_K) for u in users]
+    check(replies[GEO_FOLLOWER] == replies[GEO_HOME],
+          "(a) eu's TOPK replies differ from us's")
+    agree = fleet_topk_checks(replies[GEO_FOLLOWER], g, "(a) eu TOPK")
+    log(f"geo (a) replication ({card}): both regions and the 3 proxies "
+        f"ready {ready_s:.2f}s after their start (us 2 shards x 2 "
+        f"replicas, eu 2 x 1, {g.dev_name}); the follower journal {same}; "
+        f"{len(users)} single TOPK from eu equal us's; {agree}")
+    return dict(geo_ready_s=ready_s, geo_regions_s=time.perf_counter() - t0)
+
+
+def geo_replication(g, card) -> dict:
+    """(a) replication lag under forwarded SGD, and ``st=`` across a
+    partition."""
+    import threading
+
+    from flink_ms_tpu_torch.serve import georepl
+    from flink_ms_tpu_torch.serve.client import QueryClient
+
+    t0 = time.perf_counter()
+    # forwarded SGD: the home members' update planes apply it into the
+    # home journal, which the replicator ships; its lag sampled each 5 ms
+    fwd = georepl.GeoWriteForwarder(GEO_GROUP, JOB_TOPIC)
+    check(fwd.home() == GEO_HOME, f"(a) the forwarder's home {fwd.home()}")
+    u_ids = [int(u) for u in g.base["users"]]
+    i_ids = [int(i) for i in g.items]
+    rng = np.random.default_rng(29)
+    stop, lag_ms, sent = threading.Event(), [], [0]
+
+    def produce():
+        while not stop.is_set():
+            batch = [(u_ids[int(a)], i_ids[int(b)], float(r))
+                     for a, b, r in zip(
+                         rng.integers(0, len(u_ids), GEO_SGD_BATCH),
+                         rng.integers(0, len(i_ids), GEO_SGD_BATCH),
+                         rng.uniform(1.0, 5.0, GEO_SGD_BATCH))]
+            fwd.submit_many(batch, flush=True)
+            sent[0] += len(batch)
+            time.sleep(GEO_SGD_EVERY_S)
+
+    before = journal_files(g.us_dir)
+    mirrored0 = g.rep.bytes_replicated
+    producer = threading.Thread(target=produce, daemon=True)
+    producer.start()
+    t_end = time.perf_counter() + GEO_SGD_S
+    while time.perf_counter() < t_end:
+        lag_ms.append(g.rep.lag_seconds() * 1e3)
+        time.sleep(0.005)
+    mirrored1 = g.rep.bytes_replicated
+    stop.set()
+    producer.join(timeout=30)
+    wait_until(lambda: len(applied_geo(g)) > 0,
+               "an applied SGD batch in the home journal")
+    time.sleep(0.5)  # the update planes drain the last batches
+    grew = journal_files(g.us_dir) != before
+    same = geo_byte_equal(g, "(a) after the SGD load")
+    lag = np.asarray(lag_ms)
+    p50, p99 = float(np.percentile(lag, 50)), float(np.percentile(lag, 99))
+    mirrored = g.rep.bytes_replicated
+    load_bps = (mirrored1 - mirrored0) / GEO_SGD_S
+    log(f"geo (a) lag under forwarded SGD: {sent[0]} ratings in "
+        f"{GEO_SGD_S:.1f}s ({sent[0] / GEO_SGD_S:.0f}/s of "
+        f"{GEO_SGD_BATCH / GEO_SGD_EVERY_S:.0f}/s offered) through "
+        f"GeoWriteForwarder into us's update planes; the home journal "
+        f"grew: {grew}; {load_bps:.0f} bytes/s mirrored during the load; "
+        f"replication lag p50 {p50:.3f} ms, p99 {p99:.3f} ms over "
+        f"{len(lag)} samples (bound {GEO_LAG_P99_MS:.0f} ms); then the "
+        f"follower journal {same}; {mirrored} bytes mirrored since the "
+        f"replicator's start")
+    check(grew, "(a) the forwarded SGD never reached the home journal")
+    check(p99 < GEO_LAG_P99_MS, f"(a) replication lag p99 {p99:.3f} ms")
+
+    # st= across a partition, read from an eu member directly
+    _, port = g.member(GEO_FOLLOWER)
+    seen = []
+    with QueryClient("127.0.0.1", port, timeout_s=30, stale=True) as c:
+        key = g.base["keys"][0]
+
+        def read():
+            c.query_state(JOB_STATE, key)
+            return c.last_staleness_s
+
+        wait_until(lambda: read() == 0.0, "st=0.000 while caught up")
+        seen.append(read())
+        g.rep.partitioned = True
+        t_part = time.perf_counter()
+        for _ in range(3):
+            time.sleep(0.3)
+            seen.append(read())
+        g.rep.partitioned = False
+        wait_until(lambda: read() == 0.0, "st=0.000 after the heal")
+        heal_s = time.perf_counter() - t_part
+        seen.append(read())
+    grows = all(b > a for a, b in zip(seen[1:4], seen[2:4])) and seen[1] > 0
+    log(f"geo (a) st= on an eu member across a partition: "
+        + ", ".join(f"{s:.3f}" for s in seen) + f" (caught up, 3 reads "
+        f"0.3 s apart partitioned, healed: back to 0.000 "
+        f"{heal_s:.2f}s after the partition began)")
+    check(seen[0] == 0.0 and seen[-1] == 0.0 and grows,
+          f"(a) st= across a partition: {seen}")
+    return dict(geo_lag_p50_ms=p50, geo_lag_p99_ms=p99,
+                geo_mirrored_bytes=mirrored,
+                geo_lag_s=time.perf_counter() - t0)
+
+
+def applied_geo(g, region=GEO_HOME) -> list:
+    """Every row a region's update planes applied (their apply records)."""
+    from flink_ms_tpu_torch.serve import update_plane as UP
+    from flink_ms_tpu_torch.serve.journal import Journal
+
+    d = g.us_dir if region == GEO_HOME else g.eu_dir
+    out = []
+    for p in range(UP.default_partitions()):
+        for line in UP._read_all_lines(Journal(
+                d, UP.apply_topic(JOB_TOPIC, p))):
+            fields = line.split("\t", 3)
+            if len(fields) > 3 and fields[3]:
+                out.extend(fields[3].split("|"))
+    return out
+
+
+def edge_counter(eps, name, **labels) -> float:
+    """A counter summed over the proxies' METRICS (those that answer)."""
+    from flink_ms_tpu_torch.serve.edge import EdgeClient
+
+    total = 0.0
+    for ep in eps:
+        try:
+            with EdgeClient(endpoints=[ep], timeout_s=10) as c:
+                snap = c.metrics()
+        except (ConnectionError, OSError):
+            continue
+        total += metric_sum(snap, "counters", name, **labels)
+    return total
+
+
+def proxy_surface(c, keys, users, vecs) -> dict:
+    """GET, MGET, TOPK, TOPKV and COUNT through one client (TOPKV by each
+    user's own vector, which a direct client answers as that user's
+    TOPK)."""
+    return {"get": [c.query_state(JOB_STATE, k) for k in keys],
+            "mget": c.query_states(JOB_STATE, keys),
+            "topk": [list(map(tuple, c.topk(JOB_STATE, u, TOPK_K)))
+                     for u in users],
+            "topkv": [list(map(tuple, c.topk_by_vector(JOB_STATE, v,
+                                                        TOPK_K)))
+                      for v in vecs],
+            "count": c.count(JOB_STATE)}
+
+
+class EdgeLoad:
+    """Closed-loop GETs of sampled keys through the proxies from a few
+    threads (tab and B2 in turn), every error kept."""
+
+    def __init__(self, eps, keys, threads=4):
+        import threading
+
+        self.eps, self.keys = eps, keys
+        self.ok, self.errors = [0] * threads, []
+        self._stop = threading.Event()
+        self._threads = [threading.Thread(target=self._run, args=(i,),
+                                          daemon=True)
+                         for i in range(threads)]
+
+    def start(self):
+        for t in self._threads:
+            t.start()
+        return self
+
+    def _run(self, idx):
+        from flink_ms_tpu_torch.serve.client import RetryPolicy
+        from flink_ms_tpu_torch.serve.edge import EdgeClient
+
+        rng = np.random.default_rng(40 + idx)
+        with EdgeClient(endpoints=self.eps, prefer=idx,
+                        proto="b2" if idx % 2 else "tab", timeout_s=10,
+                        retry=RetryPolicy(attempts=8, backoff_s=0.02,
+                                          max_backoff_s=0.5)) as c:
+            while not self._stop.is_set():
+                key = self.keys[int(rng.integers(len(self.keys)))]
+                try:
+                    if c.query_state(JOB_STATE, key) is None:
+                        self.errors.append((key, "missing"))
+                    else:
+                        self.ok[idx] += 1
+                except Exception as e:
+                    self.errors.append((key, repr(e)))
+
+    def stop(self):
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=30)
+        return sum(self.ok)
+
+
+class PushSubscribers:
+    """KEY subscriptions on hot item rows and one TOPK subscription, each
+    on its own B2 ``su=1`` connection through the proxies; a dead proxy
+    reconnects (to the next one) and RESUMEs at the last seq.  Every
+    baseline and delta goes into one audit list (``audit_push_sequences``,
+    as ``scripts/chaos_kill.py``'s push mode)."""
+
+    def __init__(self, eps, hot, vec, n):
+        import threading
+
+        self.eps, self.hot, self.vec = eps, hot, vec
+        self.events, self.lock = [], threading.Lock()
+        self.state = [{"up": False, "pushes": 0, "resumes": 0,
+                       "reconnects": 0} for _ in range(n + 1)]
+        self._stop = threading.Event()
+        self._threads = [threading.Thread(target=self._run, args=(i,),
+                                          daemon=True)
+                         for i in range(n + 1)]
+
+    def start(self):
+        for t in self._threads:
+            t.start()
+        wait_until(lambda: all(s["up"] for s in self.state),
+                   "the push subscriptions")
+        return self
+
+    def _audit(self, kind, sub_id, seq):
+        with self.lock:
+            self.events.append((kind, sub_id, seq))
+
+    def _run(self, idx):
+        from flink_ms_tpu_torch.serve.edge import EdgeClient
+
+        st = self.state[idx]
+        topk = idx == 0
+        arg = self.vec if topk else self.hot[idx % len(self.hot)]
+        kind = "TOPK" if topk else "KEY"
+        sub, c, backoff = None, None, 0
+        while not self._stop.is_set():
+            try:
+                if c is None:
+                    c = EdgeClient(endpoints=self.eps, prefer=idx + backoff,
+                                   proto="b2", push=True, timeout_s=10)
+                    if sub is None:
+                        sub = (c.subscribe_topk(JOB_STATE, arg, TOPK_K)
+                               if topk else c.subscribe_key(JOB_STATE, arg))
+                        self._audit("S", sub["sub_id"], sub["seq"])
+                    else:
+                        st["resumes"] += 1
+                        r = c.resume_subscription(
+                            JOB_STATE, kind, arg, TOPK_K if topk else 0,
+                            sub["sub_id"], sub["seq"])
+                        self._audit("S", r["sub_id"], r["seq"])
+                        if r["mode"] == "replay":
+                            sub["seq"] = r["seq"]
+                        else:
+                            sub = r
+                    st["up"], backoff = True, 0
+                msg = c.next_push(timeout_s=0.25)
+                if msg is None:
+                    continue
+                sub_id, seq, _ = msg
+                self._audit("P", sub_id, seq)
+                sub["seq"] = seq
+                st["pushes"] += 1
+            except Exception:
+                st["up"] = False
+                try:
+                    if c is not None:
+                        c.close()
+                except Exception:
+                    pass
+                c = None
+                st["reconnects"] += 1
+                backoff = min(backoff + 1, 8)
+                time.sleep(0.05 * backoff)
+        if c is not None:
+            try:
+                c.close()
+            except Exception:
+                pass
+
+    def stop(self):
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=30)
+
+
+def geo_edge_surface(g, card) -> dict:
+    """(b) two proxies in front of ``us``: GET, MGET, TOPK, TOPKV and COUNT
+    through them against a direct client, before any update (a
+    co-located update plane puts foreign item rows into its member's
+    index, which a direct client's merge and the proxy's treat apart)."""
+    import threading
+
+    from flink_ms_tpu_torch.serve.edge import EdgeClient
+
+    t0 = time.perf_counter()
+    eps = g.edge_eps
+    keys = g.base["keys"][:GEO_KEYS]
+    users = g.base["users"][:GEO_KEYS]
+    vecs = [g.rows[f"{u}-U"] for u in users]
+    got, raw = {}, {}
+
+    def direct():
+        with g.client(GEO_HOME) as c:
+            got["direct"] = {
+                "get": [c.query_state(JOB_STATE, k) for k in keys],
+                "mget": c.query_states(JOB_STATE, keys),
+                "topk": [list(map(tuple, c.topk(JOB_STATE, u, TOPK_K)))
+                         for u in users],
+                "count": c.total_count(JOB_STATE)}
+
+    def through(wire):
+        with EdgeClient(endpoints=eps, proto=wire, timeout_s=30,
+                        retry=g.retry) as c:
+            got[wire] = proxy_surface(c, keys, users, vecs)
+            raw[wire] = c.pipeline(
+                [f"GET\t{JOB_STATE}\t{k}" for k in keys]
+                + [f"TOPK\t{JOB_STATE}\t{u}\t{TOPK_K}" for u in users[:32]]
+                + [f"COUNT\t{JOB_STATE}"], window=1)
+
+    # the three clients at once: a single query's scores do not depend on
+    # what the member batches it with (exact frames score in 8-row blocks)
+    threads = [threading.Thread(target=direct)] + [
+        threading.Thread(target=through, args=(w,)) for w in ("tab", "b2")]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    check(len(got) == 3, f"(b) a client of the surface failed: {sorted(got)}")
+    want = got["direct"]
+    want["topkv"] = want["topk"]
+    for wire in ("tab", "b2"):
+        for verb in want:
+            check(got[wire][verb] == want[verb],
+                  f"(b) {verb} through the proxy on {wire} differs from "
+                  "the direct client's")
+    check(raw["tab"] == raw["b2"], "(b) tab and B2 replies differ")
+    log(f"geo (b) edge ({card}): through us's 2 proxies, on tab and on "
+        f"B2, {len(keys)} GET, an MGET "
+        f"of {len(keys)} keys, {len(users)} TOPK, {len(vecs)} TOPKV and "
+        f"COUNT ({want['count']}) equal the direct client's; the raw "
+        "replies of the two wires are equal")
+    return dict(geo_surface_s=time.perf_counter() - t0)
+
+
+def geo_edge(g, card) -> dict:
+    """(b) coalescing, hedging past a stopped replica, a proxy's SIGKILL
+    under load and push subscriptions through the proxies, the ``st=``
+    bound of a proxy in ``eu``, latency through the proxy against
+    direct."""
+    import signal
+    import threading
+
+    from flink_ms_tpu_torch.core import formats as F
+    from flink_ms_tpu_torch.obs import metrics as obs_metrics
+    from flink_ms_tpu_torch.serve import georepl
+    from flink_ms_tpu_torch.serve.edge import EdgeClient
+    from flink_ms_tpu_torch.serve.journal import Journal
+    from flink_ms_tpu_torch.serve.push import audit_push_sequences
+
+    t0 = time.perf_counter()
+    eps = g.edge_eps
+    keys = g.base["keys"][:GEO_KEYS]
+    users = g.base["users"][:GEO_KEYS]
+    procs = list(g.edge_procs)
+
+    # coalescing: bursts of one hot key in one pipelined window
+    hot = keys[0]
+    c0 = edge_counter(eps, "tpums_edge_coalesce_hits_total")
+    with EdgeClient(endpoints=eps, proto="b2", timeout_s=30) as c:
+        for _ in range(8):
+            replies = c.pipeline([f"GET\t{JOB_STATE}\t{hot}"] * 64,
+                                 window=64)
+            check(len(set(replies)) == 1, "(b) coalesced GETs differ")
+    coalesce = edge_counter(eps, "tpums_edge_coalesce_hits_total") - c0
+
+    # hedging: a us replica SIGSTOPped under load, inside its TTL
+    h0 = {r: edge_counter(eps, "tpums_edge_hedges_total", result=r)
+          for r in ("fired", "won")}
+    load = EdgeLoad(eps, g.base["keys"]).start()
+    time.sleep(GEO_LOAD_S)
+    stopped, _ = g.member(GEO_HOME, 0, 0)
+    stopped.send_signal(signal.SIGSTOP)
+    time.sleep(GEO_STOP_S)
+    stopped.send_signal(signal.SIGCONT)
+    time.sleep(GEO_LOAD_S)
+    n_hedge_load = load.stop()
+    hedges = {r: edge_counter(eps, "tpums_edge_hedges_total", result=r)
+              - h0[r] for r in h0}
+    log(f"geo (b) coalescing: 8 bursts of 64 GETs of one key, "
+        f"{coalesce:.0f} coalesce hits; a replica SIGSTOPped "
+        f"{GEO_STOP_S}s under closed-loop GETs from 4 clients: "
+        f"{n_hedge_load} GETs, hedges fired {hedges['fired']:.0f}, won "
+        f"{hedges['won']:.0f}, {len(load.errors)} client errors")
+    check(coalesce > 0, "(b) no coalesce hit")
+    check(hedges["fired"] > 0 and hedges["won"] > 0,
+          f"(b) hedges {hedges}")
+    check(not load.errors, f"(b) errors past a stopped replica: "
+          f"{load.errors[:3]}")
+
+    # a proxy's SIGKILL under load, with push subscriptions through the
+    # proxies and a storm of rewrites of their rows into the home journal
+    item_ids = g.items[:max(GEO_PUSH_SUBS, 2)]
+    hot_rows = [f"{i}-I" for i in item_ids]
+    subs = PushSubscribers(eps, hot_rows, g.rows[f"{users[0]}-U"],
+                           GEO_PUSH_SUBS).start()
+    stop_storm = threading.Event()
+    storm_rows = [0]
+
+    def storm():
+        rng = np.random.default_rng(30)
+        j = Journal(g.us_dir, JOB_TOPIC)
+        while not stop_storm.is_set():
+            j.append([F.format_als_row(i, "I", rng.normal(0.0, 0.3, RANK))
+                      for i in item_ids])
+            storm_rows[0] += len(item_ids)
+            time.sleep(0.05)
+
+    r0 = metric_sum(obs_metrics.get_registry().snapshot(), "counters",
+                    "tpums_client_proxy_reconnects_total")
+    load = EdgeLoad(eps, g.base["keys"]).start()
+    storm_t = threading.Thread(target=storm, daemon=True)
+    storm_t.start()
+    time.sleep(GEO_LOAD_S)
+    procs[0].kill()
+    procs[0].wait(timeout=30)
+    time.sleep(GEO_LOAD_S)
+    stop_storm.set()
+    storm_t.join(timeout=30)
+    n_kill_load = load.stop()
+    time.sleep(1.0)  # the last deltas reach the subscribers
+    subs.stop()
+    reconnects = metric_sum(
+        obs_metrics.get_registry().snapshot(), "counters",
+        "tpums_client_proxy_reconnects_total") - r0
+    audit = audit_push_sequences(subs.events)
+    pushes = sum(s["pushes"] for s in subs.state)
+    log(f"geo (b) proxy SIGKILL under closed-loop GETs from 4 clients: "
+        f"{n_kill_load} GETs, {reconnects:.0f} proxy_reconnect, "
+        f"{len(load.errors)} client errors; push through the proxies "
+        f"across the kill: {len(subs.state)} subscriptions "
+        f"({GEO_PUSH_SUBS} KEY, 1 TOPK), {storm_rows[0]} rows rewritten, "
+        f"{pushes} deltas, {sum(s['resumes'] for s in subs.state)} "
+        f"resumes, missed {audit['missed']}, duplicates "
+        f"{audit['duplicates']}")
+    check(reconnects > 0, "(b) no proxy_reconnect after a proxy's kill")
+    check(not load.errors, f"(b) errors through a proxy's kill: "
+          f"{load.errors[:3]}")
+    check(pushes > 0 and audit["missed"] == 0 and audit["duplicates"] == 0,
+          f"(b) push audit {audit['missed']} missed, "
+          f"{audit['duplicates']} duplicates, {pushes} deltas")
+    eps = eps[1:]
+
+    # a proxy in eu with a staleness bound: local while caught up, home
+    # once a partition drives the follower past the bound
+    eu_ep = g.eu_eps
+    key = g.base["keys"][1]
+    kid, _, kind = key.rpartition("-")
+    fresh = ";".join(f"{float(x) + 1.0!r}"
+                     for x in g.rows[key].split(";"))
+    with EdgeClient(endpoints=eu_ep, stale_bound_s=GEO_STALE_BOUND_S,
+                    timeout_s=30) as bounded, \
+            EdgeClient(endpoints=eu_ep, timeout_s=30) as plain:
+        georepl._STALENESS_CACHE.clear()
+        wait_until(lambda: georepl.staleness_of(g.eu_dir, JOB_TOPIC) == 0.0,
+                   "the follower caught up")
+        old = bounded.query_state(JOB_STATE, key)
+        f0 = edge_counter(eu_ep, "tpums_edge_geo_failovers_total")
+        n0 = edge_counter(eu_ep, "tpums_edge_requests_total")
+        for k in keys[:64]:
+            bounded.query_state(JOB_STATE, k)
+        local_only = edge_counter(
+            eu_ep, "tpums_edge_geo_failovers_total") == f0
+        g.rep.partitioned = True
+        Journal(g.us_dir, JOB_TOPIC).append([f"{kid},{kind},{fresh}"])
+        with g.client(GEO_HOME) as direct:
+            wait_until(lambda: direct.query_state(JOB_STATE, key) == fresh,
+                       "the home region's fresh row")
+        wait_until(lambda: (georepl.staleness_of(g.eu_dir, JOB_TOPIC)
+                            or 0.0) > GEO_STALE_BOUND_S + 0.2,
+                   "the follower past the bound")
+        via_bound = bounded.query_state(JOB_STATE, key)
+        via_plain = plain.query_state(JOB_STATE, key)
+        stale_s = bounded.last_staleness_s
+        f1 = edge_counter(eu_ep, "tpums_edge_geo_failovers_total")
+        g.rep.partitioned = False
+        g.rep.run_until_caught_up(timeout_s=FLEET_WAIT_S)
+        wait_until(lambda: plain.query_state(JOB_STATE, key) == fresh,
+                   "the follower's fresh row after the heal")
+        n1 = edge_counter(eu_ep, "tpums_edge_requests_total")
+    log(f"geo (b) eu proxy, st={GEO_STALE_BOUND_S:g} bound: 65 reads while "
+        f"caught up all local: {local_only}; partitioned, a row rewritten "
+        f"at home: the bounded read answers home's row: "
+        f"{via_bound == fresh} (st={stale_s}), an unbounded one eu's old "
+        f"row: {via_plain == old}; tpums_edge_geo_failovers_total "
+        f"{f1 - f0:.0f} of {n1 - n0:.0f} tpums_edge_requests_total")
+    check(local_only and f1 - f0 > 0 and n1 - n0 > f1 - f0,
+          "(b) the eu proxy's routes")
+    check(via_bound == fresh and via_plain == old,
+          "(b) the bounded read did not go home, or the unbounded one did")
+
+    # latency through the proxy beside the direct client's
+    lat = {}
+    with g.client(GEO_HOME) as direct, \
+            EdgeClient(endpoints=eps, proto="b2", timeout_s=30) as c:
+        for name, cl in (("direct", direct), ("proxy", c)):
+            lat[name] = {
+                "GET": latency_ms(lambda j: cl.query_state(
+                    JOB_STATE, keys[j % len(keys)]), GEO_LATENCY_CALLS),
+                "TOPK": latency_ms(lambda j: cl.topk(
+                    JOB_STATE, users[j % len(users)], TOPK_K),
+                    GEO_LATENCY_CALLS)}
+    log(f"geo (b) latency, {GEO_LATENCY_CALLS} sequential each (p50/p99 "
+        "ms): " + "; ".join(
+        f"{verb} direct {lat['direct'][verb][0]:.3f}/"
+        f"{lat['direct'][verb][1]:.3f}, proxy {lat['proxy'][verb][0]:.3f}/"
+        f"{lat['proxy'][verb][1]:.3f}" for verb in ("GET", "TOPK")))
+    return dict(edge_coalesce=coalesce, edge_hedges=hedges,
+                edge_reconnects=reconnects, edge_latency=lat,
+                geo_b_s=time.perf_counter() - t0)
+
+
+def geo_failover(g, card) -> dict:
+    """(c) the whole home region SIGKILLed, its supervisors first, under
+    eu's region-local reads: the follower's ``RegionController`` promotes
+    eu, reads hold, the forwarder's next write lands in eu and applies."""
+    import signal
+
+    from flink_ms_tpu_torch.serve import georepl
+
+    t0 = time.perf_counter()
+    g.region_ctl = georepl.RegionController(GEO_GROUP, JOB_TOPIC,
+                                            GEO_FOLLOWER, replicator=g.rep)
+    g.region_ctl.start()
+    fwd = georepl.GeoWriteForwarder(GEO_GROUP, JOB_TOPIC)
+    stream = OpenLoopStream(lambda: g.client(GEO_FOLLOWER, timeout_s=10),
+                            g.base["keys"]).start()
+    g.streams.append(stream)
+    time.sleep(GEO_LOAD_S)
+    ctl = g.region[GEO_HOME]
+    victims = []
+    for sup in list(ctl.supervisors.values()):
+        sup._stop.set()
+        if sup._thread is not None:
+            sup._thread.join(timeout=10)
+        victims += [p for p in sup.procs.values() if p.poll() is None]
+    victims += [p for p in g.edge_procs[:2] if p.poll() is None]
+    t_kill = time.perf_counter()
+    for p in victims:
+        p.send_signal(signal.SIGKILL)
+    for p in victims:
+        p.wait(timeout=30)
+    wait_until(lambda: g.region_ctl.promoted is not None,
+               "the follower's promotion", timeout_s=30)
+    promote_s = time.perf_counter() - t_kill
+    rec = g.region_ctl.promoted
+    time.sleep(GEO_LOAD_S)
+    stream.stop()
+    g.streams.remove(stream)
+    w = stream.window(t0, time.perf_counter())
+    # the forwarder follows the new geo generation to eu
+    fwd._refresh(force=True)
+    user = g.base["users"][0]
+    item = g.items[0]
+    with g.client(GEO_FOLLOWER) as c:
+        before = c.query_state(JOB_STATE, f"{user}-U")
+        n_applied = len(applied_geo(g, GEO_FOLLOWER))
+        fwd.submit_many([(int(user), int(item), 5.0)], flush=True)
+        landed = any(n.startswith(f"{JOB_TOPIC}.upd")
+                     for n in os.listdir(g.eu_dir))
+        wait_until(lambda: len(applied_geo(g, GEO_FOLLOWER)) > n_applied,
+                   "the forwarded rating applied in eu")
+        wait_until(lambda: c.query_state(JOB_STATE, f"{user}-U") != before,
+                   "the forwarded rating's row served in eu")
+    geo = rec.get("geo") or {}
+    log(f"geo (c) failover ({card}): {len(victims)} us processes "
+        f"SIGKILLed (4 members, their supervisor stopped first, the "
+        f"surviving proxy); eu promoted {promote_s:.3f}s later (generation "
+        f"{rec.get('gen')}, home {geo.get('home')}, sealed at offset "
+        f"{(geo.get('failover') or {}).get('sealed_offset')}); eu's "
+        f"region-local reads: {fmt_window('open loop', w)}, "
+        f"{len(stream.errors)} errors (availability "
+        f"{1.0 - len(stream.errors) / max(w['n'], 1):.4f}); the "
+        f"forwarder's home {fwd.home()} ({fwd.repoints} re-point): a "
+        f"rating landed in eu's input log: {landed}, applied and served")
+    check(promote_s < GEO_PROMOTE_S, f"(c) promotion took {promote_s:.3f}s")
+    check(geo.get("home") == GEO_FOLLOWER, f"(c) the new home {geo}")
+    check(w["n"] > 0 and not stream.errors,
+          f"(c) eu reads {w['n']}, errors {stream.errors[:3]}")
+    check(fwd.home() == GEO_FOLLOWER and landed,
+          "(c) the forwarder did not re-point to eu")
+    return dict(geo_promote_s=promote_s, geo_c_s=time.perf_counter() - t0)
+
+
+def geo_phase(torch, base, dev, card) -> dict:
+    """Phase 22: geo-replication and the edge proxy at the served model's
+    width, two regions of ``--device`` members on this card: (a) the
+    follower journal and region, (b) the edge tier, (c) failover; then
+    (d) the rehearsal of phase 21 (c) with its edge arm."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    prior = {k: os.environ.get(k)
+             for k in list(GEO_ENV) + ["TPUMS_REGISTRY_DIR"]}
+    out = {}
+    with tempfile.TemporaryDirectory() as work:
+        os.environ.update(GEO_ENV)
+        os.environ["TPUMS_REGISTRY_DIR"] = os.path.join(work, "registry")
+        g = None
+        try:
+            g = GeoRun(work, base, dev)
+            out.update(geo_regions(g, card))
+            out.update(geo_edge_surface(g, card))
+            out.update(geo_replication(g, card))
+            out.update(geo_edge(g, card))
+            out.update(geo_failover(g, card))
+        finally:
+            if g is not None:
+                g.close()
+            for k, v in prior.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    out.update(obs_rehearsal(torch, dev, card, edge=GEO_REHEARSAL_EDGE,
+                             duration_s=GEO_REHEARSAL_DURATION_S))
+    log(f"geo phase: {time.perf_counter() - t_phase:.1f}s")
+    return out
+
+
+def geo_only(torch, dev) -> int:
+    """Phase 22 alone, for a look at geo-replication and the edge tier
+    without the other phases: seeded random rows at the served model's
+    shape (phase 17's 165,239 rows at rank 50) stand in for phase 17's
+    topic."""
+    from flink_ms_tpu_torch.native import _build as native_build
+
+    t0 = time.perf_counter()
+    card = card_line()
+    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    native_build.build()
+    base = fleet_baseline(seeded_published(), dev, JOB_TOPK_USERS)
+    geo_phase(torch, base, dev, card)
+    stop_leftovers("phase 22", helpers=False)
     log(f"done in {time.perf_counter() - t0:.1f}s")
     print(card)
     return 0
@@ -5952,10 +7042,10 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     obs_users = argv[1:] if argv[:1] == ["--obs-only"] else None
-    if argv not in ([], ["--multi-gpu"]) and not (
+    if argv not in ([], ["--multi-gpu"], ["--geo-only"]) and not (
             obs_users is not None and all(u.isdigit() for u in obs_users)):
-        print(f"[smoke] unknown arguments {argv} (none, --multi-gpu, or "
-              "--obs-only [USERS ...])", file=sys.stderr)
+        print(f"[smoke] unknown arguments {argv} (none, --multi-gpu, "
+              "--obs-only [USERS ...] or --geo-only)", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from flink_ms_tpu_torch.ops import _build
@@ -5968,6 +7058,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     if obs_users is not None:
         return obs_only(torch, dev, [int(u) for u in obs_users])
+    if argv == ["--geo-only"]:
+        return geo_only(torch, dev)
     if argv:
         return multi_gpu_only(torch, dev)
     t_start = time.perf_counter()
@@ -6069,13 +7161,15 @@ def main(argv=None) -> int:
     lap("phase 13 (SVM modes)")
     gen_phase(torch, dev)
     lap("phase 14 (generators)")
+    # phase 16 (b)'s two gloo ranks run beside phase 15 and 16 (a)
+    gloo = multi_gloo_phase(torch, runs, svm_run["w"], dev)
     retrain = retrain_phase(torch, CH, GA, final["model"],
                             (users, items, ratings), dev)
-    lap("phase 15 (retrain)")
+    lap("phase 15 (retrain, phase 16 (b)'s ranks beside it)")
     multi_world1_phase(torch, TA, CH, GA, TS, SK, problem,
                        (users, items, ratings), init, runs, svm_run["w"],
                        dev)
-    multi = multi_gloo_phase(torch, runs, svm_run["w"], dev)
+    multi = gloo()
     multi_shard_phase(torch, dev, [dev, dev], SCALE_EXACT_ROWS,
                       "(c) sharded exact, 2 slices on one card")
     if torch.cuda.device_count() >= 2:
@@ -6096,6 +7190,8 @@ def main(argv=None) -> int:
     lap("phase 20 (loop)")
     obs_phase(torch, job["fleet_base"], dev, card)
     lap("phase 21 (observability)")
+    geo_phase(torch, job["fleet_base"], dev, card)
+    lap("phase 22 (geo-replication and edge)")
     for e, key in zip(entries[:3], ("cholesky", "cholesky_batch_major",
                                     "assembly")):
         e["launches_by_path"]["als_staged"] = staged[key]
@@ -6110,7 +7206,7 @@ def main(argv=None) -> int:
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "device_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    stop_leftovers("phases 1-21", helpers=False)
+    stop_leftovers("phases 1-22", helpers=False)
     log(f"done in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": [{key: e[key] for key in keys}
                                   for e in entries]}))

@@ -5,9 +5,8 @@ its rotated event files (``tracing``), the fleet scrape and its CLI
 (``profiler``, ``profdiff``), tail-latency forensics over span spills
 (``forensics``), the watch store (``tsdb``), SLO reports (``slo``), alert
 rules (``rules``), the fleet watch loop with its model-quality canary
-(``watch``) and the rehearsal workload engine (``workload``).  The
-rehearsal's edge arm waits for the edge proxy (ROADMAP.md, Queue 1, item
-'Geo-replication and edge').
+(``watch``) and the rehearsal workload engine (``workload``), whose edge
+arm puts the port's proxies (``serve/edge.py``) in front of the fleet.
 
 Knobs: ``TPUMS_METRICS=0`` disables collection; ``TPUMS_TRACE=<path>``
 mirrors events to a JSONL file that every process of a fleet appends to;

@@ -1,13 +1,13 @@
 """Production-rehearsal workload engine — realistic open-loop traffic with
 coordinated-omission-safe latency accounting.
 
-Own copy of ``flink_ms_tpu/obs/workload.py``, whole but its edge arm:
-the same draws for the same seeds (``ZipfKeys``, ``VerbMix``,
-``PhaseSchedule``, ``_seed_journal``), the same engine and report.
-``run_rehearsal`` and the CLI take ``device`` (default ``cuda``), which the
-spawned group's ``ScaleController`` hands to every member; ``edge > 0``
-(edge proxies in front of the fleet) is refused by name until the edge
-proxy is ported (ROADMAP.md, Queue 1, item 'Geo-replication and edge').
+Own copy of ``flink_ms_tpu/obs/workload.py``: the same draws for the
+same seeds (``ZipfKeys``, ``VerbMix``, ``PhaseSchedule``,
+``_seed_journal``), the same engine and report, and the same edge arm
+(``edge > 0``: the port's proxies, ``serve/edge.py``, in front of the
+fleet).  ``run_rehearsal`` and the CLI take ``device`` (default
+``cuda``), which the spawned group's ``ScaleController`` hands to every
+member.
 
 The pieces, composable on their own or through ``run_rehearsal``:
 
@@ -619,7 +619,7 @@ _ABUSE_VERBS = ("GET", "MGET", "TOPK", "TOPKV")
 ABUSIVE_TENANT = "abuse"
 
 
-def _run_subscriber(idx: int, live_group: str, state: str,
+def _run_subscriber(idx: int, live_group: str, edge: int, state: str,
                     key: str, stop: threading.Event, stats: dict,
                     lock: threading.Lock) -> None:
     """One push subscriber (serve/push.py): hold a ``su=1`` connection
@@ -627,9 +627,7 @@ def _run_subscriber(idx: int, live_group: str, state: str,
     told to stop.  A dead connection (replica kill, reshard cutover,
     proxy death) reconnects and RESUMEs at the last delivered seq — the
     replay-or-snapshot answer is counted either way, so the stats show
-    churn without ever double-counting a delta.  (The reference's
-    subscriber may connect through the edge tier instead; the port
-    refuses ``edge > 0`` before any subscriber starts.)"""
+    churn without ever double-counting a delta."""
     from ..serve import registry as reg_mod
     from ..serve.client import QueryClient
     from ..serve.elastic import generation_group
@@ -639,6 +637,10 @@ def _run_subscriber(idx: int, live_group: str, state: str,
     qgroup = reg_mod.qualify_group(live_group)
 
     def connect():
+        if edge > 0:
+            from ..serve.edge import EdgeClient
+            return EdgeClient(live_group, proto="b2", push=True,
+                              timeout_s=10.0)
         topo = reg_mod.resolve_topology(qgroup)
         if topo is None:
             raise ConnectionError(f"no topology for {live_group!r}")
@@ -767,9 +769,13 @@ def run_rehearsal(
     section — the live incident timeline with per-kill detection latency
     and attribution, instead of only the terminal SLO post-mortem.
 
-    ``edge > 0`` (the reference's edge proxies in front of the fleet,
-    every client an ``EdgeClient``) raises ``NotImplementedError`` naming
-    ROADMAP's item 'Geo-replication and edge'; it is never ignored.
+    With ``edge > 0`` that many edge proxies (``serve/edge.py``) are
+    spawned in front of the fleet and EVERY client thread becomes an
+    ``EdgeClient`` — the full verb mix runs through the proxy tier
+    (multiplexing, coalescing, hedging, edge admission), and the SLO
+    attribution must still come out clean: ``edge_hedge``/``edge_shed``/
+    ``proxy_reconnect`` are timeline events, never unattributed errors.
+    In attach mode the proxies must already be registered for the group.
 
     ``device`` is the spawned members' (``ScaleController(device=...)``),
     ``"cuda"`` by default; without CUDA the caller passes ``"cpu"``.
@@ -787,14 +793,9 @@ def run_rehearsal(
     from . import slo as obs_slo
     from .scrape import scrape_fleet
     from ..parallel.mesh import resolve_device
-    from ..serve import not_ported
     from ..serve.client import RetryPolicy
     from ..serve.consumer import ALS_STATE
 
-    if edge > 0:
-        raise NotImplementedError(not_ported(
-            f"the rehearsal's edge arm (edge={edge})",
-            "Geo-replication and edge"))
     resolve_device(device)
     if autoscale not in ("off", "dry", "live"):
         raise ValueError("autoscale must be off|dry|live")
@@ -833,6 +834,7 @@ def run_rehearsal(
     ctl = None
     autoscaler = None
     watcher = None
+    edge_procs: list = []
     sampler_stop = threading.Event()
     scrapes: List[Tuple[float, dict]] = []
 
@@ -875,6 +877,10 @@ def run_rehearsal(
                                   extra_args=extra_args, device=device)
             ctl.scale_to(shards, replicas=replication)
             live_group = group
+            if edge > 0:
+                from ..serve.edge import spawn_edge_procs
+                edge_procs, _ = spawn_edge_procs(
+                    live_group, edge, os.path.join(base, "edge_ports"))
             if autoscale != "off":
                 # trip on the burst, not the ramp: threshold above the
                 # per-shard peak rate but below the per-shard burst rate
@@ -895,12 +901,22 @@ def run_rehearsal(
             kill = False
             autoscale = "off"
 
-        def client_factory():
-            from ..serve.elastic import ElasticClient
-            return ElasticClient(
-                live_group, timeout_s=10.0,
-                retry=RetryPolicy(attempts=6, backoff_s=0.02,
-                                  max_backoff_s=0.5))
+        if edge > 0:
+            # every worker thread talks to the proxy tier: one thin
+            # connection, no shard/generation knowledge client-side
+            def client_factory():
+                from ..serve.edge import EdgeClient
+                return EdgeClient(
+                    live_group, timeout_s=10.0,
+                    retry=RetryPolicy(attempts=6, backoff_s=0.02,
+                                      max_backoff_s=0.5))
+        else:
+            def client_factory():
+                from ..serve.elastic import ElasticClient
+                return ElasticClient(
+                    live_group, timeout_s=10.0,
+                    retry=RetryPolicy(attempts=6, backoff_s=0.02,
+                                      max_backoff_s=0.5))
 
         client_factories = None
         if abusive_qps > 0:
@@ -908,6 +924,13 @@ def run_rehearsal(
                 # tenant= rides the wire (tab: trailing tn= field; B2:
                 # HELLO-bound); sheds come back as "E\tover quota"
                 # RuntimeErrors, which the HA client does NOT failover on
+                if edge > 0:
+                    from ..serve.edge import EdgeClient
+                    return EdgeClient(
+                        live_group, timeout_s=10.0,
+                        retry=RetryPolicy(attempts=6, backoff_s=0.02,
+                                          max_backoff_s=0.5),
+                        tenant=ABUSIVE_TENANT)
                 from ..serve.elastic import ElasticClient
                 return ElasticClient(
                     live_group, timeout_s=10.0,
@@ -956,7 +979,7 @@ def run_rehearsal(
                 key = f"{zkeys.ids[i % hot_n]}-U"
                 t = threading.Thread(
                     target=_run_subscriber,
-                    args=(i, live_group, ALS_STATE, key, push_stop,
+                    args=(i, live_group, edge, ALS_STATE, key, push_stop,
                           push_stats, push_lock),
                     daemon=True, name=f"tpums-sub-{i}")
                 t.start()
@@ -1116,6 +1139,12 @@ def run_rehearsal(
         if autoscaler is not None:
             try:
                 autoscaler.stop()
+            except Exception:
+                pass
+        if edge_procs:
+            try:
+                from ..serve.edge import stop_edge_procs
+                stop_edge_procs(edge_procs)
             except Exception:
                 pass
         if ctl is not None:

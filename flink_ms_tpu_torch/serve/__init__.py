@@ -4,13 +4,6 @@ protocol, admission and registry, the query client, the model producer,
 the top-k index with its IVF tier and cross-request batcher, the push
 plane and snapshots, the fleet (sharded workers, HA replica sets, elastic
 topology generations, the co-located update plane), the arena and native
-store, blue/green model rollout, and the autopilot (its controller around
-the warm-started retrain on the card).  Geo-replication and the edge proxy
-are not ported yet."""
-
-
-def not_ported(what: str, item: str) -> str:
-    """The refusal text for a part of the JAX package's serving stack that
-    the port does not have yet, naming its ROADMAP item."""
-    return (f"{what} is not ported yet (ROADMAP.md, Queue 1, item "
-            f"'{item}')")
+store, blue/green model rollout, the autopilot (its controller around
+the warm-started retrain on the card), geo-replication with region
+failover (``georepl.py``) and the edge proxy (``edge.py``)."""

@@ -361,8 +361,23 @@ class Arena:
                 yield row[0].decode("utf-8"), row[1].decode("utf-8")
 
     def flush(self) -> None:
-        if self.writable:
-            self.mm.flush()
+        """Write the mapping's dirty pages back to the file.  ``fsync`` of
+        the file writes them as ``msync`` does and releases the GIL while
+        the disk works; ``mmap.flush`` holds the GIL throughout, so a
+        checkpoint's flush of every page a replay dirtied would hold back
+        the process's other threads (a serving job's registry heartbeat
+        first) for as long as the disk takes."""
+        if not self.writable:
+            return
+        try:
+            fd = os.open(self.path, os.O_RDONLY)
+        except OSError:
+            self.mm.flush()  # the file is gone (a grown-out generation)
+            return
+        try:
+            os.fsync(fd)
+        finally:
+            os.close(fd)
 
     def occupied_runs(self) -> Iterator[Tuple[int, int]]:
         """Yield ``(first_slot, last_slot_exclusive)`` runs of claimed

@@ -68,9 +68,10 @@ it and needs no device.  ``--nativeServer true`` serves from the C++ epoll
 server instead, over the rocksdb store or the arena, which answers
 TOPK/TOPKV on the host as the reference's does, and needs no device.
 
-A geo-replication follower (a journal with ``<topic>.georepl.json``) is
-refused with a ``ValueError`` naming its ROADMAP.md item (Queue 1, item
-'Geo-replication and edge'), never ignored.
+A geo-replication follower (a journal that ``serve/georepl.py``'s
+replicator writes, with ``<topic>.georepl.json`` beside it) is served like
+any journal: an ``st=1`` read answers the follower's staleness from that
+record, and ``0.000`` on the home region.
 
 Key derivation:
 - ALS rows ``id,T,factors`` -> key ``"<id>-<T>"`` (ALSKafkaConsumer.java:75-82)
@@ -96,8 +97,6 @@ from ..core.params import Params
 from ..obs import metrics as obs_metrics
 from ..obs import profiler as obs_profiler
 from ..obs import tracing as obs_tracing
-from ..parallel.mesh import resolve_device
-from . import not_ported
 from . import registry
 from . import snapshot as snapshot_mod
 from .compact import CompactorThread, compact_enabled
@@ -225,16 +224,6 @@ def _select_table(table: Optional[str], fleet: bool, backend) -> str:
     return table
 
 
-def _refuse_unported(journal: Journal) -> None:
-    """Raise for the option of the reference's job that the port does not
-    have (module docstring)."""
-    if os.path.exists(os.path.join(journal.dir,
-                                   f"{journal.topic}.georepl.json")):
-        raise ValueError(not_ported(
-            f"a geo-replication follower (journal {journal.dir} has "
-            f"{journal.topic}.georepl.json)", "Geo-replication and edge"))
-
-
 # ---------------------------------------------------------------------------
 # the job
 # ---------------------------------------------------------------------------
@@ -284,14 +273,19 @@ class ServingJob:
             ingest_mode = os.environ.get("TPUMS_INGEST_MODE", "auto")
         if ingest_mode not in ("auto", "columnar", "scalar"):
             raise ValueError("ingest_mode must be auto|columnar|scalar")
-        _refuse_unported(journal)
         _sf = getattr(parse_fn, "shard_filter", None)
         self.table_kind = _select_table(
             table, _sf is not None or replica_of is not None
             or topology_group is not None or generation is not None, backend)
         with_index = (state_name == ALS_STATE and topk_index
                       and not native_server)
-        self.device = resolve_device(device) if with_index else None
+        self.device = None
+        if with_index:
+            # torch loads with the index: a job without one (a proxy's
+            # imports reach this module too) never imports it
+            from ..parallel.mesh import resolve_device
+
+            self.device = resolve_device(device)
         self.ingest_mode = ingest_mode
         self.journal = journal
         self.state_name = state_name
@@ -464,8 +458,17 @@ class ServingJob:
                 job_id=self.job_id,
                 topk_handlers=topk_handlers,
                 health_fn=self.health,
+                staleness_fn=self._staleness,
             )
         self.port = self.server.port
+
+    def _staleness(self):
+        """Replication staleness for st=-opted reads: the follower
+        replicator's journal-dir status record (serve/georepl.py), or None
+        (-> 0.000 on the wire) when this journal is not a geo follower."""
+        from . import georepl
+
+        return georepl.staleness_of(self.journal.dir, self.journal.topic)
 
     # -- lifecycle ---------------------------------------------------------
 

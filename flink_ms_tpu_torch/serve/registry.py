@@ -35,10 +35,13 @@ Push epochs (``next_push_epoch``), snapshot records (``publish_snapshot``)
 and the alert records a watcher publishes (``publish_alerts`` with a TTL,
 ``resolve_alerts``, ``drop_alerts``) are the reference's records in the
 reference's files.  Every record and lease either package writes is read
-and honoured by the other.  Regions and the edge namespace are not ported
-yet (ROADMAP.md, Queue 1, item 'Geo-replication and edge').  Registration is
-best-effort: registry I/O failures never take down a serving job, but a
-topology publish raises (a controller must know its cutover failed).
+and honoured by the other.  Region namespaces (``qualify_region``,
+``TPUMS_GEO_REGION``, ``list_regions``, ``gc_region_entries``) and the
+edge proxies' group (``edge_group``) name the reference's records, so a
+geo record or a proxy entry of one package resolves in the other.
+Registration is best-effort: registry I/O failures never take down a
+serving job, but a topology publish raises (a controller must know its
+cutover failed).
 """
 
 from __future__ import annotations
@@ -369,6 +372,139 @@ def gc_tenant_entries(tenant: str) -> int:
         if not isinstance(entry, dict) or "port" not in entry:
             continue
         if _entry_tenant(entry) != tenant:
+            continue
+        if entry_is_dead(entry) and _reap_if_unchanged(path, entry) is None:
+            reaped += 1
+    return reaped
+
+
+# ---------------------------------------------------------------------------
+# region namespaces (the geo-distributed plane, serve/georepl.py)
+# ---------------------------------------------------------------------------
+
+# A region is the OUTERMOST name prefix on group/job identifiers:
+# ``eu@@acme::als`` is region "eu"'s view of tenant "acme"'s serving group
+# "als".  Same discipline as tenant namespaces, one level further out:
+# every id derived from a region-qualified group — worker job ids, replica
+# groups, generation groups, topology records, controller leases, snapshot
+# scopes, alert scopes — inherits the prefix, so a follower fleet in one
+# region shares zero registry records with the home fleet, and region GC
+# structurally cannot touch another region's entries.
+
+REGION_SEP = "@@"
+
+
+def default_region() -> Optional[str]:
+    """The ambient region (``TPUMS_GEO_REGION``), or None for the
+    unscoped namespace — single-region deployments' default."""
+    r = os.environ.get("TPUMS_GEO_REGION", "").strip()
+    return r or None
+
+
+def qualify_region(name: str, region: Optional[str] = None) -> str:
+    """Region-scope a group/job name -> ``<region>@@<name>``.
+
+    ``region=None`` uses the ambient ``TPUMS_GEO_REGION``; an explicit
+    empty string pins the unscoped namespace regardless of environment.
+    Already region-qualified names pass through unchanged (idempotent).
+    Applied OUTSIDE tenant qualification: ``eu@@acme::als``."""
+    if REGION_SEP in name:
+        return name
+    r = default_region() if region is None else (region.strip() or None)
+    if not r:
+        return name
+    if (REGION_SEP in r or TENANT_SEP in r or "/" in r
+            or "\t" in r or "\n" in r):
+        raise ValueError(f"bad region name: {r!r}")
+    return f"{r}{REGION_SEP}{name}"
+
+
+def split_region(name: str) -> Tuple[Optional[str], str]:
+    """``"eu@@acme::als@g3/shard-0"`` -> ("eu", "acme::als@g3/shard-0");
+    unscoped names -> (None, name)."""
+    if REGION_SEP in name:
+        r, _, base = name.partition(REGION_SEP)
+        return (r or None), base
+    return None, name
+
+
+def region_of(name: str) -> Optional[str]:
+    return split_region(name)[0]
+
+
+def _entry_region(entry: dict) -> Optional[str]:
+    return region_of(entry.get("replica_of") or entry.get("job_id") or "")
+
+
+def list_regions() -> List[str]:
+    """Regions with any registry presence (live worker entries or topology
+    records), sorted.  The unscoped namespace is not a region."""
+    seen = set()
+    for e in list_jobs(gc=False):
+        r = _entry_region(e)
+        if r:
+            seen.add(r)
+    try:
+        names = os.listdir(registry_dir())
+    except OSError:
+        names = []
+    for name in names:
+        if not name.endswith(".topo.json"):
+            continue
+        rec = _read_record(os.path.join(registry_dir(), name), "topology")
+        if rec:
+            r = region_of(rec.get("group") or "")
+            if r:
+                seen.add(r)
+    return sorted(seen)
+
+
+def list_region_jobs(region: Optional[str], gc: bool = True) -> List[dict]:
+    """Live entries belonging to one region's namespace (``region=None``
+    selects the unscoped namespace)."""
+    return [e for e in list_jobs(gc=gc) if _entry_region(e) == region]
+
+
+# ---------------------------------------------------------------------------
+# edge-proxy namespace (serve/edge.py)
+# ---------------------------------------------------------------------------
+
+EDGE_PREFIX = "edge/"
+
+
+def edge_group(group: str, region: Optional[str] = None) -> str:
+    """The registry replica-group carrying a serving group's EDGE PROXY
+    endpoints — ``edge/<region>@@<tenant>::<group>``.
+
+    Proxies register under it with ``replica_of=edge_group(g)`` (one
+    entry per proxy, ``replica=<index>``) and re-register on the
+    heartbeat cadence like any worker, so ``resolve_replicas`` is the
+    one discovery path clients, smokes and the scraper all share.
+    Distinct from the group's shard topology record: the edge tier is
+    stateless and has no generations — proxies follow the data plane's
+    topology record, they never appear in it."""
+    return f"{EDGE_PREFIX}{qualify_region(qualify_group(group), region)}"
+
+
+def gc_region_entries(region: str) -> int:
+    """Reap DEAD worker entries of ONE region -> count reaped.  Same
+    structural-isolation statement as ``gc_tenant_entries``: only entries
+    whose identifiers carry ``<region>@@`` are reachable."""
+    if not region:
+        raise ValueError("gc_region_entries needs a region name")
+    reaped = 0
+    try:
+        names = os.listdir(registry_dir())
+    except OSError:
+        return 0
+    for name in names:
+        if not name.endswith(".json"):
+            continue
+        path = os.path.join(registry_dir(), name)
+        entry = _load_json_retry(path)
+        if not isinstance(entry, dict) or "port" not in entry:
+            continue
+        if _entry_region(entry) != region:
             continue
         if entry_is_dead(entry) and _reap_if_unchanged(path, entry) is None:
             reaped += 1

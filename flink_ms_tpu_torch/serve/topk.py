@@ -84,14 +84,19 @@ _warmed: set = set()
 
 def _warm_async(dev: torch.device) -> None:
     """Pay the CUDA context and cuBLAS start-up off the query path, once per
-    process and card: a daemon thread runs the index's three operations
-    (a matrix product, the top-k, a row copy) at a tiny shape."""
+    process and card.  The context is made here, on the caller's thread:
+    torch's lazy CUDA init holds the GIL while it runs, so on a daemon
+    thread it would hold back a serving job's registry heartbeat once the
+    job has registered (the index is built before that).  The daemon
+    thread then runs the index's three operations (a matrix product, the
+    top-k, a row copy) at a tiny shape; those release the GIL."""
     if dev.type != "cuda":
         return
     with _warm_lock:
         if dev in _warmed:
             return
         _warmed.add(dev)
+    torch.cuda.init()
 
     def warm():
         try:
@@ -104,6 +109,24 @@ def _warm_async(dev: torch.device) -> None:
             print(f"[topk] CUDA warm-up failed: {e}", file=sys.stderr)
 
     threading.Thread(target=warm, name="topk-cuda-warm", daemon=True).start()
+
+
+# rows parsed by one ``_parse_block``: each block's join, split and float
+# parse is one C call that holds the GIL throughout, so the block bounds
+# how long an index build can hold back the process's other threads (its
+# registry heartbeat first: at the served model's width one unblocked
+# parse held it past a 1.5 s replica TTL, and the member was respawned)
+_PARSE_BLOCK_ROWS = 1024
+
+
+def _parse_block(payloads: List[str], width: int) -> np.ndarray:
+    """``width``-token ``f1;f2;...`` payloads -> (n, width) float32, parsed
+    by numpy's float parser as float64 first; ValueError when a token is
+    not a number or the count comes up short."""
+    flat = np.array(";".join(payloads).split(";"), dtype=np.float64)
+    if flat.size != len(payloads) * width:
+        raise ValueError("short parse")
+    return flat.reshape(len(payloads), width).astype(np.float32)
 
 
 _FRAME_FLOOR = 8
@@ -382,9 +405,11 @@ class DeviceFactorIndex:
         single truncated or over-long payload is dropped rather than
         poisoning the build, and rows are filtered by token count before
         the reshape, so it can never misalign them.  The width-consistent
-        payloads are joined and parsed ONCE by numpy's float parser; a
-        non-numeric token makes that parse come up short or raise, and the
-        per-row path then drops those rows."""
+        payloads are joined and parsed by numpy's float parser, in blocks
+        of ``_PARSE_BLOCK_ROWS`` rows (each block's parse holds the GIL,
+        so a build never holds it for long); a non-numeric token makes a
+        block's parse come up short or raise, and the per-row path then
+        drops those rows."""
         ids, payloads = [], []
         for key, payload in self.table.items():
             if not key.endswith(self.suffix) or key.startswith("MEAN"):
@@ -405,9 +430,9 @@ class DeviceFactorIndex:
         if not ids or width <= 0:
             return [], np.zeros((0, 0), np.float32), None
         try:
-            flat = np.array(";".join(payloads).split(";"), dtype=np.float64)
-            if flat.size == len(ids) * width:
-                return ids, flat.reshape(len(ids), width).astype(np.float32), width
+            return ids, np.concatenate([
+                _parse_block(payloads[at:at + _PARSE_BLOCK_ROWS], width)
+                for at in range(0, len(payloads), _PARSE_BLOCK_ROWS)]), width
         except ValueError:
             pass
         # robust path: per-row parse, drop rows with non-numeric tokens

@@ -75,9 +75,11 @@ def test_multi_world1_phase_rehearsal(counted, multi_inputs, capsys):
 
 
 def test_multi_gloo_phase_rehearsal(multi_inputs, capfd):
+    # as the run starts it: in the background, waited for later
     _, _, _, runs, w = multi_inputs
-    launches = chip_smoke.multi_gloo_phase(torch, runs, w,
-                                           torch.device("cpu"))
+    finish = chip_smoke.multi_gloo_phase(torch, runs, w,
+                                         torch.device("cpu"))
+    launches = finish()
     assert set(launches) == {"als_d2", "als_d2_fused", "als_routed",
                              "svm_d2"}
     assert launches["als_d2"]["cholesky"] > 0

@@ -1,6 +1,7 @@
 """The PyTorch port imports neither JAX nor the JAX package, and its entry
 points refuse to run without CUDA unless the caller asks for the CPU."""
 
+import json
 import os
 import subprocess
 import sys
@@ -80,7 +81,9 @@ def test_port_and_chip_smoke_load_no_jax():
                 "flink_ms_tpu_torch.obs.profdiff",
                 "flink_ms_tpu_torch.obs.forensics",
                 "flink_ms_tpu_torch.obs.profiler",
-                "flink_ms_tpu_torch.obs.workload"
+                "flink_ms_tpu_torch.obs.workload",
+                "flink_ms_tpu_torch.serve.georepl",
+                "flink_ms_tpu_torch.serve.edge"
                 } <= set(names)
         from flink_ms_tpu_torch.serve import autopilot
         assert {"AutopilotController", "main", "retrain_candidate"} <= \
@@ -95,7 +98,7 @@ def test_port_and_chip_smoke_load_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 71  # every module of the port was imported
+    assert int(n) >= 73  # every module of the port was imported
     assert bad == "[]"
 
 
@@ -153,6 +156,74 @@ def test_serving_clis_load_no_jax(tmp_path):
     assert ha.startswith("RuntimeError: replica s0r0 died at spawn rc=1")
     assert elastic.startswith("RuntimeError: replica s0r0 died at spawn")
     assert last == "11 []"
+
+
+def test_module_list_equals_the_reference():
+    """Every module of the JAX package has its counterpart in the port,
+    under the same path, but the Pallas solve, which the port has as
+    ``ops/cholesky.py`` (with its CUDA source)."""
+    def modules(pkg):
+        root = os.path.join(ROOT, pkg)
+        return {os.path.relpath(os.path.join(d, f), root)
+                for d, _, files in os.walk(root) for f in files
+                if f.endswith(".py") and "__pycache__" not in d}
+
+    ref, port = modules("flink_ms_tpu"), modules("flink_ms_tpu_torch")
+    assert ref - port == {"ops/cholesky_pallas.py"}
+    assert "ops/cholesky.py" in port
+    assert {"serve/georepl.py", "serve/edge.py"} <= port
+
+
+def test_edge_cli_serves_and_drains_without_jax(tmp_path):
+    """``python -m flink_ms_tpu_torch.serve.edge`` writes its port file,
+    answers PING, registers under the group's edge namespace and exits 0
+    on SIGTERM, having loaded neither JAX nor torch (it owns no
+    device)."""
+    import signal
+    import socket
+    import time
+
+    reg = str(tmp_path / "registry")
+    pf = str(tmp_path / "edge.port")
+    env = dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES="",
+               TPUMS_REGISTRY_DIR=reg)
+    code = textwrap.dedent("""
+        import runpy, sys, atexit
+        def report():
+            bad = sorted(m for m in sys.modules
+                         if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                         or m == "flink_ms_tpu"
+                         or m.startswith("flink_ms_tpu."))
+            print("loaded", bad, "torch" in sys.modules, flush=True)
+        atexit.register(report)
+        sys.argv = ["edge", "--group", "g", "--portFile", sys.argv[1]]
+        runpy.run_module("flink_ms_tpu_torch.serve.edge",
+                         run_name="__main__")
+    """)
+    proc = subprocess.Popen([sys.executable, "-c", code, pf], cwd=ROOT,
+                            env=env, stdout=subprocess.PIPE, text=True)
+    try:
+        deadline = time.time() + 60
+        while not os.path.exists(pf):
+            assert proc.poll() is None and time.time() < deadline
+            time.sleep(0.05)
+        with open(pf) as f:
+            port = int(f.read())
+        with socket.create_connection(("127.0.0.1", port), 10) as sock:
+            sock.sendall(b"PING\n")
+            assert sock.recv(4096).startswith(b"PONG")
+        entries = [json.load(open(os.path.join(reg, n)))
+                   for n in os.listdir(reg) if n.endswith(".json")]
+        assert [e.get("replica_of") for e in entries] == ["edge/g"]
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert proc.returncode == 0
+    # nor torch: a proxy is host code, and starts without the import
+    assert out.strip().splitlines()[-1] == "loaded [] False"
 
 
 def test_loop_clis_load_no_jax(tmp_path):

@@ -8,10 +8,12 @@ against the JAX package's on the CPU.
 - Cross-package cases, exact: ``ZipfKeys`` permutations and draws,
   ``PhaseSchedule.intended_offsets`` and ``VerbMix`` choices are equal for
   equal seeds; ``_seed_journal`` writes the same bytes; the engine's plan is
-  the same list.  ``edge > 0`` is refused by name, never ignored.
+  the same list; the edge arm's rehearsal (two proxies of the run's own
+  package) gives valid reports with the same edge fields in both.
 """
 
 import functools
+import importlib
 import os
 import random
 
@@ -114,14 +116,66 @@ def test_seed_journal_writes_the_reference_bytes(tmp_path, users, dim, seed):
     assert sum(b.count(b"\n") for b in want.values()) >= 2 * users
 
 
-def test_edge_arm_is_refused_by_name(tmp_path):
-    for kw in ({"edge": 1}, {"edge": 2, "attach_group": "g"}):
-        with pytest.raises(NotImplementedError,
-                           match="'Geo-replication and edge'"):
-            PW.run_rehearsal(device="cpu", **kw)
-    with pytest.raises(NotImplementedError,
-                       match="'Geo-replication and edge'"):
-        PW.main(["--rehearsal", "--edge", "1", "--device", "cpu",
-                 "--out", str(tmp_path / "r.json")])
-    # without --rehearsal or --group the CLI prints its usage
+def _edge_rehearsal(mod, tmp_path, monkeypatch, **kw):
+    """A small edge-arm rehearsal (two proxies, every client an
+    ``EdgeClient``) -> (report, the edge fields of its fleet signals over
+    the run, the proxies' requests counted by the last scrape)."""
+    pkg = mod.__name__.rsplit(".", 2)[0]
+    scrape = importlib.import_module(f"{pkg}.obs.scrape")
+    monkeypatch.setenv("TPUMS_REGISTRY_DIR", str(tmp_path / "registry"))
+    real, seen = scrape.scrape_fleet, []
+
+    def recording(*a, **k):
+        out = real(*a, **k)
+        seen.append(out["fleet"])
+        return out
+
+    monkeypatch.setattr(scrape, "scrape_fleet", recording)
+    try:
+        report = mod.run_rehearsal(
+            out_path=str(tmp_path / "SLO_REPORT.json"), shards=2,
+            replication=2, users=100, base_qps=50.0, peak_qps=80.0,
+            burst_qps=120.0, warm_s=1.0, ramp_s=1.0, burst_s=1.5,
+            cool_s=1.0, threads=3, autoscale="off", kill=False, seed=0,
+            edge=2, **kw)
+    finally:
+        monkeypatch.setattr(scrape, "scrape_fleet", real)
+    sig = scrape.fleet_signals(seen[0], seen[-1])
+    edge = {k: v for k, v in sig.items() if k.startswith("edge_")}
+    requests = sum(c["value"] for c in seen[-1].get("counters", [])
+                   if c["name"] == "tpums_edge_requests_total")
+    return report, edge, requests
+
+
+def test_edge_arm_rehearsal_in_both_packages(tmp_path, monkeypatch):
+    """The rehearsal's edge arm: two proxies of the run's own package in
+    front of a 2 x 2 group, every client through them.  Both packages'
+    reports are valid, with no error, every op run, and the same edge
+    fields in their fleet signals; the proxies served the traffic."""
+    monkeypatch.setenv("TPUMS_ARENA_CAPACITY", "256")
+    monkeypatch.setenv("TPUMS_REPLICA_TTL_S", "10")
+    ref, ref_edge, ref_n = _edge_rehearsal(RW, tmp_path / "ref",
+                                           monkeypatch)
+    port, port_edge, port_n = _edge_rehearsal(
+        PW, tmp_path / "port", monkeypatch, device="cpu")
+    for report, n in ((ref, ref_n), (port, port_n)):
+        assert PS.validate_report(report) == []
+        assert report["meta"]["edge"] == 2
+        assert report["errors"]["total"] == 0
+        assert report["errors"]["unattributed"] == 0
+        wl = report["workload"]
+        assert wl["completed"] == wl["scheduled"] > 0
+        # every read went through the proxies (UPDATE goes to the
+        # update plane's journal)
+        reads = sum(report["verbs"][v]["requests"]
+                    for v in ("GET", "MGET", "TOPK", "TOPKV"))
+        assert 0 < reads <= n
+    assert sorted(port_edge) == sorted(ref_edge)
+    assert {"edge_open_connections", "edge_coalesce_per_s",
+            "edge_hedges_per_s", "edge_p99_s"} <= set(port_edge)
+    assert sorted(port["verbs"]) == sorted(ref["verbs"])
+    assert sorted(port["meta"]) == sorted(ref["meta"])
+
+
+def test_cli_without_a_mode_prints_its_usage():
     assert PW.main([]) == 2

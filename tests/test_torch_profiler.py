@@ -53,8 +53,10 @@ def _on_port(module, overrides):
     g.update(overrides)
 
     def rebind(fn):
-        return types.FunctionType(fn.__code__, g, fn.__name__,
-                                  fn.__defaults__, fn.__closure__)
+        out = types.FunctionType(fn.__code__, g, fn.__name__,
+                                 fn.__defaults__, fn.__closure__)
+        out.__kwdefaults__ = fn.__kwdefaults__
+        return out
 
     for name, obj in list(g.items()):
         if getattr(obj, "__module__", None) != module.__name__:

@@ -15,10 +15,11 @@ packages on the CPU, and the same rehearsal at full width as a witness.
   width (rank 50, 40,000 users unless ``TPUMS_WITNESS_USERS`` says
   otherwise, 2 shards x 2 replicas, a kill, the watch loop, 8 push
   subscribers) through both packages on the CPU, one after the other.  It
-  prints each run's achieved rate, schedule lag and verdict, and holds the
-  port's achieved rate to at least half the reference's: a witness that
+  prints each run's achieved rate, schedule lag and verdict, holds the
+  port's achieved rate to at least half the reference's (a witness that
   the open loop's lag at this size is the design's on one host, not the
-  port's.
+  port's) and the port's respawns to exactly one, the kill's, at the
+  CLI's 1.5 s TTL.
 """
 
 import functools
@@ -139,5 +140,10 @@ def test_full_width_rehearsal_lags_alike_in_both_packages(rehearsal_env,
                   f"{v} {s.get('p99_ms')}/{s.get('service_p99_ms')}"
                   for v, s in sorted(rep["verbs"].items())), flush=True)
         assert wl["completed"] == wl["scheduled"], name
+        if name == "port":
+            # the kill's respawn and no other: a replaying member's
+            # heartbeat keeps within the 1.5 s TTL
+            # (tests/test_torch_heartbeat.py pins why)
+            assert kinds.get("replica_respawn", 0) == 1, kinds
         runs[name] = wl["achieved_qps"]
     assert runs["port"] >= 0.5 * runs["reference"], runs

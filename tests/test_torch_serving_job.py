@@ -3,13 +3,15 @@ the same journal on the CPU: every verb in tab and B2 framing gets the
 same reply bytes from both (the push plane's verbs and frames included),
 the ingest modes build equal tables, ``fs`` checkpoints restore across the
 packages, the snapshot and compaction options run as the reference's,
-every option the port leaves out is refused, and checkpoints are deferred
+bad options are refused, a geo-replication follower answers ``st=1``
+with its status record's staleness, and checkpoints are deferred
 during a replay (stepped with a fake clock, no thread raced against a
 wall-clock interval)."""
 
 import json
 import os
 import socket
+import types
 
 import numpy as np
 import pytest
@@ -23,6 +25,7 @@ from flink_ms_tpu.serve import proto as ref_proto
 from flink_ms_tpu.serve.table import ModelTable as RefTable
 from flink_ms_tpu_torch.obs import tracing as port_tracing
 from flink_ms_tpu_torch.serve import consumer as PC
+from flink_ms_tpu_torch.serve import georepl as PGeo
 from flink_ms_tpu_torch.serve import journal as PJ
 from flink_ms_tpu_torch.serve.client import QueryClient
 from flink_ms_tpu_torch.serve.table import ModelTable
@@ -406,6 +409,7 @@ def test_fleet_options_run_as_the_reference(tmp_path, monkeypatch, kw):
 
 
 def test_env_flags_and_other_refusals(tmp_path, monkeypatch):
+    real_server = PC.LookupServer
     monkeypatch.setattr(PC, "LookupServer", None)
     j = PJ.Journal(str(tmp_path), "t")
 
@@ -444,11 +448,33 @@ def test_env_flags_and_other_refusals(tmp_path, monkeypatch):
     monkeypatch.setenv("TPUMS_TABLE", "dict")
     assert make(parse=sharded).table_kind == "dict"
     monkeypatch.delenv("TPUMS_TABLE")
-    monkeypatch.setattr(PC, "LookupServer", None)
+    # a geo-replication follower (the replicator's status record beside
+    # the journal) starts, and answers st=1 with the record's staleness:
+    # caught up 2.5 s before the clock the record is read by
+    monkeypatch.setattr(PC, "LookupServer", real_server)
     with open(os.path.join(str(tmp_path), "t.georepl.json"), "w") as f:
-        f.write("{}")
-    with pytest.raises(ValueError, match="Geo-replication and edge"):
-        make()
+        json.dump({"kind": "georepl", "topic": "t", "caught_up": False,
+                   "caught_up_ts": 100.0, "ts": 100.0, "poll_s": 0.2}, f)
+    monkeypatch.setattr(PGeo, "time", types.SimpleNamespace(
+        time=lambda: 102.5))
+    PGeo._STALENESS_CACHE.clear()
+    j.append(["1,U,0.5;0.25"])
+    job = make(topk_index=False).start()
+    try:
+        assert job.wait_ready(30)
+        with socket.create_connection(("127.0.0.1", job.port), 10) as sock:
+            sock.sendall(b"GET\tALS_MODEL\t1-U\tst=1\nGET\tALS_MODEL\t1-U\n")
+            sock.shutdown(socket.SHUT_WR)
+            got = b""
+            while True:
+                chunk = sock.recv(4096)
+                if not chunk:
+                    break
+                got += chunk
+        assert got == b"V\t0.5;0.25\tst=2.500\nV\t0.5;0.25\n"
+    finally:
+        job.stop()
+    monkeypatch.setattr(PC, "LookupServer", None)
     backend = PC.make_backend("rocksdb", str(tmp_path / "store"))
     assert type(backend).__name__ == "NativeStateBackend"
     assert backend.kind == "rocksdb"
