@@ -256,7 +256,7 @@ Phases, each printing lines of its own (``[smoke] ...``):
             forensics (equal to the in-process report), ``watch --once``
             and ``profiler --fleet`` CLIs, each a process of its own, at
             once; (c) ``run_rehearsal(device="cuda")`` at the reference
-            CLI's defaults with 40,000 users at rank 50 (cut from
+            CLI's defaults with 20,000 users at rank 50 (cut from
             ML-20M's 138,493) at its own 1.5 s replica TTL, the watch
             loop, 8 push subscribers, a kill and the live autoscaler: the
             report valid, no unattributed error or page, every scheduled
@@ -283,8 +283,17 @@ Phases, each printing lines of its own (``[smoke] ...``):
             region SIGKILLed under eu's reads: eu promoted within 5 s,
             no read error, the forwarder's next rating applied in eu;
             (d) phase 21 (c)'s rehearsal with 2 proxies in front of its
-            group, its schedule cut from 12 s to 4 s, without profilers,
-            on (c)'s gates, and the proxy tier's fleet signals.
+            group, its schedule cut from 12 s to 4 s and its users to
+            10,000, without profilers,
+            on (c)'s gates, and the proxy tier's fleet signals, in its
+            process from before (a) to after (c) (its rehearsal from the
+            end of (a)'s lag read, which the reference's drill reads
+            alone).  Every process of the
+            phase runs a stall watchdog: each member's largest gap
+            between heartbeats, every stall of 0.3 s or more and every
+            late heartbeat with its threads' top frames; the phase fails
+            on a respawn but (d)'s kill's, a heartbeat taken as expired,
+            a client that found no live member of a shard, or a crash.
 
 Each kernel's ``ms`` is the median over calls timed one CUDA event pair
 each, the wrapper's host work included where it outlasts the device's;
@@ -5452,9 +5461,10 @@ OBS_SGD_RATINGS = 5_000  # SGD ratings published into (a)'s journal (seed 28)
 OBS_TOP_STACKS = 10
 # the reference CLI's rehearsal defaults at the served model's width; its
 # depth cut from ML-20M's 138,493 users (``_seed_journal`` writes as many
-# item rows) to 40,000, the one cut phase 21 takes: at 138,493, (c) alone
-# outlasts the phase's 150 s (``--obs-only 138493``; PERF.md, section 4)
-OBS_REHEARSAL = dict(users=40_000, dim=RANK, shards=2, replication=2,
+# item rows) to 20,000, the one cut phase 21 takes: at 138,493, (c) alone
+# outlasts the phase's 150 s (``--obs-only 138493``), and at 40,000 the
+# whole run does not fit its 1,200 s on a slow host (PERF.md, section 4)
+OBS_REHEARSAL = dict(users=20_000, dim=RANK, shards=2, replication=2,
                      base_qps=120.0, peak_qps=240.0, burst_qps=480.0,
                      duration_s=12.0, threads=4, autoscale="live", kill=True,
                      watch=True, subscribers=8)
@@ -5872,17 +5882,26 @@ REHEARSAL_OWN_ENV = ("TPUMS_REGISTRY_DIR", "TPUMS_HEARTBEAT_S",
                      "TPUMS_PROF", "TPUMS_PROF_IDLE")
 
 
-def rehearsal_in_process(kw, env, out_path) -> None:
+# what a supervisor does to its members
+SUPERVISION_KINDS = ("rehearsal_kill", "replica_heartbeat_expired",
+                     "replica_respawn")
+
+
+def rehearsal_in_process(kw, env, out_path, go=None) -> None:
     """``run_rehearsal(**kw)`` with the environment ``env``, in the process
-    it is called in (``run_isolated`` spawns one for it, as the
+    it is called in (``Isolated`` spawns one for it, as the
     rehearsal's CLI is a process of its own): the report, this process's
     own profile when its profiler runs, and the first and last of the
-    rehearsal's fleet scrapes, written to ``out_path`` as JSON."""
+    rehearsal's fleet scrapes, written to ``out_path`` as JSON.  With
+    ``go`` (a path) it waits for that file before it begins."""
     os.environ.clear()
     os.environ.update(env)
     from flink_ms_tpu_torch.obs import profiler as PP
     from flink_ms_tpu_torch.obs import scrape as obs_scrape
     from flink_ms_tpu_torch.obs.workload import run_rehearsal
+
+    while go is not None and not os.path.exists(go):
+        time.sleep(0.05)
 
     real_scrape, fleets = obs_scrape.scrape_fleet, []
 
@@ -5896,111 +5915,178 @@ def rehearsal_in_process(kw, env, out_path) -> None:
     rep = run_rehearsal(**kw)
     own = prof.snapshot() if prof is not None else None
     PP.stop_profiler()
+    # the supervisors' acts over the whole run, its start-up and teardown
+    # too (the report's timeline keeps those of the open loop's window)
+    from flink_ms_tpu_torch.obs import tracing
+
+    acts = [e for e in tracing.recent_events()
+            if e.get("kind") in SUPERVISION_KINDS]
     with open(out_path, "w") as f:
-        json.dump({"report": rep, "own": own,
+        json.dump({"report": rep, "own": own, "supervision": acts,
                    "fleets": fleets[:1] + fleets[-1:]}, f, default=str)
 
 
-def run_isolated(kw, env, timeout_s) -> dict:
-    """``rehearsal_in_process(kw, env)`` in a spawned process of its own ->
-    what it wrote.  A process that outlasts ``timeout_s`` is killed (its
-    members go with the run's ``stop_leftovers``)."""
-    import multiprocessing
-    import tempfile
+class Isolated:
+    """``rehearsal_in_process(kw, env)`` in a spawned process of its own,
+    started by the constructor; ``join`` -> what it wrote.  With
+    ``hold`` the rehearsal waits for the file ``go`` (``Rehearsal``
+    writes it).  A process that outlasts ``timeout_s`` from its start is
+    killed (its members go with the run's ``stop_leftovers``)."""
 
-    with tempfile.TemporaryDirectory() as d:
-        out = os.path.join(d, "rehearsal.json")
-        proc = multiprocessing.get_context("spawn").Process(
-            target=rehearsal_in_process, args=(kw, env, out))
-        proc.start()
-        proc.join(timeout_s)
-        if proc.is_alive():
-            proc.kill()
-            proc.join()
-            raise SmokeFailure(f"the rehearsal outlasted {timeout_s:.0f}s")
-        check(proc.exitcode == 0 and os.path.exists(out),
-              f"the rehearsal's process exited {proc.exitcode}")
-        with open(out) as f:
-            return json.load(f)
+    def __init__(self, kw, env, timeout_s, hold=False):
+        import multiprocessing
+        import tempfile
+
+        self.timeout_s = timeout_s
+        self.t0 = time.perf_counter()
+        self.dir = tempfile.mkdtemp(prefix="tpums_isolated_")
+        self.out = os.path.join(self.dir, "rehearsal.json")
+        self.go = os.path.join(self.dir, "go") if hold else None
+        self.proc = multiprocessing.get_context("spawn").Process(
+            target=rehearsal_in_process, args=(kw, env, self.out, self.go))
+        self.proc.start()
+
+    def join(self) -> dict:
+        try:
+            self.proc.join(max(self.timeout_s - (time.perf_counter()
+                                                 - self.t0), 0.0))
+            if self.proc.is_alive():
+                self.proc.kill()
+                self.proc.join()
+                raise SmokeFailure(
+                    f"the rehearsal outlasted {self.timeout_s:.0f}s")
+            check(self.proc.exitcode == 0 and os.path.exists(self.out),
+                  f"the rehearsal's process exited {self.proc.exitcode}")
+            with open(self.out) as f:
+                return json.load(f)
+        finally:
+            shutil.rmtree(self.dir, ignore_errors=True)
+
+
+class Rehearsal:
+    """(c) ``run_rehearsal`` at the served model's width, in a process of
+    its own as its CLI runs, started by the constructor and checked by
+    ``finish``: the reference CLI's defaults (``OBS_REHEARSAL``, at
+    ``users`` users when given), the watch loop on, push subscribers, a
+    kill and the live autoscaler, at the rehearsal's own liveness; the
+    card's memory at its peak, the members' merged wall-clock profile
+    (the last PROFILE of each, scraped through the run) and the rehearsal
+    process's own (its engine, clients and watch loop), with what the
+    threads of each wait on.  ``edge`` > 0 is phase 22 (d): as many
+    proxies in front of the group, every client through them, the fleet
+    signals of the proxy tier, and ``GEO_REHEARSAL_ENV`` (no profiler)
+    for ``OBS_REHEARSAL_ENV``; ``duration_s`` stands for the schedule's
+    12 s.  With ``hold`` its process starts at once but its rehearsal only
+    at ``release``."""
+
+    def __init__(self, torch, dev, card, users=None, edge=0,
+                 duration_s=None, hold=False):
+        import tempfile
+
+        self.torch, self.dev, self.card, self.edge = torch, dev, card, edge
+        self.label = "geo (d)" if edge else "obs (c)"
+        env = GEO_REHEARSAL_ENV if edge else OBS_REHEARSAL_ENV
+        kw = dict(OBS_REHEARSAL)
+        if users is not None:
+            kw["users"] = users
+        if edge:
+            kw["edge"] = edge
+        dur = kw.pop("duration_s")
+        if duration_s is not None:
+            dur = duration_s
+        kw.update(warm_s=dur * 2 / 12, ramp_s=dur * 3 / 12,
+                  burst_s=dur * 4 / 12, cool_s=dur * 3 / 12, seed=0,
+                  device=str(dev.type))
+        self.kw = kw
+        self.peak, self.stop, self.before_b = [0], threading.Event(), 0
+        self.members = {}
+        # the card's memory in use before the members start: this
+        # process's own tensors and cache from the earlier phases
+        if dev.type == "cuda":
+            free, total_b = torch.cuda.mem_get_info(dev)
+            self.peak[0] = self.before_b = total_b - free
+        self.sampler = None
+        if dev.type == "cuda":
+            self.sampler = threading.Thread(target=self._sample_memory,
+                                            daemon=True)
+            self.sampler.start()
+        # the rehearsal's own heartbeat and TTL, as its CLI makes them,
+        # and `env`; its registry is named here, so that this process
+        # reads its members' profiles while it runs
+        child_env = {k: v for k, v in os.environ.items()
+                     if k not in REHEARSAL_OWN_ENV}
+        child_env.update(env)
+        self.registry = tempfile.mkdtemp(prefix="tpums_rehearsal_registry_")
+        child_env["TPUMS_REGISTRY_DIR"] = self.registry
+        self.poller, self.saved = None, None
+        if child_env.get("TPUMS_PROF", "1") != "0":
+            self.saved = os.environ.get("TPUMS_REGISTRY_DIR")
+            os.environ["TPUMS_REGISTRY_DIR"] = self.registry
+            self.poller = threading.Thread(target=fleet_profile_poller,
+                                           args=(self.stop, self.members),
+                                           daemon=True)
+            self.poller.start()
+        self.t0 = time.perf_counter()
+        self.released = not hold
+        try:
+            self.run = Isolated(kw, child_env, 2 * FLEET_WAIT_S,
+                                **({"hold": True} if hold else {}))
+        except BaseException:
+            self._stop_threads()
+            raise
+
+    def _sample_memory(self):
+        while not self.stop.wait(0.25):
+            free, total_b = self.torch.cuda.mem_get_info(self.dev)
+            self.peak[0] = max(self.peak[0], total_b - free)
+
+    def _stop_threads(self):
+        self.stop.set()
+        if self.poller is not None:
+            self.poller.join(timeout=10)
+            if self.saved is None:
+                os.environ.pop("TPUMS_REGISTRY_DIR", None)
+            else:
+                os.environ["TPUMS_REGISTRY_DIR"] = self.saved
+        if self.sampler is not None:
+            self.sampler.join(timeout=10)
+        shutil.rmtree(self.registry, ignore_errors=True)
+
+    def release(self) -> None:
+        if not self.released:
+            open(self.run.go, "w").close()
+            self.released = True
+
+    def abandon(self) -> None:
+        """After a failure beside it: a rehearsal not yet released is
+        killed (it started no member); one released runs to its end (it
+        stops its own members) and is read for what it shows."""
+        if not self.released:
+            self.run.proc.kill()
+            self.run.proc.join()
+            shutil.rmtree(self.run.dir, ignore_errors=True)
+            self._stop_threads()
+            return
+        try:
+            self.finish()
+        except Exception as e:
+            log(f"{self.label} after the failure above: {e!r}")
+
+    def finish(self) -> dict:
+        try:
+            got = self.run.join()
+        finally:
+            seconds = time.perf_counter() - self.t0
+            self._stop_threads()
+        return rehearsal_checks(got, seconds, self.label, self.kw, self.dev,
+                                self.card, self.edge, self.members,
+                                self.peak, self.before_b, self.sampler)
 
 
 def obs_rehearsal(torch, dev, card, users=None, edge=0,
                   duration_s=None) -> dict:
-    """(c) ``run_rehearsal`` at the served model's width, in a process of
-    its own as its CLI runs: the reference CLI's defaults
-    (``OBS_REHEARSAL``, at ``users`` users when given), the watch loop on,
-    push subscribers, a kill and the live autoscaler, at the rehearsal's
-    own liveness; the card's memory at its peak, the members' merged
-    wall-clock profile (the last PROFILE of each, scraped through the
-    run) and the rehearsal process's own (its engine, clients and watch
-    loop), with what the threads of each wait on.  ``edge`` > 0 is phase
-    22 (d): as many proxies in front of the group, every client through
-    them, the fleet signals of the proxy tier, and ``GEO_REHEARSAL_ENV``
-    (no profiler) for ``OBS_REHEARSAL_ENV``; ``duration_s`` stands for
-    the schedule's 12 s."""
-    import tempfile
-
-    label = "geo (d)" if edge else "obs (c)"
-    env = GEO_REHEARSAL_ENV if edge else OBS_REHEARSAL_ENV
-    kw = dict(OBS_REHEARSAL)
-    if users is not None:
-        kw["users"] = users
-    if edge:
-        kw["edge"] = edge
-    dur = kw.pop("duration_s")
-    if duration_s is not None:
-        dur = duration_s
-    kw.update(warm_s=dur * 2 / 12, ramp_s=dur * 3 / 12, burst_s=dur * 4 / 12,
-              cool_s=dur * 3 / 12, seed=0, device=str(dev.type))
-    peak, stop, before_b = [0], threading.Event(), 0
-    members = {}
-    # the card's memory in use before the members start: this process's
-    # own tensors and cache from the earlier phases
-    if dev.type == "cuda":
-        free, total_b = torch.cuda.mem_get_info(dev)
-        peak[0] = before_b = total_b - free
-
-    def sample_memory():
-        while not stop.wait(0.25):
-            free, total_b = torch.cuda.mem_get_info(dev)
-            peak[0] = max(peak[0], total_b - free)
-
-    sampler = None
-    if dev.type == "cuda":
-        sampler = threading.Thread(target=sample_memory, daemon=True)
-        sampler.start()
-    # the rehearsal's own heartbeat and TTL, as its CLI makes them, and
-    # `env`; its registry is named here, so that this process reads its
-    # members' profiles while it runs
-    child_env = {k: v for k, v in os.environ.items()
-                 if k not in REHEARSAL_OWN_ENV}
-    child_env.update(env)
-    reg = tempfile.mkdtemp(prefix="tpums_rehearsal_registry_")
-    child_env["TPUMS_REGISTRY_DIR"] = reg
-    poller, saved = None, None
-    if child_env.get("TPUMS_PROF", "1") != "0":
-        saved = os.environ.get("TPUMS_REGISTRY_DIR")
-        os.environ["TPUMS_REGISTRY_DIR"] = reg
-        poller = threading.Thread(target=fleet_profile_poller,
-                                  args=(stop, members), daemon=True)
-        poller.start()
-    t0 = time.perf_counter()
-    try:
-        got = run_isolated(kw, child_env, 2 * FLEET_WAIT_S)
-    finally:
-        seconds = time.perf_counter() - t0
-        stop.set()
-        if poller is not None:
-            poller.join(timeout=10)
-            if saved is None:
-                os.environ.pop("TPUMS_REGISTRY_DIR", None)
-            else:
-                os.environ["TPUMS_REGISTRY_DIR"] = saved
-        if sampler is not None:
-            sampler.join(timeout=10)
-        shutil.rmtree(reg, ignore_errors=True)
-    return rehearsal_checks(got, seconds, label, kw, dev, card, edge,
-                            members, peak, before_b, sampler)
+    """(c) ``Rehearsal`` from its start to its checks."""
+    return Rehearsal(torch, dev, card, users, edge, duration_s).finish()
 
 
 def rehearsal_checks(got, seconds, label, kw, dev, card, edge, members,
@@ -6011,6 +6097,7 @@ def rehearsal_checks(got, seconds, label, kw, dev, card, edge, members,
     from flink_ms_tpu_torch.obs.slo import validate_report
 
     rep, own, fleets = got["report"], got["own"], got["fleets"]
+    acts = got.get("supervision", [])
     problems = validate_report(rep)
     wl, alerts, push = rep["workload"], rep["alerts"], rep["push"]
     det = alerts["detection"]
@@ -6023,6 +6110,9 @@ def rehearsal_checks(got, seconds, label, kw, dev, card, edge, members,
     for e in rep["timeline"]:
         kinds[e.get("kind")] = kinds.get(e.get("kind"), 0) + 1
     respawns = kinds.get("replica_respawn", 0)
+    t_first = min((e.get("ts", 0.0) for e in acts), default=0.0)
+    whole = {k: sum(1 for e in acts if e.get("kind") == k)
+             for k in SUPERVISION_KINDS}
     log(f"{label} rehearsal ({card}): {kw['users']} users x rank "
         f"{kw['dim']}, {kw['shards']} shards x {kw['replication']} "
         f"replicas ({dev.type})" + (f" behind {edge} proxies" if edge else "")
@@ -6108,7 +6198,17 @@ def rehearsal_checks(got, seconds, label, kw, dev, card, edge, members,
     check(wl["completed"] == wl["scheduled"],
           f"{wl['completed']} of {wl['scheduled']} scheduled ops ran")
     check(det["max_s"] is not None, f"the kill was not detected: {det}")
+    log(f"{label} supervision over the whole run, its start and teardown "
+        f"with it: {whole}" + "".join(
+            f"; {e['kind']} s{e.get('shard')}r{e.get('replica')} at "
+            f"+{e.get('ts', 0.0) - t_first:.2f} s" for e in acts))
     check(respawns <= 1, f"{respawns} respawns for one kill")
+    check(whole["replica_respawn"] <= whole["rehearsal_kill"]
+          and not whole["replica_heartbeat_expired"],
+          f"respawns beyond the kill's over the whole run: {whole}")
+    dead = [e.get("error") for e in rep["errors"]["samples"]
+            if any(m in str(e.get("error")) for m in TAKEN_FOR_DEAD)]
+    check(not dead, f"a live member taken for dead: {dead[:3]}")
     if edge:
         check(rep["meta"].get("edge") == edge and edge_sig,
               f"the edge arm did not run: {rep['meta']}, {edge_sig}")
@@ -6201,8 +6301,12 @@ GEO_HOME, GEO_FOLLOWER = "us", "eu"
 # the rehearsal CLI's liveness, which the reference's region drill runs at
 # (``scripts/chaos_kill.py``'s region mode): a home region whose leases
 # lapse must be promoted away from within 5 s
+# and the members' journal and update-plane polls: the rehearsal's (the
+# update plane's default); each poll is file operations, and at 5 ms six
+# members' polls loaded the host with (d) beside them (PERF.md, section 4)
+GEO_POLL_S = "0.02"
 GEO_ENV = {"TPUMS_HEARTBEAT_S": "0.25", "TPUMS_REPLICA_TTL_S": "1.5",
-           "TPUMS_UPDATE_POLL_S": "0.005"}
+           "TPUMS_UPDATE_POLL_S": GEO_POLL_S}
 GEO_TOPK_USERS = 256          # (a) single TOPK replies, eu against us
 GEO_KEYS = 256                # (b) keys and queries through the proxy
 GEO_SGD_S = 3.0               # (a) forwarded SGD load while the lag is read
@@ -6226,9 +6330,277 @@ GEO_REHEARSAL_EDGE = 2
 GEO_REHEARSAL_ENV = {"TPUMS_PROF": "0"}
 # its schedule cut from the CLI's 12 s to 4 s (the same phases at a third
 # of their lengths): through the proxies the open loop ran about 4 s behind
-# for each second of schedule on the card, so 12 s took 104.5 s
-# (PERF.md, section 4)
+# for each second of schedule on the card, so 12 s took 104.5 s; and its
+# users from 40,000 to 10,000, as it runs beside (a)-(c): at 40,000 it took
+# 136.8 s there on a slow host (PERF.md, section 4)
 GEO_REHEARSAL_DURATION_S = 4.0
+GEO_REHEARSAL_USERS = 10_000
+# every process of phase 22 runs this watchdog: a ``sitecustomize`` on the
+# PYTHONPATH of those it starts, armed by TPUMS_STALL_DIR, and the same
+# code in this process.  Its thread sleeps 20 ms at a time with a
+# faulthandler timer armed, so every thread's stack is dumped when it
+# cannot take the GIL back within STALL_S (another thread held it, or the
+# process got no CPU); the timer is off while it does anything else (a
+# dump that walks the threads while others come and go could crash the
+# process).  It wraps the registry's ``register`` once the process has
+# imported it: each heartbeat's start and end, kept in memory, give the
+# process's largest gap between heartbeats as a reader sees them (from
+# one heartbeat's stamp to the end of the next one's write), written to
+# its file when it grows; a heartbeat overdue by STALL_S, or one whose
+# write has taken as long, dumps every thread's stack under the GIL.
+STALL_S = 0.3
+STALL_WATCHDOG = r'''
+import atexit, faulthandler, os, sys, threading, time
+
+
+def watch_stalls(out_dir, stall_s=0.3, tick_s=0.02):
+    fd = os.open(os.path.join(out_dir, "stall-%d.txt" % os.getpid()),
+                 os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
+    was_enabled = faulthandler.is_enabled()
+    faulthandler.enable(file=fd, all_threads=True)   # a crash's stacks
+    done = threading.Event()
+    beat_s = float(os.environ.get("TPUMS_HEARTBEAT_S", "1"))
+    beats = {"start": None, "end": None, "last_stamp": None, "max": 0.0}
+
+    def say(text):
+        os.write(fd, text.encode("utf-8", "replace"))
+
+    def hook():
+        reg = sys.modules.get("flink_ms_tpu_torch.serve.registry")
+        real = getattr(reg, "register", None)
+        if real is None or getattr(reg.__spec__, "_initializing", False):
+            return False       # not imported yet, or importing now
+        if getattr(real, "watched", False):
+            return True
+
+        def register(job_id, *a, **k):
+            if k.get("ttl_s") is None:
+                return real(job_id, *a, **k)
+            if beats["start"] is None:
+                say("--- member %s\n" % job_id)
+            beats["start"] = time.time()
+            try:
+                return real(job_id, *a, **k)
+            finally:
+                end = time.time()
+                if beats["last_stamp"] is not None and \
+                        end - beats["last_stamp"] > beats["max"] + 0.05:
+                    beats["max"] = end - beats["last_stamp"]
+                    say("--- heartbeat gap %.3f s ending at %.3f\n"
+                        % (beats["max"], end))
+                beats["last_stamp"], beats["end"] = beats["start"], end
+
+        register.watched = True
+        reg.register = register
+        return True
+
+    def dog():
+        hooked, late = False, None
+        while not done.is_set():
+            faulthandler.dump_traceback_later(stall_s, file=fd)
+            t0 = time.monotonic()
+            time.sleep(tick_s)
+            waited = time.monotonic() - t0
+            faulthandler.cancel_dump_traceback_later()
+            if waited > stall_s:
+                say("--- stall %.3f s ending at %.3f\n"
+                    % (waited, time.time()))
+            hooked = hooked or hook()
+            start, end = beats["start"], beats["end"]
+            if start is None:
+                continue
+            now = time.time()
+            # overdue: a heartbeat's write that hangs, or no heartbeat
+            # begun in time after the last one's end
+            age = (now - start if end is None or end < start
+                   else now - end - beat_s)
+            if age >= stall_s and late is None:
+                late = age
+                say("--- heartbeat overdue %.3f s at %.3f\n" % (age, now))
+                faulthandler.dump_traceback(fd, all_threads=True)
+            elif age >= stall_s:
+                late = max(late, age)
+            elif late is not None:
+                say("--- heartbeat late %.3f s ending at %.3f\n"
+                    % (late, now))
+                late = None
+
+    def at_exit():
+        # the interpreter is ending: the timer goes first, and a crash
+        # after this line is one of the process's exit
+        done.set()
+        faulthandler.cancel_dump_traceback_later()
+        say("--- exit at %.3f\n" % time.time())
+
+    def stop():
+        atexit.unregister(at_exit)
+        done.set()
+        t.join(timeout=5)
+        if was_enabled:
+            faulthandler.enable(file=sys.__stderr__, all_threads=True)
+        else:
+            faulthandler.disable()
+        os.close(fd)
+
+    atexit.register(at_exit)
+    t = threading.Thread(target=dog, name="stall-watchdog", daemon=True)
+    t.start()
+    return stop
+
+
+if os.environ.get("TPUMS_STALL_DIR"):
+    watch_stalls(os.environ["TPUMS_STALL_DIR"])
+'''
+
+
+class StallWatch:
+    """Phase 22's watch on its processes, from ``start`` to ``stop``: the
+    ``STALL_WATCHDOG`` in every process started meanwhile (a
+    ``sitecustomize`` on ``PYTHONPATH``, ``TPUMS_STALL_DIR``) and in this
+    one.  ``report`` reads what the watchdogs wrote: each member's largest
+    gap between heartbeats and its processes (one more than its
+    respawns), and every stall and late heartbeat with the top frames of
+    its dump."""
+
+    def __init__(self, work):
+        self.dir = os.path.join(work, "stalls")
+        self.site = os.path.join(work, "stall-site")
+        self.roles = {os.getpid(): "smoke"}
+        self.notes = {}        # member -> why its gap is not a fault
+        self._saved, self._unwatch = {}, None
+        self.t0 = time.time()
+
+    def start(self):
+        os.makedirs(self.dir, exist_ok=True)
+        os.makedirs(self.site, exist_ok=True)
+        with open(os.path.join(self.site, "sitecustomize.py"), "w") as f:
+            f.write(STALL_WATCHDOG)
+        for k in ("PYTHONPATH", "TPUMS_STALL_DIR"):
+            self._saved[k] = os.environ.get(k)
+        os.environ["PYTHONPATH"] = os.pathsep.join(
+            [self.site] + [p for p in [self._saved["PYTHONPATH"]] if p])
+        os.environ["TPUMS_STALL_DIR"] = self.dir
+        ns = {}
+        exec(compile(STALL_WATCHDOG, "stall_watchdog", "exec"), ns)
+        self._unwatch = ns["watch_stalls"](self.dir, STALL_S)
+        return self
+
+    def stop(self):
+        if self._unwatch is not None:
+            self._unwatch()
+            self._unwatch = None
+        for k, v in self._saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    def read(self):
+        """-> ({member: [(pid, largest gap s, its end's wall time)]},
+        [(wall time of its end, seconds, pid, kind, top frames)]): every
+        process that heartbeat a registry entry, and every stall, late
+        heartbeat and crash the watchdogs wrote."""
+        import glob
+        import re
+
+        def tops(dump):
+            out = {}
+            for frames in dump:
+                if not frames or "in dog" in frames[0]:
+                    continue
+                # an import's frames: the first frame outside the import
+                # machinery says whose import it is
+                own = [f for f in frames if "<frozen " not in f]
+                top = short_frame(frames[0]) + (
+                    f" <- {short_frame(own[0])}"
+                    if own and own[0] != frames[0] else "")
+                out[top] = out.get(top, 0) + 1
+            return ", ".join(f"{n}x {t}" if n > 1 else t
+                             for t, n in out.items()) or "no dump"
+
+        members, events = {}, []
+        for path in sorted(glob.glob(os.path.join(self.dir, "stall-*.txt"))):
+            pid = int(re.findall(r"stall-(\d+)", path)[0])
+            with open(path, errors="replace") as f:
+                lines = f.read().splitlines()
+            member, gap, exiting = None, (0.0, None), False
+            timeout, overdue, target, crash = [], [], None, None
+            for line in lines:
+                nums = re.findall(r"[0-9]+\.[0-9]+", line)
+                if line.startswith("--- member "):
+                    member = line.split(" ", 2)[2]
+                    self.roles.setdefault(pid, member)
+                elif line.startswith("--- heartbeat gap ") and \
+                        len(nums) == 2:
+                    gap = (float(nums[0]), float(nums[1]))
+                elif line.startswith("--- exit at "):
+                    exiting = True
+                elif line.startswith("Fatal Python error"):
+                    crash = (line, [], exiting)
+                    target = crash[1]
+                elif line.startswith("Timeout ("):
+                    timeout = target = []
+                elif line.startswith("--- heartbeat overdue "):
+                    overdue = target = []
+                elif line.startswith(("Thread 0x", "Current thread 0x")):
+                    if target is not None:
+                        target.append([])
+                elif line.startswith("  File ") and target:
+                    target[-1].append(line.strip())
+                elif line.startswith("--- stall ") and len(nums) == 2:
+                    events.append((float(nums[1]), float(nums[0]), pid,
+                                   "stall", tops(timeout)))
+                    timeout, target = [], None
+                elif line.startswith("--- heartbeat late ") and \
+                        len(nums) == 2:
+                    events.append((float(nums[1]), float(nums[0]), pid,
+                                   "heartbeat late", tops(overdue)))
+                    overdue, target = [], None
+            if crash is not None:
+                events.append((os.path.getmtime(path), 0.0, pid,
+                               ("crash at its exit" if crash[2] else "crash")
+                               + f" ({crash[0]})", tops(crash[1])))
+            if member is not None:
+                members.setdefault(member, []).append((pid,) + gap)
+        return members, sorted(events)
+
+    def report(self, label, ttl_s) -> dict:
+        members, events = self.read()
+        gaps = {m: max(g for _, g, _ in ps) for m, ps in members.items()}
+        log(f"{label} heartbeats: {len(members)} members, each one's largest "
+            "gap between registry heartbeats as a reader sees them (s; its "
+            "processes past the first are respawns): " + "; ".join(
+                f"{m} {gaps[m]:.3f}"
+                + (f" ({self.notes[m]})" if m in self.notes else "")
+                + (f", {len(ps) - 1} respawn" if len(ps) > 1 else "")
+                for m, ps in sorted(members.items())))
+        worst = max(((m, p) for m, ps in members.items() for p in ps),
+                    key=lambda mp: mp[1][1], default=None)
+        if worst is not None and worst[1][2] is not None:
+            log(f"{label} the largest gap: {worst[1][1]:.3f} s of the "
+                f"{ttl_s} s TTL ({worst[0]}, ending "
+                f"+{worst[1][2] - self.t0:.1f} s into the phase)")
+        log(f"{label} stalls of {STALL_S} s or more and late heartbeats: "
+            f"{len(events)} in {len({e[2] for e in events})} processes")
+        for t, sec, pid, kind, frames in events:
+            role = self.roles.get(pid, "a process of the phase")
+            log(f"{label} {kind} {sec:.3f} s in {pid} ({role}"
+                + (f", {self.notes[role]}" if role in self.notes else "")
+                + f"), ending +{t - self.t0:.1f} s: {frames}")
+        # a crash once the interpreter is ending is printed, not held
+        # against the phase: the process was done serving
+        return dict(heartbeat_gaps=gaps, stalls=len(events),
+                    crashes=[e for e in events if e[3].startswith("crash (")])
+
+
+def short_frame(line) -> str:
+    """'File "/a/b/c.py", line 9, in f' -> 'c.py:9 f'."""
+    import re
+
+    m = re.match(r'File "([^"]+)", line (\d+),? in (\S+)', line)
+    if not m:
+        return line
+    return f"{os.path.basename(m.group(1))}:{m.group(2)} {m.group(3)}"
 
 
 class GeoRun(FleetRun):
@@ -6255,6 +6627,7 @@ class GeoRun(FleetRun):
         self.region = {}
         self.items = [i for i in self.item_ids if i != "MEAN"]
         self.edge_eps, self.eu_eps = [], []
+        self.sigstopped = None
 
     def close(self):
         from flink_ms_tpu_torch.serve.edge import stop_edge_procs
@@ -6300,7 +6673,7 @@ class GeoRun(FleetRun):
                 port_dir=self.path(f"ports-{region}"),
                 ready_timeout_s=FLEET_WAIT_S, device=self.dev_name,
                 extra_args=["--updatePlane", "true",
-                            "--pollInterval", "0.005"])
+                            "--pollInterval", GEO_POLL_S])
             self.ctls.append(ctl)
             self.region[region] = ctl
             try:
@@ -6766,6 +7139,7 @@ def geo_edge(g, card) -> dict:
     load = EdgeLoad(eps, g.base["keys"]).start()
     time.sleep(GEO_LOAD_S)
     stopped, _ = g.member(GEO_HOME, 0, 0)
+    g.sigstopped = g.region[GEO_HOME].active_supervisor.job_id(0, 0)
     stopped.send_signal(signal.SIGSTOP)
     time.sleep(GEO_STOP_S)
     stopped.send_signal(signal.SIGCONT)
@@ -6978,11 +7352,39 @@ def geo_failover(g, card) -> dict:
     return dict(geo_promote_s=promote_s, geo_c_s=time.perf_counter() - t0)
 
 
+# what a client says when it finds no live member for a shard: a live
+# member taken for dead (its heartbeats lapsed past the TTL)
+TAKEN_FOR_DEAD = ("no live replicas", "no endpoints")
+
+
+def geo_supervision(g) -> dict:
+    """(a)-(c)'s supervisors: their respawns, and each member they took
+    for dead -> {supervisor: respawns}."""
+    respawns, expired = {}, []
+    for ctl in g.ctls:
+        for gen, sup in ctl.supervisors.items():
+            respawns[f"{ctl.group} gen {gen}"] = sup.respawns
+            expired += [f"{ctl.group} s{e['shard']}r{e['replica']}"
+                        for e in sup.events
+                        if e.get("action") == "heartbeat_expired"]
+    log(f"geo (a)-(c) respawns by supervisor: {respawns}; heartbeats "
+        f"taken as expired: {expired or 'none'} (no kill in (a)-(c) is "
+        "respawned: (b) stops a replica inside its TTL, (c) stops the "
+        "supervisors first)")
+    return respawns
+
+
 def geo_phase(torch, base, dev, card) -> dict:
     """Phase 22: geo-replication and the edge proxy at the served model's
     width, two regions of ``--device`` members on this card: (a) the
-    follower journal and region, (b) the edge tier, (c) failover; then
-    (d) the rehearsal of phase 21 (c) with its edge arm."""
+    follower journal and region, (b) the edge tier, (c) failover, with
+    (d) the rehearsal of phase 21 (c) with its edge arm in its process
+    beside them: the process started before (a), its rehearsal from the
+    end of (a)'s lag read, joined after (c).  Every process of the
+    phase runs the stall watchdog (``StallWatch``); the phase prints each
+    member's largest gap between heartbeats and every stall, and fails on
+    a respawn but (d)'s kill's and on a client that found no live member
+    of a shard."""
     import tempfile
 
     t_phase = time.perf_counter()
@@ -6992,24 +7394,59 @@ def geo_phase(torch, base, dev, card) -> dict:
     with tempfile.TemporaryDirectory() as work:
         os.environ.update(GEO_ENV)
         os.environ["TPUMS_REGISTRY_DIR"] = os.path.join(work, "registry")
-        g = None
+        os.makedirs(os.environ["TPUMS_REGISTRY_DIR"])
+        watch = StallWatch(work)
+        g = reh = None
         try:
+            watch.start()
+            # (d)'s process starts now and its rehearsal once (a) has
+            # read the replication lag: the lag's bound is the region
+            # drill's, which the reference runs alone (chaos_kill.py)
+            reh = Rehearsal(torch, dev, card, users=GEO_REHEARSAL_USERS,
+                            edge=GEO_REHEARSAL_EDGE,
+                            duration_s=GEO_REHEARSAL_DURATION_S, hold=True)
+            watch.roles[reh.run.proc.pid] = "(d) rehearsal"
             g = GeoRun(work, base, dev)
-            out.update(geo_regions(g, card))
-            out.update(geo_edge_surface(g, card))
-            out.update(geo_replication(g, card))
-            out.update(geo_edge(g, card))
-            out.update(geo_failover(g, card))
+            try:
+                out.update(geo_regions(g, card))
+                watch.roles.update({p.pid: "proxy" for p in g.edge_procs})
+                out.update(geo_edge_surface(g, card))
+                out.update(geo_replication(g, card))
+                reh.release()
+                out.update(geo_edge(g, card))
+                if g.sigstopped is not None:
+                    watch.notes[g.sigstopped] = (
+                        f"SIGSTOPped {GEO_STOP_S} s in (b)")
+                out.update(geo_failover(g, card))
+            except Exception as e:
+                dead = [m for m in TAKEN_FOR_DEAD if m in str(e)]
+                check(not dead, f"a live member taken for dead: {e}")
+                raise
+            finally:
+                respawns = geo_supervision(g)
+            check(not any(respawns.values()),
+                  f"(a)-(c) respawned members: {respawns}")
+            g.close()
+            g = None
+            t_d = time.perf_counter()
+            r, reh = reh, None
+            out.update(r.finish())
+            log(f"geo (d) joined {time.perf_counter() - t_d:.1f}s after "
+                "(c) ended")
         finally:
             if g is not None:
                 g.close()
+            if reh is not None:
+                reh.abandon()
+            watch.stop()
+            out.update(watch.report("geo", os.environ["TPUMS_REPLICA_TTL_S"]))
             for k, v in prior.items():
                 if v is None:
                     os.environ.pop(k, None)
                 else:
                     os.environ[k] = v
-    out.update(obs_rehearsal(torch, dev, card, edge=GEO_REHEARSAL_EDGE,
-                             duration_s=GEO_REHEARSAL_DURATION_S))
+    check(not out["crashes"], f"a process of the phase crashed: "
+          f"{out['crashes']}")
     log(f"geo phase: {time.perf_counter() - t_phase:.1f}s")
     return out
 

@@ -78,6 +78,7 @@ opts out).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import errno
 import json
@@ -89,6 +90,33 @@ import time
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 from .table import _fnv1a, _fnv1a_batch
+
+# The processes of one host write back their arenas one at a time: a
+# member's checkpoint flush or snapshot copy syncs hundreds of MB, and
+# several members synced at once (a fleet reaches ready, and its first
+# checkpoint, together) held every small file write on the host, a
+# registry heartbeat among them, for up to 0.85 s; taken in turns, for at
+# most 0.12 s, in about the same total time (10 writers of 275 MB on an
+# H100 host, ``scripts/writeback_stall.py``).  The lock is a file in the
+# temp dir, which the processes of one host share.
+WRITEBACK_LOCK = "tpums-arena-writeback.lock"
+
+
+@contextlib.contextmanager
+def host_writeback():
+    """Hold the host's arena write-back turn (an ``flock``; released when
+    the block ends, or by the kernel when its holder dies).  Taken before
+    a table's own lock, never inside it."""
+    import fcntl
+    import tempfile
+
+    fd = os.open(os.path.join(tempfile.gettempdir(), WRITEBACK_LOCK),
+                 os.O_RDWR | os.O_CREAT, 0o644)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        yield
+    finally:
+        os.close(fd)
 
 try:  # SIMD newline guard for the columnar blobs (bytes.count restarts
     # memchr at every match — ~1 GB/s on 100-byte rows; the vectorized
@@ -928,7 +956,7 @@ class ArenaModelTable:
         return self.arena.items()
 
     def flush(self) -> None:
-        with self._lock:
+        with host_writeback(), self._lock:
             self.arena.flush()
 
     # -- write path + growth ---------------------------------------------
@@ -992,39 +1020,40 @@ class ArenaModelTable:
         table is upsert-only LWW, so both converge to the same head
         state (torn/short decodes are caught structurally and fall down
         the bootstrap chain)."""
-        with self._lock:
-            if self.publish_mode == "link":
-                copied = self.arena.link_to(dst_path)
-            else:
-                # no msync first: the copy reads the same inode through
-                # the page cache (always coherent with our mmap stores);
-                # it is the DESTINATION that must be durable, and its
-                # fsync happens below, OUTSIDE the lock — writers stall
-                # only for the in-cache copy, not the disk flush
-                copied = self.arena.sparse_copy_to(dst_path)
-            geom = {
-                "file": os.path.basename(dst_path),
-                "size": HEADER_SIZE + self.arena.capacity
-                * self.arena.slot_size,
-                "bytes_copied": copied,
-                "publish": self.publish_mode,
-                "rows": self.arena.count,
-                "capacity": self.arena.capacity,
-                "stride": self.arena.stride,
-                "key_cap": self.arena.key_cap,
-                "generation": self.arena.generation,
-            }
-        if self.publish_mode != "link":
-            # link mode skips the data fsync: flushing would msync the
-            # LIVE mapping, and the journal — not the artifact — is the
-            # durability source there (a short decode after a crash is
-            # detected and falls back to replay)
-            fd = os.open(dst_path, os.O_RDONLY)
-            try:
-                os.fsync(fd)
-            finally:
-                os.close(fd)
-        return geom
+        with host_writeback():
+            with self._lock:
+                if self.publish_mode == "link":
+                    copied = self.arena.link_to(dst_path)
+                else:
+                    # no msync first: the copy reads the same inode through
+                    # the page cache (always coherent with our mmap stores);
+                    # it is the DESTINATION that must be durable, and its
+                    # fsync happens below, OUTSIDE the lock — writers stall
+                    # only for the in-cache copy, not the disk flush
+                    copied = self.arena.sparse_copy_to(dst_path)
+                geom = {
+                    "file": os.path.basename(dst_path),
+                    "size": HEADER_SIZE + self.arena.capacity
+                    * self.arena.slot_size,
+                    "bytes_copied": copied,
+                    "publish": self.publish_mode,
+                    "rows": self.arena.count,
+                    "capacity": self.arena.capacity,
+                    "stride": self.arena.stride,
+                    "key_cap": self.arena.key_cap,
+                    "generation": self.arena.generation,
+                }
+            if self.publish_mode != "link":
+                # link mode skips the data fsync: flushing would msync the
+                # LIVE mapping, and the journal — not the artifact — is the
+                # durability source there (a short decode after a crash is
+                # detected and falls back to replay)
+                fd = os.open(dst_path, os.O_RDONLY)
+                try:
+                    os.fsync(fd)
+                finally:
+                    os.close(fd)
+            return geom
 
     # -- metrics ----------------------------------------------------------
 
@@ -1108,7 +1137,7 @@ class ArenaModelTable:
         return int(manifest["offset"])
 
     def close(self) -> None:
-        with self._lock:
+        with host_writeback(), self._lock:
             if self._writer_h is not None:
                 self._writer_lib.tpums_arena_writer_close(self._writer_h)
                 self._writer_h = None

@@ -113,6 +113,19 @@ def _load_json_retry(path: str, strict: bool = False):
     return None
 
 
+def _read_entry(path: str):
+    """-> (the entry file's JSON or None, the clock read BEFORE the file
+    was opened).  A heartbeat is judged against the time its file was
+    opened, never a later one: a read that waits (every file operation on
+    the host held up while other processes sync large files, or the
+    reader descheduled between the read and its clock) cannot age an
+    entry whose writer keeps it fresh, and so cannot reap a live member's
+    entry.  A lapsed heartbeat is seen as late as the read's own wait at
+    most."""
+    now = time.time()
+    return _load_json_retry(path), now
+
+
 def _entry_path(job_id: str) -> str:
     # jobIds are caller-chosen strings: sanitize for the filesystem, and
     # append a short digest of the RAW id so distinct ids can never map to
@@ -198,7 +211,7 @@ def _reap_if_unchanged(path: str, entry: dict) -> Optional[dict]:
     re-registered the job at this path since our read — only unlink if the
     file still carries the same (pid, heartbeat) we judged dead.  Returns
     the FRESH entry when one replaced the dead one, else None."""
-    current = _load_json_retry(path)
+    current, now = _read_entry(path)
     if current is None:
         return None
     if (
@@ -212,7 +225,7 @@ def _reap_if_unchanged(path: str, entry: dict) -> Optional[dict]:
             pass
         return None
     if isinstance(current, dict) and "port" in current \
-            and not entry_is_dead(current):
+            and not entry_is_dead(current, now):
         return current
     return None
 
@@ -228,10 +241,10 @@ def resolve(job_id: str) -> Optional[dict]:
     recorded elsewhere (shared-FS registry) are never pid-checked: the pid
     is meaningless across machines; their TTL still applies."""
     path = _entry_path(job_id)
-    entry = _load_json_retry(path)
+    entry, now = _read_entry(path)
     if not isinstance(entry, dict) or "port" not in entry:
         return None
-    if entry_is_dead(entry):
+    if entry_is_dead(entry, now):
         return _reap_if_unchanged(path, entry)
     return entry
 
@@ -249,10 +262,10 @@ def list_jobs(gc: bool = True) -> List[dict]:
         if not name.endswith(".json"):
             continue
         path = os.path.join(registry_dir(), name)
-        entry = _load_json_retry(path)
+        entry, now = _read_entry(path)
         if not isinstance(entry, dict) or "port" not in entry:
             continue
-        if entry_is_dead(entry):
+        if entry_is_dead(entry, now):
             if gc:
                 fresh = _reap_if_unchanged(path, entry)
                 if fresh is not None:
@@ -368,12 +381,13 @@ def gc_tenant_entries(tenant: str) -> int:
         if not name.endswith(".json"):
             continue
         path = os.path.join(registry_dir(), name)
-        entry = _load_json_retry(path)
+        entry, now = _read_entry(path)
         if not isinstance(entry, dict) or "port" not in entry:
             continue
         if _entry_tenant(entry) != tenant:
             continue
-        if entry_is_dead(entry) and _reap_if_unchanged(path, entry) is None:
+        if entry_is_dead(entry, now) and \
+                _reap_if_unchanged(path, entry) is None:
             reaped += 1
     return reaped
 
@@ -501,12 +515,13 @@ def gc_region_entries(region: str) -> int:
         if not name.endswith(".json"):
             continue
         path = os.path.join(registry_dir(), name)
-        entry = _load_json_retry(path)
+        entry, now = _read_entry(path)
         if not isinstance(entry, dict) or "port" not in entry:
             continue
         if _entry_region(entry) != region:
             continue
-        if entry_is_dead(entry) and _reap_if_unchanged(path, entry) is None:
+        if entry_is_dead(entry, now) and \
+                _reap_if_unchanged(path, entry) is None:
             reaped += 1
     return reaped
 
@@ -707,13 +722,14 @@ def gc_generation_entries(group: str, active_gen: int) -> int:
         if not name.endswith(".json"):
             continue
         path = os.path.join(registry_dir(), name)
-        entry = _load_json_retry(path)
+        entry, now = _read_entry(path)
         if not isinstance(entry, dict) or "port" not in entry:
             continue
         gen = generation_of(entry, group)
         if gen is None or gen >= active_gen:
             continue
-        if entry_is_dead(entry) and _reap_if_unchanged(path, entry) is None:
+        if entry_is_dead(entry, now) and \
+                _reap_if_unchanged(path, entry) is None:
             reaped += 1
     return reaped
 

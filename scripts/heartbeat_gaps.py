@@ -24,9 +24,11 @@ it is reported apart.
 ``--root`` runs the package of another checkout (an unpacked ``git
 archive`` of an earlier commit) for a comparison in one call.  The
 reference package runs on the CPU only.  ``--stallDumps DIR`` starts, in
-every member, a watchdog thread that re-arms ``faulthandler`` every 20 ms:
-when the member's threads cannot run for 0.3 s, every thread's stack is
-written to ``DIR/stall-<pid>.txt``, showing what held them back.
+every member, ``chip_smoke.py``'s stall watchdog (a ``sitecustomize`` on
+``PYTHONPATH``, armed by ``TPUMS_STALL_DIR``): when the member's threads
+cannot run for 0.3 s, or its heartbeat is 0.3 s overdue, every thread's
+stack is written to ``DIR/stall-<pid>.txt``, showing what held them back,
+with the member's largest gap between heartbeats.
 ``--checkPointInterval MS`` sets the members' checkpoint interval (the
 job's default is 60 s), so that their checkpoints, each a flush of the
 member's arena, fall inside the load.
@@ -42,22 +44,19 @@ import tempfile
 import threading
 import time
 
-_WATCHDOG = '''import faulthandler, os, sys, threading, time
-_d = os.environ.get("TPUMS_STALL_DIR")
-if _d:
-    _f = open(os.path.join(_d, "stall-%d.txt" % os.getpid()), "w")
-    def _dog():
-        last = time.monotonic()
-        while True:
-            faulthandler.dump_traceback_later(0.3, file=_f)
-            time.sleep(0.02)
-            now = time.monotonic()
-            if now - last > 0.3:
-                _f.write("--- stall %.3fs\\n" % (now - last))
-                _f.flush()
-            last = now
-    threading.Thread(target=_dog, daemon=True).start()
-'''
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def stall_watchdog() -> str:
+    """``chip_smoke.STALL_WATCHDOG`` of this checkout (phase 22 runs the
+    same watchdog in every process)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_watchdog", os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.STALL_WATCHDOG
 
 
 def main(argv=None) -> int:
@@ -87,7 +86,7 @@ def main(argv=None) -> int:
         site = os.path.join(base, "site")
         os.makedirs(site)
         with open(os.path.join(site, "sitecustomize.py"), "w") as f:
-            f.write(_WATCHDOG)
+            f.write(stall_watchdog())
         os.makedirs(args.stallDumps, exist_ok=True)
         os.environ["TPUMS_STALL_DIR"] = os.path.abspath(args.stallDumps)
         os.environ["PYTHONPATH"] = site + os.pathsep + os.environ[

@@ -6,6 +6,8 @@ check failing on a changed follower; and the script's argument parsing.
 (Phase 22 has a file of its own so that the suite's file-by-file
 scheduling runs it beside the rehearsals of the other phases.)"""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -27,6 +29,7 @@ def small_geo(monkeypatch):
                         ("GEO_TOPK_USERS", 16), ("GEO_KEYS", 32),
                         ("GEO_SGD_S", 1.0), ("GEO_PUSH_SUBS", 3),
                         ("GEO_LOAD_S", 1.0), ("GEO_PROMOTE_S", 20.0),
+                        ("GEO_REHEARSAL_USERS", 300),
                         ("card_line", lambda: "a CPU, no power limit")):
         monkeypatch.setattr(chip_smoke, name, value)
     monkeypatch.setattr(chip_smoke, "GEO_ENV", dict(
@@ -41,9 +44,48 @@ def small_geo(monkeypatch):
         autoscale="dry"))
 
 
-def test_geo_only_rehearsal(small_geo, capsys):
+def _record_order(monkeypatch):
+    """Record when (d)'s process starts, is released and is joined, and
+    when (a), its lag read and (c) begin and end."""
+    order = []
+
+    class Recorded(chip_smoke.Rehearsal):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            order.append("(d) started")
+
+        def release(self):
+            order.append("(d) released")
+            return super().release()
+
+        def finish(self):
+            order.append("(d) joined")
+            return super().finish()
+
+    monkeypatch.setattr(chip_smoke, "Rehearsal", Recorded)
+    for name, mark in (("geo_regions", "(a)"),
+                       ("geo_replication", "(a)'s lag"),
+                       ("geo_failover", "(c)")):
+        real = getattr(chip_smoke, name)
+
+        def wrapped(g, card, real=real, mark=mark):
+            order.append(f"{mark} began")
+            try:
+                return real(g, card)
+            finally:
+                order.append(f"{mark} ended")
+
+        monkeypatch.setattr(chip_smoke, name, wrapped)
+    return order
+
+
+def test_geo_only_rehearsal(small_geo, capsys, monkeypatch):
     """``--geo-only`` on the CPU: phase 22's (a)-(d) pass their checks and
-    print their lines, and the script leaves no process of its own."""
+    print their lines, (d)'s process starts before (a), its rehearsal
+    once (a) has read the lag, and is joined after (c), every member's
+    largest heartbeat gap and every stall are
+    printed, and the script leaves no process of its own."""
+    order = _record_order(monkeypatch)
     assert chip_smoke.geo_only(torch, torch.device("cpu")) == 0
     out = capsys.readouterr().out
     for line in ("geo (a) replication (a CPU, no power limit)",
@@ -53,11 +95,54 @@ def test_geo_only_rehearsal(small_geo, capsys):
                  "geo (b) coalescing", "geo (b) proxy SIGKILL",
                  "geo (b) eu proxy", "geo (b) latency",
                  "geo (c) failover", "geo (d) rehearsal",
-                 "geo (d) the proxy tier's fleet signals", "geo phase:"):
+                 "geo (d) the proxy tier's fleet signals",
+                 "geo (a)-(c) respawns by supervisor",
+                 "geo heartbeats: 15 members", "geo the largest gap",
+                 "geo stalls of 0.3 s or more", "geo phase:"):
         assert line in out, line
+    assert order == ["(d) started", "(a) began", "(a) ended",
+                     "(a)'s lag began", "(a)'s lag ended", "(d) released",
+                     "(c) began", "(c) ended", "(d) joined"]
+    # every member of both regions, the proxies, and (d)'s members
+    for job in ("us@@geo@g1:s0r0", "us@@geo@g1:s1r1", "eu@@geo@g1:s1r0",
+                "rehearsal@g1:s0r0", "edge/us@@geo/proxy-1"):
+        assert f" {job} " in out, job
+    assert "(SIGSTOPped 0.8 s in (b))" in out
     assert "byte for byte" in out
     assert "missed 0, duplicates 0" in out
     assert out.strip().splitlines()[-1] == "a CPU, no power limit"
+    assert chip_smoke.own_processes(helpers=False) == {}
+
+
+def test_an_extra_respawn_fails_phase_22(small_geo, capsys, monkeypatch):
+    """A us member SIGKILLed after (b)'s surface check and respawned by
+    its supervisor: every other check of (a)-(c) passes, and the phase
+    fails on the respawn; (d) still ends by itself and its members with
+    it, and the heartbeat report still prints."""
+    import signal
+    import time
+
+    real = chip_smoke.geo_edge_surface
+
+    def kill_one(g, card):
+        got = real(g, card)
+        sup = g.region[chip_smoke.GEO_HOME].active_supervisor
+        sup.procs[(1, 1)].send_signal(signal.SIGKILL)
+        deadline = time.time() + 60
+        while sup.respawns == 0 and time.time() < deadline:
+            time.sleep(0.05)
+        assert sup.respawns == 1
+        assert sup.wait_all_ready(timeout_s=60)
+        return got
+
+    monkeypatch.setattr(chip_smoke, "geo_edge_surface", kill_one)
+    with pytest.raises(chip_smoke.SmokeFailure,
+                       match=r"\(a\)-\(c\) respawned members: .*'us@@geo "
+                             r"gen 1': 1"):
+        chip_smoke.geo_only(torch, torch.device("cpu"))
+    out = capsys.readouterr().out
+    assert "geo (c) failover" in out and "geo heartbeats:" in out
+    assert re.search(r" us@@geo@g1:s1r1 [0-9.]+, 1 respawn(;|\n)", out)
     assert chip_smoke.own_processes(helpers=False) == {}
 
 
@@ -130,3 +215,112 @@ def test_seeded_rows_are_the_served_shape(monkeypatch):
     assert len(rows[0].split(",")[2].split(";")) == chip_smoke.RANK
     assert rows == chip_smoke.seeded_published()
     np.testing.assert_equal(len({r.split(",")[0] for r in rows[:30]}), 30)
+
+
+def test_a_failure_before_the_lag_read_stops_the_held_rehearsal(
+        small_geo, capsys, monkeypatch):
+    """(a) failing before it has read the lag: (d)'s process, still held,
+    is stopped before it starts a member, and nothing of the phase is
+    left."""
+
+    def fail(g, card):
+        raise chip_smoke.SmokeFailure("(b) a surface check failed here")
+
+    monkeypatch.setattr(chip_smoke, "geo_edge_surface", fail)
+    with pytest.raises(chip_smoke.SmokeFailure,
+                       match="a surface check failed here"):
+        chip_smoke.geo_only(torch, torch.device("cpu"))
+    out = capsys.readouterr().out
+    assert "geo (d) rehearsal" not in out and "rehearsal@g1" not in out
+    assert "geo heartbeats:" in out
+    assert chip_smoke.own_processes(helpers=False) == {}
+
+
+def test_stall_watch_reads_gaps_stalls_and_late_heartbeats(tmp_path):
+    """The watchdog, in a process of its own that heartbeats a registry
+    entry: a pause of 1 s between heartbeats is the member's largest gap
+    and a late heartbeat, dumped; a C call that keeps the GIL 0.6 s is a
+    stall, dumped with its thread's frames; ``StallWatch`` reads them, and
+    the watchdog stops."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = f"""
+import ctypes, sys, time
+sys.path.insert(0, {root!r})
+import chip_smoke
+ns = {{}}
+exec(chip_smoke.STALL_WATCHDOG, ns)
+stop = ns["watch_stalls"]({str(tmp_path / "stalls")!r}, 0.3)
+from flink_ms_tpu_torch.serve import registry
+
+def beat():
+    registry.register("g@g1:s0r0", "127.0.0.1", 1, "S", replica_of="g",
+                      replica=0, ready=True, ttl_s=1.5)
+
+def held_gil():
+    ctypes.PyDLL(None).usleep(600000)
+
+for _ in range(8):
+    beat()
+    time.sleep(0.25)
+time.sleep(1.0)
+for _ in range(4):
+    beat()
+    time.sleep(0.25)
+held_gil()
+time.sleep(0.2)
+stop()
+"""
+    (tmp_path / "stalls").mkdir()
+    env = dict(os.environ, TPUMS_REGISTRY_DIR=str(tmp_path / "reg"),
+               TPUMS_HEARTBEAT_S="0.25")
+    env.pop("TPUMS_STALL_DIR", None)
+    subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                   timeout=60)
+    members, events = chip_smoke.StallWatch(str(tmp_path)).read()
+    assert list(members) == ["g@g1:s0r0"]
+    ((pid, gap, _),) = members["g@g1:s0r0"]
+    assert 1.2 <= gap <= 1.6
+    kinds = {kind: (s, frames) for _, s, p, kind, frames in events
+             if p == pid}
+    assert set(kinds) == {"stall", "heartbeat late"}, events
+    assert kinds["stall"][0] >= 0.5 and "held_gil" in kinds["stall"][1]
+    assert 0.8 <= kinds["heartbeat late"][0] <= 1.4
+    assert "<string>" in kinds["heartbeat late"][1]
+
+
+@pytest.mark.parametrize("when,kind", [
+    ("live", "crash (Fatal Python error: Aborted)"),
+    ("exit", "crash at its exit (Fatal Python error: Aborted)"),
+])
+def test_stall_watch_tells_a_live_crash_from_one_at_exit(tmp_path, when,
+                                                         kind):
+    """A process that aborts while it runs is a crash the phase fails on;
+    one that aborts once its interpreter is ending is printed as a crash
+    at its exit."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    (tmp_path / "stalls").mkdir()
+    code = f"""
+import atexit, os, sys
+sys.path.insert(0, {root!r})
+import chip_smoke
+if {when!r} == "exit":
+    atexit.register(os.abort)      # runs after the watchdog's own
+ns = {{}}
+exec(chip_smoke.STALL_WATCHDOG, ns)
+ns["watch_stalls"]({str(tmp_path / "stalls")!r}, 0.3)
+if {when!r} == "live":
+    os.abort()
+"""
+    got = subprocess.run([sys.executable, "-c", code], timeout=60,
+                         capture_output=True)
+    assert got.returncode != 0
+    _, events = chip_smoke.StallWatch(str(tmp_path)).read()
+    assert [e[3] for e in events] == [kind]

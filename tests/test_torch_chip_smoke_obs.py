@@ -98,7 +98,7 @@ def test_obs_rehearsal_runs_at_the_rehearsals_own_ttl(monkeypatch):
         seen.append((kw, env))
         raise _Entered()
 
-    monkeypatch.setattr(chip_smoke, "run_isolated", entered)
+    monkeypatch.setattr(chip_smoke, "Isolated", entered)
     with pytest.raises(_Entered):
         chip_smoke.obs_rehearsal(torch, torch.device("cpu"), "a CPU")
     kw, env = seen[-1]
@@ -107,7 +107,7 @@ def test_obs_rehearsal_runs_at_the_rehearsals_own_ttl(monkeypatch):
     assert env["TPUMS_PROF_IDLE"] == "1" and "TPUMS_PROF" not in env
     assert env["TPUMS_REGISTRY_DIR"]
     assert "edge" not in kw and kw["kill"] is True
-    assert kw["users"] == 40_000 and kw["device"] == "cpu"
+    assert kw["users"] == 20_000 and kw["device"] == "cpu"
     for name in ("TPUMS_REPLICA_TTL_S", "TPUMS_PROF_IDLE", "TPUMS_PROF"):
         assert os.environ[name] == "7"
     with pytest.raises(_Entered):

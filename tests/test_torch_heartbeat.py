@@ -19,9 +19,20 @@ width, and the member was respawned:
   ``mmap.flush``, whose ``msync`` holds the GIL until the disk has taken
   every dirty page (after a replay, the whole arena).  The arena now
   writes its pages back with ``os.fsync`` of its file, which releases
-  the GIL while the disk works.
+  the GIL while the disk works;
+- the members of a fleet reach ready, and their first checkpoint,
+  together, and each then syncs its arena or a snapshot copy of it,
+  hundreds of MB: synced at once, they held every small file write and
+  read on the host, a heartbeat's among them.  The processes of a host
+  now write back their arenas in turns (``arena.host_writeback``);
+- a registry reader judged a heartbeat against its clock read AFTER the
+  file: a read held up that long, or a reader descheduled between the
+  read and its clock, aged a fresh entry past the TTL, reaped it, and
+  the supervisor respawned the live member whose entry was gone.  The
+  reader's clock is now read before the file is opened.
 """
 
+import tempfile
 import threading
 import types
 
@@ -201,3 +212,180 @@ def test_a_flush_of_an_arena_whose_file_is_gone_uses_the_mapping(
     assert (rec.flushes, inodes) == (1, [])
     ro.close()
     a.close()
+
+
+def _timed_fsyncs(monkeypatch, hold_s=0.15):
+    """``os.fsync`` in the arena module records each call's (start, end)
+    and takes ``hold_s`` longer, as a sync of hundreds of MB does."""
+    import os
+    import time
+
+    from flink_ms_tpu_torch.serve import arena
+
+    spans, real = [], os.fsync
+
+    def fsync(fd):
+        t0 = time.monotonic()
+        time.sleep(hold_s)
+        real(fd)
+        spans.append((t0, time.monotonic()))
+
+    monkeypatch.setattr(arena.os, "fsync", fsync)
+    return spans
+
+
+def _arena_table(path, n=300):
+    from flink_ms_tpu_torch.serve import arena
+
+    t = arena.ArenaModelTable(2, dir=str(path))
+    t.put_many([(f"{i}-U", f"{i}.5;1.0") for i in range(n)])
+    return t
+
+
+def test_the_arenas_of_a_host_write_back_in_turns(monkeypatch, tmp_path):
+    """Two members' checkpoints and snapshot copies at once (a fleet
+    reaching ready together): no two of their syncs overlap, and the
+    copies are whole arena files."""
+    import threading
+
+    from flink_ms_tpu_torch.serve import arena
+    from flink_ms_tpu_torch.serve.consumer import MemoryStateBackend
+
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    tables = [_arena_table(tmp_path / f"m{i}") for i in range(2)]
+    spans = _timed_fsyncs(monkeypatch)
+    start = threading.Barrier(4)
+
+    def checkpoint(t):
+        start.wait()
+        MemoryStateBackend().snapshot(t, 300)
+
+    def publish(t, dst):
+        start.wait()
+        t.quiesce_copy(dst)
+
+    threads = [threading.Thread(target=checkpoint, args=(t,))
+               for t in tables]
+    threads += [threading.Thread(target=publish,
+                                 args=(t, str(tmp_path / f"copy{i}.dat")))
+                for i, t in enumerate(tables)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=30)
+    assert len(spans) == 4
+    spans.sort()
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:])), spans
+    for i in range(2):
+        rows = dict(arena.iter_arena_file(str(tmp_path / f"copy{i}.dat")))
+        assert len(rows) == 300 and rows["7-U"] == "7.5;1.0"
+        tables[i].close()
+
+
+def test_a_write_back_waits_for_another_process_turn(monkeypatch, tmp_path):
+    """The turn is the host's: while a process of its own holds it, a
+    table's checkpoint flush waits, and the table takes writes
+    meanwhile (the wait is outside the table's lock)."""
+    import os
+    import subprocess
+    import sys
+    import threading
+    import time
+
+    from flink_ms_tpu_torch.serve import arena
+
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    t = _arena_table(tmp_path / "m")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    holder = subprocess.Popen(
+        [sys.executable, "-c",
+         "import sys, time\n"
+         f"sys.path.insert(0, {root!r})\n"
+         "from flink_ms_tpu_torch.serve import arena\n"
+         "with arena.host_writeback():\n"
+         "    print('held', flush=True)\n"
+         "    time.sleep(1.0)\n"],
+        env=dict(os.environ, TMPDIR=str(tmp_path)), stdout=subprocess.PIPE,
+        text=True)
+    try:
+        assert holder.stdout.readline().strip() == "held"
+        done = []
+        flusher = threading.Thread(
+            target=lambda: (t.flush(), done.append(time.monotonic())))
+        t0 = time.monotonic()
+        flusher.start()
+        time.sleep(0.2)
+        t.put_many([("new-U", "1.0;2.0")])
+        put_s = time.monotonic() - t0
+        flusher.join(timeout=30)
+        assert put_s < 0.6
+        assert done and done[0] - t0 >= 0.6
+        assert t.get("new-U") == "1.0;2.0"
+    finally:
+        holder.wait(timeout=30)
+        t.close()
+
+
+class _Clock:
+    """``registry.time`` with a wall clock the test moves."""
+
+    def __init__(self, now):
+        self.now = now
+
+    def time(self):
+        return self.now
+
+    def sleep(self, s):
+        self.now += s
+
+
+def _entry(monkeypatch, tmp_path, age_s):
+    from flink_ms_tpu_torch.serve import registry
+
+    monkeypatch.setenv("TPUMS_REGISTRY_DIR", str(tmp_path / "reg"))
+    clock = _Clock(1_000.0)
+    monkeypatch.setattr(registry, "time", clock)
+    registry.register("g@g1:s0r0", "127.0.0.1", 1, "S", replica_of="g",
+                      replica=0, ready=True, ttl_s=1.5)
+    clock.now += age_s
+    # a live member's entry stays on disk: its process is this one
+    return registry, clock
+
+
+@pytest.mark.parametrize("reader", ["resolve", "list_jobs"])
+def test_a_read_held_up_past_the_ttl_does_not_age_a_fresh_entry(
+        monkeypatch, tmp_path, reader):
+    """An entry 0.2 s old whose read is held up 2 s (the file system busy)
+    is alive to the reader, and stays on disk."""
+    import os
+
+    registry, clock = _entry(monkeypatch, tmp_path, 0.2)
+    real = registry._load_json_retry
+
+    def held_up(path, strict=False):
+        got = real(path, strict)
+        clock.now += 2.0
+        return got
+
+    monkeypatch.setattr(registry, "_load_json_retry", held_up)
+    path = registry._entry_path("g@g1:s0r0")
+    if reader == "resolve":
+        assert registry.resolve("g@g1:s0r0")["port"] == 1
+    else:
+        assert [e["job_id"] for e in registry.list_jobs()] == ["g@g1:s0r0"]
+    assert os.path.exists(path)
+
+
+@pytest.mark.parametrize("reader", ["resolve", "list_jobs"])
+def test_a_lapsed_heartbeat_is_still_dead(monkeypatch, tmp_path, reader):
+    """An entry 1.6 s old against its 1.5 s TTL is dead at once, and
+    reaped."""
+    import os
+
+    registry, _ = _entry(monkeypatch, tmp_path, 1.6)
+    path = registry._entry_path("g@g1:s0r0")
+    if reader == "resolve":
+        assert registry.resolve("g@g1:s0r0") is None
+    else:
+        assert registry.list_jobs() == []
+    assert not os.path.exists(path)
