@@ -27,6 +27,12 @@ or phase 22 alone on such rows:
 
     python3 chip_smoke.py --geo-only
 
+or the scale envelope, BASELINE.json's 10M x 1M synthetic ratings (100M
+of them) at rank 64 through the fused assembly-and-solve path, after its
+half scale (5M x 500k, 50M ratings):
+
+    python3 chip_smoke.py --scale-only
+
 Phases, each printing lines of its own (``[smoke] ...``):
 
 1. card   — ``nvidia-smi`` name and power limit, torch and CUDA versions;
@@ -293,7 +299,31 @@ Phases, each printing lines of its own (``[smoke] ...``):
             between heartbeats, every stall of 0.3 s or more and every
             late heartbeat with its threads' top frames; the phase fails
             on a respawn but (d)'s kill's, a heartbeat taken as expired,
-            a client that found no live member of a shard, or a crash.
+            a client that found no live member of a shard, or a crash,
+            one as a process exits included (its line names the threads
+            alive at its exit and what its stderr said last);
+23. arms  — run after phase 9, on its inputs: the training configurations
+            phases 4 and 7 leave out, each with sec/iter or ms/round, its
+            quality and each kernel's launches on it alone: implicit ALS
+            (alpha 40, ``als_implicit``: the Hu-Koren-Volinsky objective
+            not rising over 1, 2, 3 iterations, each side's half-sweep
+            against float64, the objective after 3 against the plain
+            versions' fit and, on the anchor problem, against the JAX
+            package's constant), bf16 exchange (``als_bf16``: train RMSE
+            beside phase 4's, against the plain versions' fit and the JAX
+            package's anchor constant), and the SVM's avg mode, the CLI's
+            default (``svm_avg``: the objective falling below 1.0, and one
+            round x K equal to one add round with sigma' 1 bit for bit
+            under the presorted dw, within rtol 2e-4 / atol 1e-6 with the
+            default).
+
+``--scale-only`` prints for each size rows/s of generation,
+``prepare_blocked`` seconds, sec/iter (1 vs 3 iterations, median of 3),
+the device's peak memory beside the A tensor that never exists, the
+host's peak RSS, train RMSE after 1 and 2 iterations, each side's
+half-sweep against float64, and both kernels' launches (the batch-major
+entry's among them); then a ``kernels`` line, its launches labelled
+``als_scale``, with each kernel's time on one chunk of the full size.
 
 Each kernel's ``ms`` is the median over calls timed one CUDA event pair
 each, the wrapper's host work included where it outlasts the device's;
@@ -338,6 +368,37 @@ SVM_RTOL, SVM_ATOL = 2e-4, 1e-6
 # (bench_sections.py run_svm_section, recorded in BENCH_DETAIL_r05.json);
 # the port draws other step indices, so it is held within 1%
 SVM_REF_OBJECTIVE = 0.938597
+
+# phase 23 (the arms of phases 4 and 7 they do not run):
+# bench.py:656 derives the implicit configuration from the ML-20M one
+ALS_ALPHA = 40.0
+# the anchor problem: ML-20M's users and items / 10, its ratings / 100, at
+# rank 50 (seed 0, the init drawn as phase 4's), small enough for the JAX
+# package on a CPU.  Its constants are the JAX package's fits of it on a
+# CPU, 3 iterations from the port's init
+# (``JAX_PLATFORMS=cpu python scripts/jax_reference_constants.py``): the
+# implicit objective (``implicit_objective``) and the bf16-exchange train
+# RMSE
+ANCHOR_USERS, ANCHOR_ITEMS, ANCHOR_NNZ = 13_849, 2_674, 200_000
+ANCHOR_IMPLICIT_OBJECTIVE = 5028492.197202164
+ANCHOR_BF16_RMSE = 0.34800286587665413
+# the JAX package's docstring on bf16 exchange: train RMSE +1.4e-5 at the
+# ML-20M shape, measured on a TPU (printed as its claim, not a limit)
+BF16_TPU_CLAIM = 1.4e-5
+# phase 23's limits on relative gaps, about 10 times the largest reading
+# each gap had: on the card (NVIDIA H100 80GB HBM3, 700.00 W) the implicit
+# fit read 7.0e-11 off the plain versions' fit and 2.3e-9 off its anchor,
+# the bf16 fit 3.0e-9 and 5.2e-6; on a CPU the anchor at rank 50 read
+# 4.5e-9 (implicit) and 2.3e-6 (bf16), and at the rehearsal's rank 8
+# (tests/test_torch_chip_smoke_arms.py) 7.9e-8 and 6.6e-9
+IMPLICIT_PLAIN_RTOL, IMPLICIT_ANCHOR_RTOL = 1e-9, 1e-6
+BF16_PLAIN_RTOL, BF16_ANCHOR_RTOL = 3e-8, 5e-5
+# the JAX package's hinge+reg objective after 10 avg rounds of phase 7's
+# RCV1 problem, from one CPU run of its ``svm_fit`` (JAX 0.9.0, 8 cores);
+# ``scripts/jax_reference_constants.py --svm-avg`` is that computation but
+# not the run that gave this value.  The port draws other step indices, so
+# it is printed beside the port's and not held to it
+SVM_AVG_REF_OBJECTIVE = 0.9999050
 
 
 class SmokeFailure(Exception):
@@ -825,7 +886,7 @@ def time_fit(torch, fit_fn, dev_args, iters=5, repeats=3):
         nonlocal ran, out
         t0 = time.perf_counter()
         out = fit_fn(trip, *dev_args)
-        torch.cuda.synchronize()
+        sync(torch)
         ran += trip
         return time.perf_counter() - t0
 
@@ -844,6 +905,7 @@ def reset_als_launches(CH, GA) -> None:
     CH.LAUNCHES = 0
     CH.BATCH_MAJOR_LAUNCHES = 0
     GA.LAUNCHES = 0
+    GA.BF16_LAUNCHES = 0
 
 
 def als_launches(CH, GA) -> dict:
@@ -940,15 +1002,19 @@ def main_path(torch, TA, CH, GA, problem, fit, ratings_t, init, dev):
     return runs
 
 
-def f64_check(torch, TA, GA, flat, y, side, rows=2000):
+def f64_check(torch, TA, GA, flat, y, side, rows=2000, implicit=False):
     """One half-sweep's solutions, with the plain and the kernel assembly,
     against float64 assembly and solve of the same systems, on the real
     rows among the first `rows` rows of each bucket; also the systems'
-    condition numbers."""
+    condition numbers.  Explicit: A = Σ y yᵀ + λ n I, b = Σ r y.
+    Implicit: A = YᵀY + Σ α r y yᵀ + λ I, b = Σ (1 + α r) y, with YᵀY
+    over the whole opposite table."""
     counts = flat[-1]
     off = 0
     worst = {"plain": 0.0, "kernel": 0.0}
     conds = []
+    yty64 = y.double().T @ y.double() if implicit else None
+    yty = y.T @ y if implicit else None
     for j in range(len(flat) // 2):
         idx, val = flat[2 * j][:rows], flat[2 * j + 1][:rows]
         cnt = counts[off:off + idx.shape[0]]
@@ -960,17 +1026,26 @@ def f64_check(torch, TA, GA, flat, y, side, rows=2000):
             continue
         idx, val, cnt = idx[real], val[real], cnt[real]
         A64, b64 = GA.bucket_assembly_plain(y.double(), idx, val.double(),
-                                            torch.float64)
-        A64.diagonal(dim1=-2, dim2=-1).add_(LAMBDA * cnt.double()[:, None])
+                                            torch.float64, implicit,
+                                            ALS_ALPHA)
+        if implicit:
+            A64 += yty64
+            A64.diagonal(dim1=-2, dim2=-1).add_(LAMBDA)
+        else:
+            A64.diagonal(dim1=-2, dim2=-1).add_(
+                LAMBDA * cnt.double()[:, None])
         x64 = torch.linalg.solve(A64, b64)
         conds.append(torch.linalg.cond(A64))
         for mode, assemble in (("plain", GA.bucket_assembly_plain),
                                ("kernel", GA.fused_bucket_assembly)):
-            A, b = assemble(y, idx, val)
-            x = TA._solve_factors(A, b, cnt, LAMBDA, True).double()
+            A, b = assemble(y, idx, val, torch.float32, implicit, ALS_ALPHA)
+            if implicit:
+                A += yty
+            x = TA._solve_factors(A, b, cnt, LAMBDA, not implicit).double()
             err = ((x - x64).norm(dim=1) / x64.norm(dim=1)).max().item()
             worst[mode] = max(worst[mode], err)
     cond = torch.cat(conds)
+    side = f"{side} implicit" if implicit else side
     log(f"accuracy {side} half-sweep vs float64 ({cond.numel()} systems): "
         f"condition number median {cond.median().item():.1f}, max "
         f"{cond.max().item():.1f}; max row-wise error |x - x64| / |x64| "
@@ -1322,7 +1397,8 @@ def svm_main(torch, TS, SK, dev):
     return launches, {"sec_per_round": sec, "objective": objs,
                       "idx": dev_args[1], "val": dev_args[2], "w": w,
                       "alpha": alpha, "alpha1": alpha1,
-                      "w_repeat_equal": repeat}
+                      "w_repeat_equal": repeat, "data": data,
+                      "problem": problem, "dev_args": dev_args}
 
 
 def svm_cross_checks(torch, TS, dev):
@@ -2310,9 +2386,10 @@ def count_plain_versions(TA, CH, GA, TS, SK, set_attr=setattr) -> None:
     assembly, solve = TA.fused_bucket_assembly, TA.cholesky_solve_batched
     margin, scatter = TS.margin_gather, TS.scatter_add_dw
 
-    def counted_assembly(*a, **kw):
+    def counted_assembly(y_all, *a, **kw):
         GA.LAUNCHES += 1
-        return assembly(*a, **kw)
+        GA.BF16_LAUNCHES += int(str(y_all.dtype) == "torch.bfloat16")
+        return assembly(y_all, *a, **kw)
 
     def counted_solve(A, b, layout=None):
         CH.LAUNCHES += 1
@@ -6356,6 +6433,17 @@ import atexit, faulthandler, os, sys, threading, time
 def watch_stalls(out_dir, stall_s=0.3, tick_s=0.02):
     fd = os.open(os.path.join(out_dir, "stall-%d.txt" % os.getpid()),
                  os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
+    try:
+        # a process whose stderr is thrown away (a fleet member) keeps it
+        # here, so what the C++ runtime says before an abort is read too
+        if os.path.samestat(os.fstat(2), os.stat(os.devnull)):
+            err = os.open(os.path.join(out_dir, "stderr-%d.txt"
+                                       % os.getpid()),
+                          os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
+            os.dup2(err, 2)
+            os.close(err)
+    except OSError:
+        pass
     was_enabled = faulthandler.is_enabled()
     faulthandler.enable(file=fd, all_threads=True)   # a crash's stacks
     done = threading.Event()
@@ -6427,10 +6515,24 @@ def watch_stalls(out_dir, stall_s=0.3, tick_s=0.02):
 
     def at_exit():
         # the interpreter is ending: the timer goes first, and a crash
-        # after this line is one of the process's exit
+        # after this line is one of the process's exit.  The threads still
+        # alive are named with their frames: a thread that aborts past this
+        # point has no Python state left for the crash's dump to show
         done.set()
         faulthandler.cancel_dump_traceback_later()
         say("--- exit at %.3f\n" % time.time())
+        frames = sys._current_frames()
+        for th in threading.enumerate():
+            if th.ident is None or th is t or th is threading.main_thread():
+                continue
+            f, at = frames.get(th.ident), []
+            while f is not None and len(at) < 3:
+                at.append("%s:%d %s" % (os.path.basename(
+                    f.f_code.co_filename), f.f_lineno, f.f_code.co_name))
+                f = f.f_back
+            say("--- thread 0x%016x %s%s at %s\n" % (
+                th.ident, th.name, " (daemon)" if th.daemon else "",
+                " <- ".join(at) or "?"))
 
     def stop():
         atexit.unregister(at_exit)
@@ -6525,9 +6627,12 @@ class StallWatch:
                 lines = f.read().splitlines()
             member, gap, exiting = None, (0.0, None), False
             timeout, overdue, target, crash = [], [], None, None
+            alive = []         # threads alive at its exit, with frames
             for line in lines:
                 nums = re.findall(r"[0-9]+\.[0-9]+", line)
-                if line.startswith("--- member "):
+                if line.startswith("--- thread 0x"):
+                    alive.append(line.split(" ", 3)[3])
+                elif line.startswith("--- member "):
                     member = line.split(" ", 2)[2]
                     self.roles.setdefault(pid, member)
                 elif line.startswith("--- heartbeat gap ") and \
@@ -6557,9 +6662,22 @@ class StallWatch:
                                    "heartbeat late", tops(overdue)))
                     overdue, target = [], None
             if crash is not None:
+                where = tops(crash[1])
+                if crash[2]:
+                    # the thread that aborted is one of those alive then,
+                    # in a call that had let the interpreter go
+                    where = (f"threads alive at its exit: "
+                             f"{' | '.join(alive) or 'none'}; {where}")
+                err = os.path.join(self.dir, f"stderr-{pid}.txt")
+                if os.path.exists(err):
+                    with open(err, errors="replace") as f:
+                        said = [x for x in f.read().splitlines()
+                                if x.strip()]
+                    if said:
+                        where += f"; its stderr ended {said[-1][:200]!r}"
                 events.append((os.path.getmtime(path), 0.0, pid,
                                ("crash at its exit" if crash[2] else "crash")
-                               + f" ({crash[0]})", tops(crash[1])))
+                               + f" ({crash[0]})", where))
             if member is not None:
                 members.setdefault(member, []).append((pid,) + gap)
         return members, sorted(events)
@@ -6587,10 +6705,11 @@ class StallWatch:
             log(f"{label} {kind} {sec:.3f} s in {pid} ({role}"
                 + (f", {self.notes[role]}" if role in self.notes else "")
                 + f"), ending +{t - self.t0:.1f} s: {frames}")
-        # a crash once the interpreter is ending is printed, not held
-        # against the phase: the process was done serving
+        # a crash fails the phase, one once the interpreter is ending too
+        # (it names the threads still alive then): a process of the phase
+        # exits cleanly or not at all
         return dict(heartbeat_gaps=gaps, stalls=len(events),
-                    crashes=[e for e in events if e[3].startswith("crash (")])
+                    crashes=[e for e in events if e[3].startswith("crash")])
 
 
 def short_frame(line) -> str:
@@ -7470,6 +7589,542 @@ def geo_only(torch, dev) -> int:
     return 0
 
 
+# -- phase 23: the training configurations phases 4 and 7 leave out -----------
+
+
+def rating_rows(torch, model, users, items, ratings, dev):
+    """Each rating's (user row, item row) in the dense factor tables of
+    `model` (an ``ALSModel``, or the ``BlockedProblem`` it is fitted on)
+    and its value (float64), as tensors on `dev`."""
+    return (torch.from_numpy(np.searchsorted(model.user_ids, users)).to(dev),
+            torch.from_numpy(np.searchsorted(model.item_ids, items)).to(dev),
+            torch.from_numpy(np.asarray(ratings, np.float64)).to(dev))
+
+
+def train_rmse(torch, uf, itf, rows, chunk=1 << 22) -> float:
+    """``TA.rmse`` of dense factors over the ratings ``rows`` holds, on
+    their device: each prediction in the factors' dtype, its error in
+    float64 (``rmse``'s host lookups take seconds at 20M ratings)."""
+    u, i, r = rows
+    total = 0.0
+    for s in range(0, int(r.numel()), chunk):
+        p = (uf[u[s:s + chunk]] * itf[i[s:s + chunk]]).sum(-1)
+        total += float(((r[s:s + chunk] - p.double()) ** 2).sum())
+    return math.sqrt(total / max(int(r.numel()), 1))
+
+
+def implicit_objective(torch, uf, itf, rows, alpha=ALS_ALPHA, lam=LAMBDA,
+                       chunk=1 << 22) -> float:
+    """The Hu-Koren-Volinsky objective the implicit fit minimises, in
+    float64: Σ over every (user, item) pair of (xᵀy)², plus Σ over the
+    ratings of (1 + α r)(1 - xᵀy)² - (xᵀy)², plus λ (‖X‖² + ‖Y‖²).  The
+    all-pairs sum is ⟨XᵀX, YᵀY⟩.  A rating counted twice weighs twice, as
+    in the normal equations (A = YᵀY + Σ α r y yᵀ + λ I, b = Σ (1 + α r) y),
+    whose block-wise exact solves never raise it."""
+    u, i, r = rows
+    X, Y = uf.double(), itf.double()
+    total = float(((X.T @ X) * (Y.T @ Y)).sum())
+    for s in range(0, int(r.numel()), chunk):
+        p = (X[u[s:s + chunk]] * Y[i[s:s + chunk]]).sum(-1)
+        c = 1.0 + alpha * r[s:s + chunk]
+        total += float((c * (1.0 - p) ** 2 - p * p).sum())
+    return total + lam * float((X * X).sum() + (Y * Y).sum())
+
+
+class plain_kernels:
+    """Within it the ALS fits run both kernels' plain versions (the same
+    arithmetic in plain torch), the reference a kernel path is held to on
+    the same inputs; no kernel launches."""
+
+    def __init__(self, TA, GA, CH):
+        self.TA, self.GA, self.CH = TA, GA, CH
+
+    def __enter__(self):
+        self.saved = (self.TA.fused_bucket_assembly,
+                      self.TA.cholesky_solve_batched)
+        self.TA.fused_bucket_assembly = self.GA.bucket_assembly_plain
+        self.TA.cholesky_solve_batched = (
+            lambda A, b, layout=None: self.CH.cholesky_solve_plain(A, b))
+        return self
+
+    def __exit__(self, *exc):
+        (self.TA.fused_bucket_assembly,
+         self.TA.cholesky_solve_batched) = self.saved
+
+
+def anchor_problem(TA):
+    """The anchor problem's ratings, blocked problem and init (phase 4's
+    generators at the anchor's size, rank ``RANK``) -> ((users, items,
+    ratings), problem, init)."""
+    import torch
+
+    users, items, ratings = synth_ratings(ANCHOR_USERS, ANCHOR_ITEMS,
+                                          ANCHOR_NNZ, seed=0)
+    problem = TA.prepare_blocked(users, items, ratings, 1)
+    gen = torch.Generator().manual_seed(42)
+    init = (TA.init_factors(problem.n_users, RANK, gen).numpy(),
+            TA.init_factors(problem.n_items, RANK, gen).numpy())
+    return (users, items, ratings), problem, init
+
+
+def anchor_values(torch, TA, dev) -> dict:
+    """The port's fits of the anchor problem, 3 iterations each, on `dev`:
+    {"implicit_objective", "bf16_rmse"}."""
+    (users, items, ratings), problem, init = anchor_problem(TA)
+    out = {}
+    for key, kw in (("implicit_objective", dict(implicit=True,
+                                                alpha=ALS_ALPHA)),
+                    ("bf16_rmse", dict(exchange_dtype="bfloat16"))):
+        cfg = TA.ALSConfig(num_factors=RANK, iterations=3, lambda_=LAMBDA,
+                           **kw)
+        m = TA.als_fit(users, items, ratings, cfg, dev, problem=problem,
+                       init=init)
+        out[key] = (implicit_objective(
+            torch, m.user_factors, m.item_factors,
+            rating_rows(torch, m, users, items, ratings, dev))
+            if key == "implicit_objective"
+            else TA.rmse(m, users, items, ratings, dev))
+    return out
+
+
+def als_arm(torch, TA, CH, GA, problem, ratings_t, init, label, ref_sec,
+            dev, **kw):
+    """One ALS configuration at phase 4's shape, data and init: sec/iter
+    (1 vs N iterations, median of 3), ``als_fit`` after 1, 2 and 3
+    iterations, and both kernels' launches over that alone.  -> (sec/iter,
+    the timed run's (uf, itf) in slot order, the three models, launches,
+    the compiled fit's device arguments)."""
+    users, items, ratings = ratings_t
+    cfg = TA.ALSConfig(num_factors=RANK, iterations=1, lambda_=LAMBDA, **kw)
+    n_buckets = len(problem.u.widths) + len(problem.i.widths)
+    reset_als_launches(CH, GA)
+    fit_fn, dev_args = TA.compile_fit(problem, cfg, dev, init=init)
+    sec, ran, (uf, itf) = time_fit(torch, fit_fn, dev_args)
+    models = []
+    for it in (1, 2, 3):
+        models.append(TA.als_fit(users, items, ratings,
+                                 dataclasses.replace(cfg, iterations=it),
+                                 dev, problem=problem, init=init))
+        ran += it
+    sync(torch)
+    launches = als_launches(CH, GA)
+    check(launches == {"cholesky": 2 * ran, "assembly": n_buckets * ran,
+                       "cholesky_batch_major": 0},
+          f"{label}: {launches} launches for {ran} iterations of "
+          f"{n_buckets} buckets")
+    # the exchange's dtype shows in the table each assembly reads
+    bf16 = GA.BF16_LAUNCHES
+    want = (launches["assembly"] if kw.get("exchange_dtype") == "bfloat16"
+            else 0)
+    check(bf16 == want, f"{label}: {bf16} of {launches['assembly']} "
+          f"assembly launches on a bfloat16 table, not {want}")
+    check(bool((uf[-1] == 0).all()) and bool((itf[-1] == 0).all()),
+          f"{label}: a dummy slot's factor row is not zero")
+    log(f"{label}: {sec:.6f} sec/iter (median of 3, 1 vs N iterations) "
+        f"against phase 4's explicit f32 {ref_sec:.6f}; "
+        f"launches over {ran} iterations: cholesky {launches['cholesky']} "
+        f"(of them batch-major 0), assembly {launches['assembly']} (of "
+        f"them on a bfloat16 table {bf16})")
+    return sec, (uf, itf), models, launches, dev_args
+
+
+def als_implicit_arm(torch, TA, CH, GA, problem, ratings_t, rows, init,
+                     ref_sec, anchor, dev):
+    """``als_implicit``: the implicit configuration at the ML-20M shape.
+    Its objective must not rise over 1, 2 and 3 iterations, each side's
+    half-sweep from the trained factors must agree with float64, and its
+    objective after 3 must agree with the plain versions' fit and, on the
+    anchor problem (``anchor``: the port's values there), with the JAX
+    package's.  ``rows``: ``rating_rows`` of the ratings.  -> launches."""
+    t_arm = time.perf_counter()
+    users, items, ratings = ratings_t
+    kw = dict(implicit=True, alpha=ALS_ALPHA)
+    sec, (uf, itf), models, launches, dev_args = als_arm(
+        torch, TA, CH, GA, problem, ratings_t, init, "als_implicit",
+        ref_sec, dev, **kw)
+    objs = [implicit_objective(torch, torch.from_numpy(init[0]).to(dev),
+                               torch.from_numpy(init[1]).to(dev), rows)]
+    objs += [implicit_objective(torch, m.user_factors, m.item_factors, rows)
+             for m in models]
+    log(f"als_implicit: Hu-Koren-Volinsky objective at the init and after "
+        f"1, 2, 3 iterations {objs}")
+    check(all(np.isfinite(objs)) and all(
+        b <= a + 1e-6 * abs(a) for a, b in zip(objs, objs[1:])),
+        f"als_implicit: the objective rose (rtol 1e-6): {objs}")
+    n_u = 2 * len(problem.u.widths) + 1
+    f64_check(torch, TA, GA, dev_args[2:2 + n_u], itf, "user", implicit=True)
+    f64_check(torch, TA, GA, dev_args[2 + n_u:], uf, "item", implicit=True)
+    cfg = TA.ALSConfig(num_factors=RANK, iterations=3, lambda_=LAMBDA, **kw)
+    with plain_kernels(TA, GA, CH):
+        plain = TA.als_fit(users, items, ratings, cfg, dev, problem=problem,
+                           init=init)
+    obj_plain = implicit_objective(torch, plain.user_factors,
+                                   plain.item_factors, rows)
+    gap = abs(objs[3] - obj_plain) / abs(obj_plain)
+    log(f"als_implicit: objective after 3 iterations {objs[3]!r}, the "
+        f"plain versions' fit {obj_plain!r}: relative gap {gap:.3e} (limit "
+        f"{IMPLICIT_PLAIN_RTOL})")
+    check(gap <= IMPLICIT_PLAIN_RTOL,
+          "als_implicit: off the plain versions' fit")
+    a = anchor["implicit_objective"]
+    gap = abs(a - ANCHOR_IMPLICIT_OBJECTIVE) / abs(ANCHOR_IMPLICIT_OBJECTIVE)
+    log(f"als_implicit anchor ({ANCHOR_USERS} x {ANCHOR_ITEMS}, "
+        f"{ANCHOR_NNZ} ratings, rank {RANK}): objective after 3 iterations "
+        f"{a!r} against the JAX package's {ANCHOR_IMPLICIT_OBJECTIVE!r}: "
+        f"relative gap {gap:.3e} (limit {IMPLICIT_ANCHOR_RTOL})")
+    check(gap <= IMPLICIT_ANCHOR_RTOL,
+          "als_implicit: off the JAX package's anchor")
+    log(f"als_implicit: the arm took {time.perf_counter() - t_arm:.1f}s")
+    return launches
+
+
+def als_bf16_arm(torch, TA, CH, GA, problem, ratings_t, rows, init, ref,
+                 anchor, dev):
+    """``als_bf16``: phase 4's explicit configuration with the opposite
+    factors exchanged in bfloat16.  Its train RMSE after 3 iterations
+    beside phase 4's f32 one; held to the plain versions' bf16 fit and, on
+    the anchor problem, to the JAX package's.  -> launches."""
+    t_arm = time.perf_counter()
+    users, items, ratings = ratings_t
+    kw = dict(exchange_dtype="bfloat16")
+    sec, _, models, launches, _ = als_arm(
+        torch, TA, CH, GA, problem, ratings_t, init, "als_bf16",
+        ref["sec_per_iter"], dev, **kw)
+    f32_rmse = ref["rmse"][2]
+    rmses = [train_rmse(torch, m.user_factors, m.item_factors, rows)
+             for m in models]
+    delta = (rmses[2] - f32_rmse) / f32_rmse
+    log(f"als_bf16: train RMSE after 1, 2, 3 iterations {rmses}; after 3 "
+        f"against phase 4's f32 {f32_rmse!r}: relative delta {delta:+.3e} "
+        f"(the JAX package's docstring claims +{BF16_TPU_CLAIM} on a TPU, "
+        f"its figure and not this card's)")
+    check(all(np.isfinite(rmses)) and rmses[0] > rmses[1] > rmses[2],
+          f"als_bf16: train RMSE not finite and decreasing: {rmses}")
+    cfg = TA.ALSConfig(num_factors=RANK, iterations=3, lambda_=LAMBDA, **kw)
+    with plain_kernels(TA, GA, CH):
+        plain = TA.als_fit(users, items, ratings, cfg, dev, problem=problem,
+                           init=init)
+    plain = train_rmse(torch, plain.user_factors, plain.item_factors, rows)
+    gap = abs(rmses[2] - plain) / plain
+    log(f"als_bf16: the plain versions' bf16 fit {plain!r}: relative gap "
+        f"{gap:.3e} (limit {BF16_PLAIN_RTOL})")
+    check(gap <= BF16_PLAIN_RTOL, "als_bf16: off the plain versions' fit")
+    a = anchor["bf16_rmse"]
+    gap = abs(a - ANCHOR_BF16_RMSE) / ANCHOR_BF16_RMSE
+    log(f"als_bf16 anchor: train RMSE after 3 iterations {a!r} against the "
+        f"JAX package's {ANCHOR_BF16_RMSE!r}: relative gap {gap:.3e} (limit "
+        f"{BF16_ANCHOR_RTOL})")
+    check(gap <= BF16_ANCHOR_RTOL, "als_bf16: off the JAX package's anchor")
+    log(f"als_bf16: the arm took {time.perf_counter() - t_arm:.1f}s")
+    return launches
+
+
+def svm_avg_arm(torch, TS, SK, run, dev):
+    """``svm_avg``: phase 7's RCV1 problem and device inputs in the avg
+    mode (CoCoA-v1), the CLI's default: ms/round, the objective after 1
+    and 10 rounds (it must fall, below w = 0's 1.0), the launches; then
+    one round from w = 0 times K against one round of add with σ′ = 1
+    from the same state and steps: equal bit for bit under the presorted
+    Δw, whose sums repeat, and within rtol 2e-4 / atol 1e-6 with the
+    default Δw, whose float atomics do not.  -> launches."""
+    t_arm = time.perf_counter()
+    data, problem, dev_args = run["data"], run["problem"], run["dev_args"]
+    cfg = dataclasses.replace(svm_config(TS, problem), mode="avg")
+    fit = TS._make_fit(problem, cfg, dev)[0]
+    for key in SK.LAUNCHES:
+        SK.LAUNCHES[key] = 0
+    sec, ran = time_rounds(torch, fit, dev_args, SVM_ROUNDS)
+    objs = []
+    for rounds in (1, SVM_ROUNDS):
+        model = TS.svm_fit(data, dataclasses.replace(cfg, iterations=rounds),
+                           dev, problem=problem)
+        objs.append(model.hinge_loss(data, SVM_LAMBDA))
+        ran += rounds
+    sync(torch)
+    launches = dict(SK.LAUNCHES)
+    log(f"svm_avg: {sec * 1e3:.3f} ms/round (median of 3, 1 vs "
+        f"{SVM_ROUNDS} rounds) against add's {run['sec_per_round'] * 1e3:.3f}"
+        f"; hinge+reg objective after 1 and {SVM_ROUNDS} rounds {objs} "
+        f"(the JAX package's after {SVM_ROUNDS}, its own step indices: "
+        f"{SVM_AVG_REF_OBJECTIVE}); launches over {ran} rounds: {launches}")
+    check(all(np.isfinite(objs)) and objs[1] < objs[0] and objs[1] < 1.0,
+          f"svm_avg: objective not finite, falling and below 1.0: {objs}")
+    check(launches == {"margin_gather": ran, "scatter_add_dw": 0,
+                       "scatter_add_dw[row_scale]": ran},
+          f"svm_avg: {launches} launches for {ran} rounds")
+    add1 = dataclasses.replace(cfg, mode="add", sigma_prime=1.0)
+    K = float(problem.n_blocks)
+    w_avg = fit(1, *dev_args)[0]
+    w_add = TS._make_fit(problem, add1, dev)[0](1, *dev_args)[0]
+    off = factors_off(w_avg * K, w_add, SVM_RTOL, SVM_ATOL)
+    log(f"svm_avg: one round x K against add with sigma' 1, default dw: "
+        f"{off:.4f} of rtol {SVM_RTOL} / atol {SVM_ATOL}, max |diff| "
+        f"{(w_avg * K - w_add).abs().max().item():.3e}")
+    check(off <= 1.0, "svm_avg: one round x K off add's with sigma' 1")
+    args = list(dev_args) + list(TS.sorted_layout(
+        dev_args[1], dev_args[2], problem.n_features))
+    w_avg, w_add = with_env({"FLINK_MS_SVM_DW": "presorted"}, lambda: [
+        TS._make_fit(problem, c, dev)[0](1, *args)[0] for c in (cfg, add1)])
+    same = torch.equal(w_avg * K, w_add)
+    log(f"svm_avg: one round x K equal to add's with sigma' 1 under the "
+        f"presorted dw, bit for bit: {same} ({int((w_add != 0).sum())} "
+        f"weights nonzero)")
+    check(same and bool((w_add != 0).any()),
+          "svm_avg: one round x K is not add's with sigma' 1 bit for bit")
+    log(f"svm_avg: the arm took {time.perf_counter() - t_arm:.1f}s")
+    return launches
+
+
+def arms_phase(torch, TA, CH, GA, TS, SK, problem, ratings_t, init, runs,
+               svm_run, dev) -> dict:
+    """Phase 23: the training configurations the other phases do not run,
+    on phase 4's problem, data and init and phase 7's SVM problem and
+    device inputs.  -> {label: launches}."""
+    ref = runs["default"]
+    # the anchor's fits run the kernels too: before the arms reset and
+    # read their counts
+    anchor = anchor_values(torch, TA, dev)
+    rows = rating_rows(torch, problem, *ratings_t, dev)
+    return {
+        "als_implicit": als_implicit_arm(torch, TA, CH, GA, problem,
+                                         ratings_t, rows, init,
+                                         ref["sec_per_iter"], anchor, dev),
+        "als_bf16": als_bf16_arm(torch, TA, CH, GA, problem, ratings_t,
+                                 rows, init, ref, anchor, dev),
+        "svm_avg": svm_avg_arm(torch, TS, SK, svm_run, dev),
+    }
+
+
+# -- --scale-only: the scale envelope, BASELINE.json's 10M x 1M ratings -------
+
+# scripts/scale_envelope.py:40-85: its half scale first, then the full
+# 10M x 1M with 100M ratings (numpy default_rng(0), uniform 1 to 5), rank
+# 64, lambda 0.1, through the fused assembly-and-solve path
+SCALE_ENV_SIZES = ((5_000_000, 500_000, 50_000_000),
+                   (10_000_000, 1_000_000, 100_000_000))
+SCALE_ENV_RANK = 64
+
+
+def chunk_times(torch, CH, GA, y, idx, val, counts, k, lam):
+    """The three ALS kernel entries on one fused-path chunk (``idx``,
+    ``val``: its rows of one bucket), each beside its plain version, a
+    library yardstick and its bound.  -> kernels-line entries without
+    launches."""
+    rows = int(idx.shape[0])
+    nnz = int(counts.double().sum().item())
+
+    def asm_library():
+        g = torch.index_select(y, 0, idx.reshape(-1)).reshape(rows, -1, k)
+        return (torch.einsum("rwk,rwl->rkl", g, g),
+                torch.einsum("rwk,rw->rk", g, val))
+
+    (A, b), (Ap, bp) = (GA.fused_bucket_assembly(y, idx, val),
+                        GA.bucket_assembly_plain(y, idx, val))
+    asm = {"name": "fused_bucket_assembly", "route": "cuda",
+           "source": "flink_ms_tpu_torch/csrc/gather_assembly.cu",
+           "replaces": "flink_ms_tpu/ops/gather_assembly.py:97",
+           "max_abs_err": max((A - Ap).abs().max().item(),
+                              (b - bp).abs().max().item()),
+           "ms": event_ms(lambda: GA.fused_bucket_assembly(y, idx, val),
+                          reps=5),
+           "device_ms": event_ms(lambda: GA.fused_bucket_assembly(
+               y, idx, val), reps=3, calls=10),
+           "plain_ms": event_ms(lambda: GA.bucket_assembly_plain(
+               y, idx, val), reps=3),
+           "library_ms": event_ms(asm_library, reps=3)}
+    asm["bound_ms"], asm["bound_by"] = bound(
+        assembly_flops(nnz, k),
+        assembly_bytes(rows, int(idx.numel()), y.numel(), k))
+    check(rel_err(A, Ap) <= 1e-5 and rel_err(b, bp) <= 1e-5,
+          "scale: the assembly off its plain version on a chunk")
+    A.diagonal(dim1=-2, dim2=-1).add_(
+        (lam * counts + torch.where(counts > 0, 0.0, 1.0))[:, None])
+    out = [asm]
+    for name, layout, replaces in (
+            ("cholesky_solve_batched", None,
+             "flink_ms_tpu/ops/cholesky_pallas.py:40"),
+            ("cholesky_solve_batched[batch_major]", "batch_major",
+             "flink_ms_tpu/ops/cholesky_pallas.py:97")):
+        x_k = CH.cholesky_solve_batched(A, b, layout=layout)
+        x_p = CH.cholesky_solve_plain(A, b)
+        check(rel_err(x_k, x_p) <= 1e-4,
+              f"scale: {name} off its plain version on a chunk")
+        e = {"name": name, "route": "cuda",
+             "source": "flink_ms_tpu_torch/csrc/cholesky_solve.cu",
+             "replaces": replaces,
+             "max_abs_err": (x_k - x_p).abs().max().item(),
+             "ms": event_ms(lambda: CH.cholesky_solve_batched(
+                 A, b, layout=layout), reps=10),
+             "device_ms": event_ms(lambda: CH.cholesky_solve_batched(
+                 A, b, layout=layout), reps=3, calls=10),
+             "plain_ms": event_ms(lambda: CH.cholesky_solve_plain(A, b),
+                                  reps=3),
+             "library_ms": event_ms(lambda: torch.cholesky_solve(
+                 b[..., None], torch.linalg.cholesky(A)), reps=3)}
+        e["bound_ms"], e["bound_by"] = bound(solve_flops(rows, k),
+                                             solve_bytes(rows, k))
+        out.insert(len(out) - 1, e)
+    for e in out:
+        log(f"scale times {e['name']}, one chunk ({rows} rows, width "
+            f"{idx.shape[1]}, nnz {nnz}, k {k}): kernel {e['ms']:.3f} ms, "
+            f"plain {e['plain_ms']:.3f} ms, library {e['library_ms']:.3f} "
+            f"ms, bound {e['bound_ms']:.4f} ms ({e['bound_by']})")
+    return out
+
+
+def scale_envelope(torch, TA, CH, GA, n_users, n_items, nnz, dev,
+                   times=False):
+    """One size of the scale envelope through ``als_fit``'s fused path.
+    -> (launches, kernels-line entries of one chunk's times, or [])."""
+    import gc
+    import resource
+
+    k = SCALE_ENV_RANK
+    label = f"scale {n_users} x {n_items}, {nnz} ratings, rank {k}"
+    t0 = time.perf_counter()
+    users, items, ratings = synth_ratings(n_users, n_items, nnz, seed=0)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    problem = TA.prepare_blocked(users, items, ratings, 1)
+    prep_s = time.perf_counter() - t0
+    gen = torch.Generator().manual_seed(42)
+    init = (TA.init_factors(problem.n_users, k, gen).numpy(),
+            TA.init_factors(problem.n_items, k, gen).numpy())
+    a_bytes = problem.n_users * k * k * 4
+    log(f"{label}: generation {nnz / gen_s:,.0f} rows/s ({gen_s:.2f}s), "
+        f"prepare_blocked {prep_s:.1f}s (host, untimed); buckets user "
+        f"{len(problem.u.widths)}, item {len(problem.i.widths)}; the user "
+        f"side's A would be {a_bytes / 1e9:.1f} GB")
+    cfg = TA.ALSConfig(num_factors=k, iterations=1, lambda_=LAMBDA)
+    saved = os.environ.get("FLINK_MS_ALS_FUSED")
+    os.environ["FLINK_MS_ALS_FUSED"] = "1"
+    try:
+        # the chunk budget as the environment sets it, else its default
+        log(f"{label}: FLINK_MS_ALS_FUSED=1, "
+            f"FLINK_MS_ALS_ASSEMBLY_CHUNK_BYTES "
+            f"{TA._assembly_chunk_bytes()}")
+        if dev.type == "cuda":
+            # the allocator exists once it has allocated on the card
+            torch.empty(1, device=dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        reset_als_launches(CH, GA)
+        fit_fn, dev_args = TA.compile_fit(problem, cfg, dev, init=init)
+
+        def run(trip):
+            t = time.perf_counter()
+            out = fit_fn(trip, *dev_args)
+            sync(torch)
+            return time.perf_counter() - t, out
+
+        run(1)  # warm-up
+        samples = []
+        for _ in range(3):
+            t1, tn = run(1)[0], run(3)
+            samples.append(max((tn[0] - t1) / 2, 1e-9))
+        sec = float(np.median(samples))
+        uf, itf = tn[1]
+        ran = 1 + 3 * 4
+        # scored on the card, each fit's ratings moved there after its peak
+        # is read (the scoring's tensors are not the fit's)
+        rows = rating_rows(torch, problem, users, items, ratings,
+                           torch.device("cpu"))
+        rmses, peak = [], 0
+        for it in (1, 2):
+            m = TA.als_fit(users, items, ratings,
+                           dataclasses.replace(cfg, iterations=it), dev,
+                           problem=problem, init=init)
+            ran += it
+            sync(torch)
+            if dev.type == "cuda":
+                peak = max(peak, torch.cuda.max_memory_allocated(dev))
+            rmses.append(train_rmse(torch, m.user_factors, m.item_factors,
+                                    [t.to(dev) for t in rows]))
+            del m
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+        launches = als_launches(CH, GA)
+        n_buckets = len(problem.u.widths) + len(problem.i.widths)
+        log(f"{label}: {sec:.4f} sec/iter (median of 3, 1 vs 3 iterations); "
+            f"train RMSE after 1, 2 iterations {rmses}; launches over {ran} "
+            f"iterations: cholesky {launches['cholesky']} (of them "
+            f"batch-major {launches['cholesky_batch_major']}), assembly "
+            f"{launches['assembly']}; device memory at its peak "
+            f"{peak / 1e9:.2f} GB (the {a_bytes / 1e9:.1f} GB of A never "
+            f"exists); host peak RSS "
+            f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6:.2f}"
+            f" GB")
+        check(all(np.isfinite(rmses)) and rmses[0] > rmses[1],
+              f"{label}: train RMSE not finite and decreasing: {rmses}")
+        check(bool((uf[-1] == 0).all()) and bool((itf[-1] == 0).all()),
+              f"{label}: a dummy slot's factor row is not zero")
+        check(launches["cholesky_batch_major"] > 0
+              and launches["assembly"] > n_buckets * ran
+              and launches["cholesky"] == launches["assembly"],
+              f"{label}: {launches} for {ran} iterations of {n_buckets} "
+              f"buckets: the fused path's chunks did not run")
+        n_u = 2 * len(problem.u.widths) + 1
+        f64_check(torch, TA, GA, dev_args[2:2 + n_u], itf, "user")
+        f64_check(torch, TA, GA, dev_args[2 + n_u:], uf, "item")
+        entries = []
+        if times and dev.type == "cuda":
+            # the first chunk of the user side's last bucket (widths
+            # descend: its narrowest, cut into the most chunks)
+            flat = dev_args[2:2 + n_u]
+            j = len(flat) // 2 - 1
+            rows = min(int(TA._assembly_chunk_bytes() // (3 * k * k * 4)),
+                       int(flat[2 * j].shape[0]))
+            off = sum(int(flat[2 * i].shape[0]) for i in range(j))
+            entries = chunk_times(torch, CH, GA, itf, flat[2 * j][:rows],
+                                  flat[2 * j + 1][:rows],
+                                  flat[-1][off:off + rows], k, LAMBDA)
+    finally:
+        if saved is None:
+            del os.environ["FLINK_MS_ALS_FUSED"]
+        else:
+            os.environ["FLINK_MS_ALS_FUSED"] = saved
+    del dev_args, uf, itf, problem, users, items, ratings, init, rows
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return launches, entries
+
+
+def scale_only(torch, dev) -> int:
+    """``--scale-only``: the kernels' build, then the scale envelope at each
+    of ``SCALE_ENV_SIZES``, the last with each kernel's time on one
+    chunk; a ``kernels`` line labels the last size's launches
+    ``als_scale``."""
+    from flink_ms_tpu_torch.ops import _build
+    from flink_ms_tpu_torch.ops import als as TA
+    from flink_ms_tpu_torch.ops import cholesky as CH
+    from flink_ms_tpu_torch.ops import gather_assembly as GA
+
+    t_start = time.perf_counter()
+    card = card_line()
+    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    t0 = time.perf_counter()
+    _build.build_all(["cholesky_solve", "gather_assembly"])
+    log(f"build: {time.perf_counter() - t0:.2f}s")
+    for j, (n_u, n_i, nnz) in enumerate(SCALE_ENV_SIZES):
+        last = j == len(SCALE_ENV_SIZES) - 1
+        launches, entries = scale_envelope(torch, TA, CH, GA, n_u, n_i, nnz,
+                                           dev, times=last)
+        log(f"clock: scale {n_u} x {n_i} done at "
+            f"{time.perf_counter() - t_start:.1f}s")
+    keys = ("name", "route", "source", "replaces", "launches",
+            "launches_by_path", "max_abs_err", "ms", "device_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
+    for e, key in zip(entries, ("cholesky", "cholesky_batch_major",
+                                "assembly")):
+        e["launches"] = launches[key]
+        e["launches_by_path"] = {"als_scale": launches[key]}
+    log(f"done in {time.perf_counter() - t_start:.1f}s")
+    print(json.dumps({"kernels": [{key: e[key] for key in keys}
+                                  for e in entries]}))
+    print(card)
+    return 0
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -7479,10 +8134,12 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     obs_users = argv[1:] if argv[:1] == ["--obs-only"] else None
-    if argv not in ([], ["--multi-gpu"], ["--geo-only"]) and not (
+    if argv not in ([], ["--multi-gpu"], ["--geo-only"],
+                    ["--scale-only"]) and not (
             obs_users is not None and all(u.isdigit() for u in obs_users)):
         print(f"[smoke] unknown arguments {argv} (none, --multi-gpu, "
-              "--obs-only [USERS ...] or --geo-only)", file=sys.stderr)
+              "--obs-only [USERS ...], --geo-only or --scale-only)",
+              file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from flink_ms_tpu_torch.ops import _build
@@ -7497,6 +8154,8 @@ def main(argv=None) -> int:
         return obs_only(torch, dev, [int(u) for u in obs_users])
     if argv == ["--geo-only"]:
         return geo_only(torch, dev)
+    if argv == ["--scale-only"]:
+        return scale_only(torch, dev)
     if argv:
         return multi_gpu_only(torch, dev)
     t_start = time.perf_counter()
@@ -7585,6 +8244,16 @@ def main(argv=None) -> int:
         entries.append(e)
 
     lap("phases 1-9 (build, kernels, ALS and SVM)")
+    arms = arms_phase(torch, TA, CH, GA, TS, SK, problem,
+                      (users, items, ratings), init, runs, svm_run, dev)
+    for e, key in zip(entries[:3], ("cholesky", "cholesky_batch_major",
+                                    "assembly")):
+        for label in ("als_implicit", "als_bf16"):
+            e["launches_by_path"][label] = arms[label][key]
+    for e in entries[3:]:
+        e["launches_by_path"]["svm_avg"] = arms["svm_avg"][e["name"]]
+    del svm_run["data"], svm_run["problem"], svm_run["dev_args"]
+    lap("phase 23 (implicit ALS, bf16 exchange, the SVM's avg mode)")
     serve = serve_phase(torch, final, (users, items, ratings),
                         final["rmse"][2], dev)
     lap("phase 10 (serve)")

@@ -36,6 +36,7 @@ from . import _build
 MAX_K = 128
 
 LAUNCHES = 0  # kernel launches made by fused_bucket_assembly
+BF16_LAUNCHES = 0  # of them, on a bfloat16 table
 
 # The kernel's pipeline (csrc/gather_assembly.cu): 8-rating chunks in a
 # three-stage data ring and a four-stage ring of slots and weights per
@@ -200,7 +201,7 @@ def fused_bucket_assembly(y_all, idx, val, out_dtype=torch.float32,
 
 
 def _launch(y_all, idx, val, out_dtype, implicit, alpha, out):
-    global LAUNCHES
+    global LAUNCHES, BF16_LAUNCHES
     S, k = y_all.shape
     r, w = idx.shape
     if y_all.dtype not in (torch.float32, torch.bfloat16):
@@ -242,6 +243,7 @@ def _launch(y_all, idx, val, out_dtype, implicit, alpha, out):
         raise RuntimeError(f"gather_assembly_f32 launch failed: CUDA error "
                            f"{err} (r={r}, w={w}, k={k}, {plan})")
     LAUNCHES += 1
+    BF16_LAUNCHES += int(y_all.dtype == torch.bfloat16)
     return A, b
 
 

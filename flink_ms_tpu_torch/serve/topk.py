@@ -79,7 +79,20 @@ def _sync(dev: torch.device) -> None:
 
 
 _warm_lock = threading.Lock()
-_warmed: set = set()
+_warmed: dict = {}   # device -> its warm-up thread (None while it starts)
+
+# the longest an index's close waits for its background threads
+_QUIESCE_S = 30.0
+
+
+def _warm_ops(dev: torch.device) -> None:
+    """The index's three operations (a matrix product, the top-k, a row
+    copy) at a tiny shape on ``dev``, then a wait for them."""
+    m = torch.zeros((8, 4), device=dev)
+    topk_lowest_first(torch.zeros((2, 4), device=dev) @ m.T, 2)
+    m.index_copy_(0, torch.zeros(1, dtype=torch.long, device=dev),
+                  torch.ones((1, 4), device=dev))
+    _sync(dev)
 
 
 def _warm_async(dev: torch.device) -> None:
@@ -95,20 +108,19 @@ def _warm_async(dev: torch.device) -> None:
     with _warm_lock:
         if dev in _warmed:
             return
-        _warmed.add(dev)
+        _warmed[dev] = None
     torch.cuda.init()
 
     def warm():
         try:
-            m = torch.zeros((8, 4), device=dev)
-            topk_lowest_first(torch.zeros((2, 4), device=dev) @ m.T, 2)
-            m.index_copy_(0, torch.zeros(1, dtype=torch.long, device=dev),
-                          torch.ones((1, 4), device=dev))
-            _sync(dev)
+            _warm_ops(dev)
         except Exception as e:  # pragma: no cover - best-effort warm-up
             print(f"[topk] CUDA warm-up failed: {e}", file=sys.stderr)
 
-    threading.Thread(target=warm, name="topk-cuda-warm", daemon=True).start()
+    t = threading.Thread(target=warm, name="topk-cuda-warm", daemon=True)
+    with _warm_lock:
+        _warmed[dev] = t
+    t.start()
 
 
 # rows parsed by one ``_parse_block``: each block's join, split and float
@@ -336,6 +348,7 @@ class DeviceFactorIndex:
         # not keys (the rebuild snapshots the whole table anyway)
         self._replay_backlog = 0
         self._rebuild_thread: Optional[threading.Thread] = None
+        self._closed = False   # close(): no rebuild starts after it
         self._counter_mode = not hasattr(table, "add_change_listener")
         self._built_at = -1
         if not self._counter_mode:
@@ -642,6 +655,11 @@ class DeviceFactorIndex:
                                  vec.to(self.device))
 
     def _start_rebuild_locked(self) -> None:
+        if self._closed:
+            # no thread of the index may outlive its close: a closed
+            # index rebuilds in the caller's thread
+            self._build_locked()
+            return
         if self._rebuild_thread is not None and self._rebuild_thread.is_alive():
             return  # one rebuild in flight; later dirt re-triggers after swap
 
@@ -679,6 +697,30 @@ class DeviceFactorIndex:
             target=rebuild, name="topk-rebuild", daemon=True
         )
         self._rebuild_thread.start()
+
+    def close(self) -> None:
+        """Quiesce the index's background work before its process ends:
+        no rebuild starts from here on, and a running one and the card's
+        warm-up are waited for, within one deadline.  Each is a daemon
+        thread inside torch calls, and one still inside a call when the
+        interpreter ends aborts the process (SIGABRT, "terminate called
+        without an active exception") as the call returns.  The index
+        still answers queries; a rebuild they need runs in their
+        thread."""
+        with self._lock:
+            self._closed = True
+            threads = [self._rebuild_thread]
+        with _warm_lock:
+            threads += list(_warmed.values())
+        threads = [t for t in threads if t is not None
+                   and t is not threading.current_thread()]
+        deadline = time.monotonic() + _QUIESCE_S
+        for t in threads:
+            t.join(max(deadline - time.monotonic(), 0.0))
+        late = [t.name for t in threads if t.is_alive()]
+        if late:
+            print(f"[topk] index close: {late} still running after "
+                  f"{_QUIESCE_S}s", file=sys.stderr)
 
     # -- querying -----------------------------------------------------------
 
@@ -904,6 +946,7 @@ class ALSTopkHandler:
     def close(self) -> None:
         if self.batcher is not None:
             self.batcher.close()
+        self.index.close()
 
 
 def _format_topk(results) -> str:

@@ -324,3 +324,46 @@ if {when!r} == "live":
     assert got.returncode != 0
     _, events = chip_smoke.StallWatch(str(tmp_path)).read()
     assert [e[3] for e in events] == [kind]
+
+
+def test_a_crash_at_exit_fails_phase_22_and_names_its_threads(tmp_path):
+    """A process whose daemon thread is inside a torch call as its
+    interpreter ends aborts; the watchdog names the threads alive at its
+    exit, with their frames, and keeps what the C++ runtime wrote to a
+    stderr thrown away; the report counts the crash, so phase 22 fails
+    on it."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    (tmp_path / "stalls").mkdir()
+    code = f"""
+import sys, threading, time
+sys.path.insert(0, {root!r})
+import chip_smoke, torch
+ns = {{}}
+exec(chip_smoke.STALL_WATCHDOG, ns)
+ns["watch_stalls"]({str(tmp_path / "stalls")!r}, 0.3)
+
+def first_topk():
+    a = torch.randn(300, 300)
+    while True:
+        a @ a
+
+threading.Thread(target=first_topk, name="topk-cuda-warm",
+                 daemon=True).start()
+time.sleep(0.3)
+"""
+    got = subprocess.run([sys.executable, "-c", code], timeout=60,
+                         stdout=subprocess.DEVNULL,
+                         stderr=subprocess.DEVNULL)
+    assert got.returncode != 0
+    watch = chip_smoke.StallWatch(str(tmp_path))
+    _, events = watch.read()
+    ((_, _, _, kind, where),) = events
+    assert kind == "crash at its exit (Fatal Python error: Aborted)"
+    assert "threads alive at its exit: topk-cuda-warm (daemon) at " \
+        "<string>" in where and "first_topk" in where
+    assert "terminate called without an active exception" in where
+    assert len(watch.report("geo", "1.5")["crashes"]) == 1

@@ -24,6 +24,7 @@ import inspect
 import json
 import os
 import socket
+import time
 import types
 
 import pytest
@@ -162,6 +163,27 @@ def _home_journal(root):
     return home
 
 
+def _status_caught_up(rep, eu, end, timeout_s=30.0):
+    """Step ``rep`` until its status record on disk says it is caught up
+    at ``end``.  The record is written at most once in two poll intervals,
+    so the one on disk when the replicator catches up is whichever step
+    last got through the throttle: an earlier state on a fast host, the
+    final one on a loaded host."""
+    path = os.path.join(eu, "models.georepl.json")
+    deadline = time.time() + timeout_s
+    while True:
+        rep.step()
+        try:
+            with open(path) as f:
+                rec = json.load(f)
+        except (OSError, ValueError):
+            rec = {}
+        if rec.get("caught_up") and rec.get("offset") == end:
+            return
+        assert time.time() < deadline, f"status record still {rec}"
+        time.sleep(rep.poll_s)
+
+
 def test_port_replicator_writes_the_reference_follower_tree(tmp_path):
     us = str(tmp_path / "us")
     home = _home_journal(us)
@@ -171,7 +193,7 @@ def test_port_replicator_writes_the_reference_follower_tree(tmp_path):
         rep = mod.JournalReplicator(us, eu, "models", "eu", poll_s=0.01)
         try:
             rep.run_until_caught_up()
-            rep.step()
+            _status_caught_up(rep, eu, home.end_offset())
             assert rep.offset == home.end_offset()
             assert rep.lost_bytes == home.start_offset() > 0
             assert rep.folds_mirrored == 1 and rep.snapshots_copied >= 1
@@ -186,6 +208,25 @@ def test_port_replicator_writes_the_reference_follower_tree(tmp_path):
     assert port == ref
     assert any(".clog." in n for n in ref)
     assert any(n.startswith("models.snapshots") or "snap" in n for n in ref)
+
+
+@pytest.mark.parametrize("slow", ["ref", "port"])
+def test_follower_trees_agree_when_one_replicator_is_slow(tmp_path,
+                                                          monkeypatch,
+                                                          slow):
+    """A loaded host, as one package's replicator taking 25 ms a step:
+    its status record gets through the throttle at other steps than the
+    other package's, and the trees still agree once both records say
+    caught up."""
+    mod = RG if slow == "ref" else PG
+    real = mod.JournalReplicator.step
+
+    def step(self):
+        time.sleep(0.025)
+        return real(self)
+
+    monkeypatch.setattr(mod.JournalReplicator, "step", step)
+    test_port_replicator_writes_the_reference_follower_tree(tmp_path)
 
 
 def _raw(port, payload):

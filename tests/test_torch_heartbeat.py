@@ -119,7 +119,7 @@ def test_cuda_context_is_made_on_the_callers_thread(monkeypatch):
 
     monkeypatch.setattr(PT, "threading", types.SimpleNamespace(
         Thread=Recorder))
-    monkeypatch.setattr(PT, "_warmed", set())
+    monkeypatch.setattr(PT, "_warmed", {})
     dev = torch.device("cuda", 0)
     PT._warm_async(dev)
     assert order == [("init", threading.get_ident()),
