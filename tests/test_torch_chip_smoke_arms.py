@@ -6,12 +6,15 @@ facts they rest on held against the JAX package:
   brute force, and not rising over the port's implicit iterations;
 - one avg round from w = 0 times K equal to one add round with σ′ = 1, bit
   for bit, on both engines of the port and of the JAX package;
-- the anchor constants phase 23 holds the card to equal to what the JAX
-  package computes now (``scripts/jax_reference_constants.py``), and the
-  port's CPU fits within the card's limits of them;
+- the anchor constants equal to what the JAX package computes now
+  (``scripts/jax_reference_constants.py``), and the port's CPU fits within
+  their limits of them (the CPU parity check of the arms' configurations);
+- the full-width constants phases 4 and 23 hold the card to are the ones
+  PERF.md quotes, and the script's ``--ml20m`` takes no other argument;
 - the phase's rehearsal with the fits' wrappers counting launches as on
-  the card (``count_plain_versions``), the anchor constants recomputed by
-  the JAX package at the rehearsal's size, and cases that must fail;
+  the card (``count_plain_versions``), the JAX package's values recomputed
+  at the rehearsal's size in place of the full-width ones, and cases that
+  must fail;
 - ``--scale-only``'s arguments and a run at about 2,000 x 300 with 20,000
   ratings, rank 8, its chunks cut so that every bucket takes several."""
 
@@ -166,6 +169,35 @@ def test_anchor_constants_are_the_jax_packages_and_the_port_agrees():
         chip_smoke.ANCHOR_BF16_RMSE, rel=chip_smoke.BF16_ANCHOR_RTOL)
 
 
+@pytest.mark.parametrize("argv", [
+    ["--ml20m", "--svm-avg"], ["--svm-avg", "--ml20m"], ["--ml20m", "x"],
+    ["--ml20m", "--ml20m=1"]])
+def test_ml20m_refuses_any_other_argument(argv, monkeypatch):
+    """``--ml20m`` is one documented computation: it is refused beside any
+    other argument, before any fit."""
+    mod = _constants_script()
+    monkeypatch.setattr(mod, "ml20m_values", lambda: pytest.fail("ran"))
+    monkeypatch.setattr(mod, "svm_avg_values", lambda: pytest.fail("ran"))
+    with pytest.raises(SystemExit) as e:
+        mod.main(argv)
+    assert e.value.code == 2
+
+
+def test_full_width_constants_are_the_ones_perf_md_quotes():
+    """The JAX package's full-width values phases 4 and 23 hold the card
+    to, each as PERF.md quotes it (with the command that made them)."""
+    with open(os.path.join(ROOT, "PERF.md")) as f:
+        perf = f.read()
+    assert "jax_reference_constants.py --ml20m" in perf
+    values = (*chip_smoke.ML20M_EXPLICIT_RMSE,
+              chip_smoke.ML20M_IMPLICIT_OBJECTIVE, chip_smoke.ML20M_BF16_RMSE)
+    assert len(values) == 5
+    for v in values:
+        assert repr(v) in perf, v
+    for name in ("EXPLICIT_JAX_RTOL", "IMPLICIT_JAX_RTOL", "BF16_JAX_RTOL"):
+        assert 0 < getattr(chip_smoke, name) <= 1e-3
+
+
 # -- phase 23, rehearsed ------------------------------------------------------
 
 
@@ -182,21 +214,24 @@ def counted(monkeypatch):
 
 @pytest.fixture
 def arms_inputs(counted, monkeypatch):
-    """Phase 4's and phase 7's inputs at a small size, and the anchor
-    problem at a smaller one with its constants recomputed by the JAX
-    package at rank 8."""
-    for name, value in (("ANCHOR_USERS", 300), ("ANCHOR_ITEMS", 120),
-                        ("ANCHOR_NNZ", 6_000), ("SVM_N", 3000),
-                        ("SVM_D", 400), ("SVM_NNZ", 9), ("SVM_K", 32)):
+    """Phase 4's and phase 7's inputs at a small size, and the JAX
+    package's fits of that ALS problem at rank 8 in place of its
+    full-width ones, held to the anchor's limits (a problem this small
+    reads gaps of 1.3e-7 and 3.4e-6, far above the card's)."""
+    for name, value in (("SVM_N", 3000), ("SVM_D", 400), ("SVM_NNZ", 9),
+                        ("SVM_K", 32),
+                        ("IMPLICIT_JAX_RTOL", chip_smoke.IMPLICIT_ANCHOR_RTOL),
+                        ("BF16_JAX_RTOL", chip_smoke.BF16_ANCHOR_RTOL)):
         monkeypatch.setattr(chip_smoke, name, value)
-    jax_now = _constants_script().als_values()
+    (users, items, ratings), problem, init = chip_smoke.seeded_problem(
+        TA, 400, 250, 30_000)
+    jax_now = _constants_script()._fit_values(
+        (users, items, ratings), init, (
+            ("ML20M_IMPLICIT_OBJECTIVE", 3,
+             dict(implicit=True, alpha=chip_smoke.ALS_ALPHA)),
+            ("ML20M_BF16_RMSE", 3, dict(exchange_dtype="bfloat16"))))
     for name, value in jax_now.items():
         monkeypatch.setattr(chip_smoke, name, value)
-    users, items, ratings = chip_smoke.synth_ratings(400, 250, 30_000, seed=0)
-    problem = TA.prepare_blocked(users, items, ratings, 1)
-    gen = torch.Generator().manual_seed(42)
-    init = (TA.init_factors(problem.n_users, 8, gen).numpy(),
-            TA.init_factors(problem.n_items, 8, gen).numpy())
     f32 = TA.als_fit(users, items, ratings, TA.ALSConfig(
         num_factors=8, iterations=3, lambda_=chip_smoke.LAMBDA), "cpu",
         problem=problem, init=init)
@@ -237,7 +272,8 @@ def test_arms_phase_rehearsal(counted, arms_inputs, capsys):
     for line in ("als_implicit: Hu-Koren-Volinsky objective at the init",
                  "accuracy user implicit half-sweep vs float64",
                  "accuracy item implicit half-sweep vs float64",
-                 "als_implicit anchor (300 x 120, 6000 ratings, rank 8)",
+                 "als_implicit: objective after 3 iterations against the "
+                 "JAX package's fit of this problem",
                  "als_bf16: the plain versions' bf16 fit",
                  "the JAX package's docstring claims +1.4e-05 on a TPU",
                  "presorted dw, bit for bit: True"):
@@ -261,24 +297,27 @@ def test_arms_phase_fails_when_the_implicit_objective_rises(
 
 def test_arms_phase_fails_off_the_jax_anchor(counted, arms_inputs,
                                              monkeypatch):
-    monkeypatch.setattr(chip_smoke, "ANCHOR_BF16_RMSE",
-                        chip_smoke.ANCHOR_BF16_RMSE * 1.01)
+    """The JAX package's fit of the arms' problem moved by 1%: the bf16
+    arm is off it."""
+    monkeypatch.setattr(chip_smoke, "ML20M_BF16_RMSE",
+                        chip_smoke.ML20M_BF16_RMSE * 1.01)
     with pytest.raises(chip_smoke.SmokeFailure,
-                       match="als_bf16: off the JAX package's anchor"):
+                       match="als_bf16: off the JAX package's fit"):
         _arms(counted, arms_inputs)
 
 
 @pytest.mark.parametrize("name, limit, label", [
-    ("ANCHOR_IMPLICIT_OBJECTIVE", "IMPLICIT_ANCHOR_RTOL", "als_implicit"),
-    ("ANCHOR_BF16_RMSE", "BF16_ANCHOR_RTOL", "als_bf16")])
+    ("ML20M_IMPLICIT_OBJECTIVE", "IMPLICIT_JAX_RTOL", "als_implicit"),
+    ("ML20M_BF16_RMSE", "BF16_JAX_RTOL", "als_bf16")])
 def test_arms_phase_fails_at_twice_its_anchor_limit(counted, arms_inputs,
                                                     monkeypatch, name,
                                                     limit, label):
+    """The JAX package's value moved by twice the arm's limit."""
     rtol = getattr(chip_smoke, limit)
     monkeypatch.setattr(chip_smoke, name,
                         getattr(chip_smoke, name) * (1 + 2 * rtol))
     with pytest.raises(chip_smoke.SmokeFailure,
-                       match=f"{label}: off the JAX package's anchor"):
+                       match=f"{label}: off the JAX package's fit"):
         _arms(counted, arms_inputs)
 
 

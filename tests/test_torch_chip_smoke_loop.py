@@ -1,7 +1,7 @@
 """Rehearsals of ``chip_smoke.py``'s phase 20 (the closed loop) on the
 CPU at a small size: every member and the autopilot's CLI a ``--device
 cpu`` process, the tick's fit counting its launches through fakes of the
-kernel wrappers that run the plain versions; and one case where the phase
+kernel wrappers that run the plain versions; and the cases where the phase
 must fail.  (Phase 20 has a file of its own so that the suite's
 file-by-file scheduling can run it beside the rehearsals of phases 10 to
 19.)"""
@@ -77,6 +77,16 @@ def test_loop_phase_rehearsal(small_loop, capsys):
     assert "16 of 16 TOPK replies (k 10) equal generation 1's" in logs
     assert "alerts_firing 1, alerts_max_severity 'warn'" in logs
     assert "3000 new ratings windowed" in logs
+    assert ("loop (g) admission (generation 4, 1 member(s), "
+            "TPUMS_ADMIT_TENANT_QPS 'abuse=50', burst 50)") in logs
+    assert "serving_rollout_abuse_other_errors 0" in logs
+    assert "1 member(s) the CLI spawned stopped" in logs
+    assert out["inquota_availability"] >= chip_smoke.LOOP_AVAILABILITY
+    abuse = out["abuse"]
+    assert abuse["TOPK"]["shed"] > 0 and abuse["GET"]["shed"] > 0
+    assert all(abuse[v]["served"] + abuse[v]["shed"] == abuse[v]["offered"]
+               for v in abuse)
+    assert out["shed_per_s"] > 0 and 0 < out["admission_pressure"] <= 1
     assert out["launches"]["cholesky"] == 8
     assert out["launches"]["assembly"] >= 8
     assert out["candidate_mse"] < out["incumbent_mse"]
@@ -105,4 +115,28 @@ def test_loop_phase_fails_when_the_rollback_serves_other_bytes(
     monkeypatch.setattr(PRO.RolloutController, "rollback", tampered)
     with pytest.raises(chip_smoke.SmokeFailure,
                        match="generation 3 answers [1-9][0-9]* TOPK"):
+        chip_smoke.loop_phase(torch, small_loop, torch.device("cpu"))
+
+
+def test_loop_phase_fails_when_an_over_quota_topk_reaches_the_index(
+        small_loop, monkeypatch, tmp_path):
+    """Every process the phase starts runs an admission whose over-quota
+    TOPKV is counted as shed and scored all the same: (g) finds more
+    TOPKs served than its members' index scored past their sheds."""
+    import os
+
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(
+        "import sys\n"
+        f"sys.path.insert(0, {os.path.dirname(chip_smoke.__file__)!r})\n"
+        "from flink_ms_tpu_torch.serve import admission as A\n"
+        "real = A.AdmissionController.admit\n"
+        "def admit(self, tenant, verb, cost=1.0, now=None):\n"
+        "    return (real(self, tenant, verb, cost, now)\n"
+        "            or verb in A.LOW_PRIORITY_VERBS)\n"
+        "A.AdmissionController.admit = admit\n")
+    monkeypatch.setenv("PYTHONPATH", str(site))
+    with pytest.raises(chip_smoke.SmokeFailure,
+                       match=r"\(g\): a shed TOPK reached the index"):
         chip_smoke.loop_phase(torch, small_loop, torch.device("cpu"))
