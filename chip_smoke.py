@@ -533,20 +533,20 @@ def own_processes(helpers: bool = True, exclude=()) -> dict:
                         marked.add(pid)
         except (OSError, ValueError, IndexError):
             continue      # gone meanwhile, or not ours to read
-    ours, grew = set(marked), True
-    while grew:
-        more = {p for p, pp in parent.items()
-                if p not in ours and (pp == me or pp in ours)}
-        ours |= more
-        grew = bool(more)
-    skip, grew = set(exclude), bool(exclude)
-    while grew:
-        more = {p for p, pp in parent.items() if p not in skip and pp in skip}
-        skip |= more
-        grew = bool(more)
-    ours -= skip
+    ours = below(parent, marked | {me}) - {me} - below(parent, set(exclude))
     return {p: cmd.get(p, "") for p in sorted(ours)
             if helpers or not any(h in cmd.get(p, "") for h in MP_HELPERS)}
+
+
+def below(parent, roots) -> set:
+    """``roots`` and every process below them, by ``parent`` ({pid: its
+    parent's pid})."""
+    out, grew = set(roots), bool(roots)
+    while grew:
+        more = {p for p, pp in parent.items() if p not in out and pp in out}
+        out |= more
+        grew = bool(more)
+    return out
 
 
 def stop_leftovers(label, say=log, grace_s: float = 5.0,
@@ -6728,9 +6728,14 @@ GEO_KEYS = 256                # (b) keys and queries through the proxy
 GEO_SGD_S = 3.0               # (a) forwarded SGD load while the lag is read
 GEO_SGD_BATCH = 20            # ratings a forwarder batch
 GEO_SGD_EVERY_S = 0.004       # the pause after each: 5,000 ratings/s
-# offered, each rewriting a user and an item row, so the write rate of the
-# reference's region drill (200 rows each 20 ms, ``chaos_kill.py``); a
-# batch is a round trip to the update planes, so fewer arrive (PERF.md)
+# offered, each rewriting a user and an item row: the rows a second of the
+# reference's region drill (200 rows each 20 ms, ``chaos_kill.py``), not
+# its appends.  The drill has one writer, 50 appends a second to home's
+# topic; here the forwarder fsyncs each ratings journal a batch touches
+# (535 a second on a quiet card host), and the home members' update planes
+# append to home's topic once a partition a poll, about 400 times a second
+# from 4 planes.  Fewer ratings arrive than are offered, 153-987 a second
+# as the host is loaded (PERF.md, section 5)
 GEO_LAG_P99_MS = 250.0        # the reference's contract (chaos_kill.py)
 GEO_PROMOTE_S = 5.0           # ditto
 GEO_STALE_BOUND_S = 0.5       # (b) the eu proxy's clients' bound
@@ -6753,13 +6758,16 @@ GEO_REHEARSAL_DURATION_S = 4.0
 GEO_REHEARSAL_USERS = 10_000
 # every process of phase 22 runs this watchdog: a ``sitecustomize`` on the
 # PYTHONPATH of those it starts, armed by TPUMS_STALL_DIR, and the same
-# code in this process.  Its thread sleeps 20 ms at a time with a
-# faulthandler timer armed, so every thread's stack is dumped when it
+# code in this process.  Its thread sleeps 20 ms at a time; when it
 # cannot take the GIL back within STALL_S (another thread held it, or the
-# process got no CPU); the timer is off while it does anything else (a
-# dump that walks the threads while others come and go could crash the
-# process).  It wraps the registry's ``register`` once the process has
-# imported it: each heartbeat's start and end, kept in memory, give the
+# process got no CPU or was stopped), it dumps every thread's stack as it
+# takes the GIL back, under the GIL.  No faulthandler timer is armed: its
+# thread dumps without the GIL while the others run, and such a dump,
+# fired as a SIGSTOPped member went on, killed it by SIGSEGV with nothing
+# written (tests/test_torch_stall_watchdog.py; that thread blocks every
+# signal, so faulthandler's own handler never runs).  It wraps the
+# registry's ``register`` once the process has imported it: each
+# heartbeat's start and end, kept in memory, give the
 # process's largest gap between heartbeats as a reader sees them (from
 # one heartbeat's stamp to the end of the next one's write), written to
 # its file when it grows; a heartbeat overdue by STALL_S, or one whose
@@ -6788,9 +6796,29 @@ def watch_stalls(out_dir, stall_s=0.3, tick_s=0.02):
     done = threading.Event()
     beat_s = float(os.environ.get("TPUMS_HEARTBEAT_S", "1"))
     beats = {"start": None, "end": None, "last_stamp": None, "max": 0.0}
+    out = {"fd": fd, "lock": threading.Lock(), "hooked": None}
 
     def say(text):
-        os.write(fd, text.encode("utf-8", "replace"))
+        # nothing once stopped: the fd's number may name another file then
+        with out["lock"]:
+            if out["fd"] is not None:
+                os.write(out["fd"], text.encode("utf-8", "replace"))
+
+    def stacks():
+        # every thread's stack, read under the GIL before anything lets it
+        # go (no other thread runs Python meanwhile, so none moves or
+        # ends), in faulthandler's format
+        out, me = [], threading.get_ident()
+        for ident, f in sys._current_frames().items():
+            out.append("%s 0x%016x (most recent call first):\n" % (
+                "Current thread" if ident == me else "Thread", ident))
+            while f is not None:
+                out.append('  File "%s", line %d in %s\n' % (
+                    f.f_code.co_filename, f.f_lineno or 0,
+                    f.f_code.co_name))
+                f = f.f_back
+            out.append("\n")
+        return "".join(out)
 
     def hook():
         reg = sys.modules.get("flink_ms_tpu_torch.serve.registry")
@@ -6819,18 +6847,19 @@ def watch_stalls(out_dir, stall_s=0.3, tick_s=0.02):
 
         register.watched = True
         reg.register = register
+        out["hooked"] = (reg, real, register)
         return True
 
     def dog():
         hooked, late = False, None
         while not done.is_set():
-            faulthandler.dump_traceback_later(stall_s, file=fd)
             t0 = time.monotonic()
             time.sleep(tick_s)
             waited = time.monotonic() - t0
-            faulthandler.cancel_dump_traceback_later()
             if waited > stall_s:
-                say("--- stall %.3f s ending at %.3f\n"
+                # the stacks as this thread takes the GIL back
+                say("--- stacks as the stall ended\n" + stacks()
+                    + "--- stall %.3f s ending at %.3f\n"
                     % (waited, time.time()))
             hooked = hooked or hook()
             start, end = beats["start"], beats["end"]
@@ -6843,8 +6872,8 @@ def watch_stalls(out_dir, stall_s=0.3, tick_s=0.02):
                    else now - end - beat_s)
             if age >= stall_s and late is None:
                 late = age
-                say("--- heartbeat overdue %.3f s at %.3f\n" % (age, now))
-                faulthandler.dump_traceback(fd, all_threads=True)
+                say("--- heartbeat overdue %.3f s at %.3f\n" % (age, now)
+                    + stacks())
             elif age >= stall_s:
                 late = max(late, age)
             elif late is not None:
@@ -6853,12 +6882,11 @@ def watch_stalls(out_dir, stall_s=0.3, tick_s=0.02):
                 late = None
 
     def at_exit():
-        # the interpreter is ending: the timer goes first, and a crash
-        # after this line is one of the process's exit.  The threads still
+        # the interpreter is ending: a crash after this line is one of
+        # the process's exit.  The threads still
         # alive are named with their frames: a thread that aborts past this
         # point has no Python state left for the crash's dump to show
         done.set()
-        faulthandler.cancel_dump_traceback_later()
         say("--- exit at %.3f\n" % time.time())
         frames = sys._current_frames()
         for th in threading.enumerate():
@@ -6877,11 +6905,17 @@ def watch_stalls(out_dir, stall_s=0.3, tick_s=0.02):
         atexit.unregister(at_exit)
         done.set()
         t.join(timeout=5)
+        if out["hooked"] is not None:
+            reg, real, register = out["hooked"]
+            if reg.register is register:
+                reg.register = real
         if was_enabled:
             faulthandler.enable(file=sys.__stderr__, all_threads=True)
         else:
             faulthandler.disable()
-        os.close(fd)
+        with out["lock"]:
+            out["fd"] = None
+            os.close(fd)
 
     atexit.register(at_exit)
     t = threading.Thread(target=dog, name="stall-watchdog", daemon=True)
@@ -6918,12 +6952,16 @@ class StallWatch:
             f.write(STALL_WATCHDOG)
         for k in ("PYTHONPATH", "TPUMS_STALL_DIR"):
             self._saved[k] = os.environ.get(k)
-        os.environ["PYTHONPATH"] = os.pathsep.join(
-            [self.site] + [p for p in [self._saved["PYTHONPATH"]] if p])
-        os.environ["TPUMS_STALL_DIR"] = self.dir
+        # the module's own start runs only where TPUMS_STALL_DIR is set: it
+        # is set after, or this process would run two watchdogs, one never
+        # stopped
+        os.environ.pop("TPUMS_STALL_DIR", None)
         ns = {}
         exec(compile(STALL_WATCHDOG, "stall_watchdog", "exec"), ns)
         self._unwatch = ns["watch_stalls"](self.dir, STALL_S)
+        os.environ["PYTHONPATH"] = os.pathsep.join(
+            [self.site] + [p for p in [self._saved["PYTHONPATH"]] if p])
+        os.environ["TPUMS_STALL_DIR"] = self.dir
         return self
 
     def stop(self):
@@ -6982,7 +7020,7 @@ class StallWatch:
                 elif line.startswith("Fatal Python error"):
                     crash = (line, [], exiting)
                     target = crash[1]
-                elif line.startswith("Timeout ("):
+                elif line.startswith("--- stacks as the stall ended"):
                     timeout = target = []
                 elif line.startswith("--- heartbeat overdue "):
                     overdue = target = []
@@ -7061,6 +7099,59 @@ def short_frame(line) -> str:
     return f"{os.path.basename(m.group(1))}:{m.group(2)} {m.group(3)}"
 
 
+class KeptProcs(dict):
+    """A supervisor's ``procs`` that keeps each process a respawn replaces,
+    so that the exit code of a member that exited is read from its own
+    ``Popen`` (``member_exits``); the supervisor's events and replies are
+    the reference's."""
+
+    def __init__(self, procs):
+        super().__init__(procs)
+        self.replaced = []     # [((shard, replica), Popen)]
+
+    def __setitem__(self, key, proc):
+        old = self.get(key)
+        if old is not None and old is not proc:
+            self.replaced.append((key, old))
+        super().__setitem__(key, proc)
+
+
+def member_exits(g) -> list:
+    """Each member process a supervisor of phase 22 replaced -> a line: its
+    job, pid and exit code (with the signal's name where a signal ended
+    it), and the last 4 lines of the files its watchdog kept for it
+    (``stall-<pid>.txt``; ``stderr-<pid>.txt``, as a member's stderr is
+    thrown away)."""
+    import signal
+
+    out = []
+    for ctl in g.ctls:
+        for sup in ctl.supervisors.values():
+            for (shard, replica), proc in getattr(sup.procs, "replaced", []):
+                rc = proc.poll()
+                how = "still running" if rc is None else f"rc {rc}"
+                if rc is not None and rc < 0:
+                    try:
+                        how += f" ({signal.Signals(-rc).name})"
+                    except ValueError:
+                        pass
+                said = []
+                for name in (f"stall-{proc.pid}.txt", f"stderr-{proc.pid}.txt"):
+                    path = os.path.join(g.watch.dir, name) \
+                        if g.watch is not None else None
+                    if path is None or not os.path.exists(path):
+                        said.append(f"no {name}")
+                        continue
+                    with open(path, errors="replace") as f:
+                        tail = [x.strip() for x in f.read().splitlines()
+                                if x.strip()][-4:]
+                    said.append(f"{name} ended: "
+                                + (" / ".join(tail)[-600:] or "(empty)"))
+                out.append(f"{sup.job_id(shard, replica)} pid {proc.pid} "
+                           f"exited {how}; " + "; ".join(said))
+    return out
+
+
 class GeoRun(FleetRun):
     """Phase 22's two regions over phase 17's published rows: the home
     journal (``us``, the ``FleetRun`` journal), its follower (``eu``) fed
@@ -7086,6 +7177,7 @@ class GeoRun(FleetRun):
         self.items = [i for i in self.item_ids if i != "MEAN"]
         self.edge_eps, self.eu_eps = [], []
         self.sigstopped = None
+        self.watch = None      # the phase's StallWatch, where it runs one
 
     def close(self):
         from flink_ms_tpu_torch.serve.edge import stop_edge_procs
@@ -7148,6 +7240,10 @@ class GeoRun(FleetRun):
         for t in threads:
             t.join()
         check(not errors, f"a region did not start: {errors}")
+        for ctl in self.ctls:
+            for sup in ctl.supervisors.values():
+                with sup._lock:
+                    sup.procs = KeptProcs(sup.procs)
         return time.perf_counter() - t0
 
     def client(self, region, **kw):
@@ -7229,6 +7325,308 @@ def geo_regions(g, card) -> dict:
     return dict(geo_ready_s=ready_s, geo_regions_s=time.perf_counter() - t0)
 
 
+def cpu_ticks(pid, tid=None) -> int:
+    """A process's (or one of its threads') user and system CPU, in clock
+    ticks; 0 once it is gone."""
+    path = (f"/proc/{pid}/stat" if tid is None
+            else f"/proc/{pid}/task/{tid}/stat")
+    try:
+        with open(path, "rb") as f:
+            stat = f.read()
+    except OSError:
+        return 0
+    fields = stat[stat.rindex(b")") + 2:].split()
+    return int(fields[11]) + int(fields[12])
+
+
+def all_cpu_ticks() -> dict:
+    """{pid: CPU clock ticks} of every process this one can read."""
+    return {int(n): cpu_ticks(n) for n in os.listdir("/proc") if n.isdigit()}
+
+
+def descendants(pid) -> set:
+    """``pid`` and every process below it."""
+    parent = {}
+    for name in os.listdir("/proc"):
+        if name.isdigit():
+            try:
+                with open(f"/proc/{name}/stat", "rb") as f:
+                    stat = f.read()
+                parent[int(name)] = int(stat[stat.rindex(b")") + 2:]
+                                        .split()[1])
+            except (OSError, ValueError, IndexError):
+                continue
+    return below(parent, {pid})
+
+
+def mount_of(path) -> str:
+    """'<fstype> at <mount point>' of the filesystem that holds ``path``."""
+    path, best = os.path.realpath(path), ("?", "")
+    try:
+        with open("/proc/mounts") as f:
+            for line in f:
+                _, point, fstype = line.split()[:3]
+                if (path == point or path.startswith(point.rstrip("/") + "/")
+                        ) and len(point) >= len(best[1]):
+                    best = (fstype, point)
+    except OSError:
+        pass
+    return f"{best[0]} at {best[1] or '?'}"
+
+
+def ms_spread(xs) -> str:
+    """Seconds -> 'p50/p99/max' in ms."""
+    if not len(xs):
+        return "none"
+    a = np.asarray(xs) * 1e3
+    return (f"{np.percentile(a, 50):.3f}/{np.percentile(a, 99):.3f}/"
+            f"{a.max():.3f}")
+
+
+class LagProbe:
+    """(a)'s lag window taken apart, from ``start`` to ``stop``, on the
+    replicator as it runs: its methods are timed in place and nothing they
+    do changes.  Each step's read of home, its append's write and
+    ``fsync``, its status record and the rest (Python, and waits for the
+    GIL and a core), and whether it found home's end (a caught-up instant,
+    when the lag drops to 0); the forwarder's ``fsync``s; the update
+    planes' appends to home's topic, by the member that leases each
+    partition; the CPU each process of the phase took; and this process's
+    stalls."""
+
+    FORWARDER = "geo-forwarder"    # the producer thread's name
+
+    def __init__(self, g):
+        self.g, self.rep = g, g.rep
+        self.steps, self.fsyncs, self._cur = [], [], None
+
+    def _applies(self):
+        """{partition: apply records in home's apply topic}: each is one
+        append of rows to home's topic by the plane that leases it."""
+        from flink_ms_tpu_torch.serve import update_plane as UP
+        from flink_ms_tpu_torch.serve.journal import Journal
+
+        return {p: len(UP._read_all_lines(Journal(
+            self.g.us_dir, UP.apply_topic(JOB_TOPIC, p))))
+            for p in range(UP.default_partitions())}
+
+    def _roles(self):
+        """{role: pids} of the phase's processes."""
+        roles = {}
+        for region in (GEO_HOME, GEO_FOLLOWER):
+            sup = self.g.region[region].active_supervisor
+            roles[f"{region} members"] = {p.pid for p in sup.procs.values()}
+        roles["proxies"] = {p.pid for p in self.g.edge_procs}
+        watch = self.g.watch
+        reh = [p for p, r in (watch.roles if watch else {}).items()
+               if r == "(d) rehearsal"]
+        if reh:
+            roles["(d)"] = descendants(reh[0])
+        return roles
+
+    def _ticks(self):
+        me = os.getpid()
+        th = getattr(self.rep._thread, "native_id", None)
+        every = all_cpu_ticks()
+        out = {role: sum(every.get(p, 0) for p in pids)
+               for role, pids in self._roles().items()}
+        out["this process"] = every.get(me, 0)
+        out["its replicator thread"] = cpu_ticks(me, th) if th else 0
+        return out, every
+
+    def start(self):
+        rep, probe = self.rep, self
+        real_read = rep.home.read_bytes_from
+        real_append, real_publish = rep._append, rep._publish_lag
+        real_step, real_fsync = rep.step, os.fsync
+
+        def mine():
+            cur = probe._cur
+            return cur if cur is not None and \
+                cur["tid"] == threading.get_ident() else None
+
+        def timed(key, real):
+            def call(*a, **k):
+                t = time.perf_counter()
+                try:
+                    return real(*a, **k)
+                finally:
+                    cur = mine()
+                    if cur is not None:
+                        cur[key] += time.perf_counter() - t
+            return call
+
+        def fsync(fd):
+            t = time.perf_counter()
+            try:
+                return real_fsync(fd)
+            finally:
+                dt, cur = time.perf_counter() - t, mine()
+                if cur is not None:
+                    cur["fsync"] += dt
+                elif threading.current_thread().name == probe.FORWARDER:
+                    probe.fsyncs.append(dt)
+
+        def publish(now):
+            before = rep._status_written
+            timed("status", real_publish)(now)
+            cur = mine()
+            if cur is not None and rep._status_written != before:
+                cur["wrote"] += 1
+
+        def step():
+            cur = dict(t0=time.perf_counter(), tid=threading.get_ident(),
+                       read=0.0, append=0.0, fsync=0.0, status=0.0, wrote=0,
+                       n=0)
+            probe._cur = cur
+            try:
+                cur["n"] = real_step()
+                return cur["n"]
+            finally:
+                probe._cur = None
+                cur["caught"] = cur["n"] == 0 and rep._caught_up
+                cur["t1"] = time.perf_counter()
+                probe.steps.append(cur)
+
+        self.applies0 = self._applies()
+        self.ticks0 = self._ticks()
+        self.threads = sorted(t.name for t in threading.enumerate())
+        self.t0, self.wall0 = time.perf_counter(), time.time()
+        self._fsync = real_fsync
+        rep.home.read_bytes_from = timed("read", real_read)
+        rep._append = timed("append", real_append)
+        rep._publish_lag = publish
+        os.fsync = fsync
+        rep.step = step
+        return self
+
+    def stop(self):
+        """The instruments off, and the counts and CPU at the window's
+        end."""
+        rep = self.rep
+        for name in ("step", "_append", "_publish_lag"):
+            rep.__dict__.pop(name, None)
+        rep.home.__dict__.pop("read_bytes_from", None)
+        os.fsync = self._fsync
+        self.t1, self.wall1 = time.perf_counter(), time.time()
+        self.ticks1 = self._ticks()
+        self.applies1 = self._applies()
+        return self
+
+    @staticmethod
+    def runs(steps):
+        """Each run from a caught-up instant to the next -> (ms, its
+        steps, the step of the first instant): the steps after that one,
+        up to the one of the next."""
+        out, last, between = [], None, []
+        for s in steps:
+            if last is not None:
+                between.append(s)
+            if s.get("caught"):
+                if last is not None:
+                    out.append(((s["t1"] - last["t1"]) * 1e3, between, last))
+                last, between = s, []
+        return out
+
+    def line(self, ticks, label="geo (a)") -> str:
+        """The window's breakdown as one log line; ``ticks``, the
+        sampler's instants."""
+        import re
+
+        from flink_ms_tpu_torch.serve import update_plane as UP
+
+        win, st = self.t1 - self.t0, self.steps
+        caught = [s for s in st if s.get("caught")]
+        data = [s for s in st if s["n"]]
+
+        def part(s, key):
+            if key == "write":
+                return s["append"] - s["fsync"]
+            if key == "rest":
+                return (s["t1"] - s["t0"] - s["read"] - s["append"]
+                        - s["status"])
+            return s[key]
+
+        keys = ("read", "write", "fsync", "status", "rest")
+        longest = max(self.runs(st), key=lambda r: r[0], default=None)
+        if longest is not None:
+            ms, steps, first = longest
+            # the poll after the first instant, and the loop between steps
+            gaps = sum((b["t0"] - a["t1"])
+                       for a, b in zip([first] + steps, steps))
+            run = (f"the longest run without one: {len(steps)} steps, "
+                   f"{ms:.3f} ms (" + ", ".join(
+                       f"{k} {sum(part(s, k) for s in steps) * 1e3:.3f}"
+                       for k in keys)
+                   + f", between steps {gaps * 1e3:.3f} ms, "
+                   f"{sum(1 for s in steps if s['n'])} of them read data)")
+        else:
+            run = "no run between two caught-up instants"
+        spread = "; ".join(f"{k} {ms_spread([part(s, k) for s in data])}"
+                           for k in keys)
+        wrote = sum(s["wrote"] for s in st)
+        # appends to home's topic, by the member that leases each partition
+        owners = {}
+        for p in self.applies1:
+            try:
+                with open(os.path.join(UP.lease_dir(self.g.us_dir, JOB_TOPIC),
+                                       f"p{p}.lock")) as f:
+                    pid = int(f.read().split()[0].split("=")[1])
+            except (OSError, ValueError, IndexError):
+                pid = None
+            owners.setdefault(pid, []).append(p)
+        sup = self.g.region[GEO_HOME].active_supervisor
+        who = {p.pid: sup.job_id(*k) for k, p in sup.procs.items()}
+        applied = {p: self.applies1[p] - self.applies0.get(p, 0)
+                   for p in self.applies1}
+        planes = "; ".join(
+            f"{who.get(pid, pid)} {sum(applied[p] for p in ps) / win:.1f}/s"
+            f" ({len(ps)} partitions)"
+            for pid, ps in sorted(owners.items(), key=lambda x: str(x[0])))
+        appends = sum(applied.values()) / win
+        rep_f = [s["fsync"] for s in data]
+        late = np.diff(np.asarray(ticks)) - 0.005 if len(ticks) > 1 else []
+        stalls = []
+        if self.g.watch is not None:
+            _, events = self.g.watch.read()
+            stalls = [f"{kind} {sec:.3f} s: {frames}"
+                      for t, sec, pid, kind, frames in events
+                      if pid == os.getpid() and self.wall0 <= t <= self.wall1]
+        (t0, e0), (t1, e1) = self.ticks0, self.ticks1
+        hz = os.sysconf("SC_CLK_TCK")
+        used = {k: (t1[k] - t0.get(k, 0)) / hz for k in t1}
+        every = sum(e1[p] - e0[p] for p in e1 if p in e0) / hz
+        roles = sum(v for k, v in used.items()
+                    if k != "its replicator thread")
+        step_ms = np.median([s["t1"] - s["t0"] for s in data]) if data \
+            else 0.0
+
+        names = {}
+        for n in self.threads:
+            n = re.sub(r"[0-9]+", "N", n)
+            names[n] = names.get(n, 0) + 1
+
+        return (
+            f"{label} the lag's window taken apart: {len(st)} replicator "
+            f"steps in {win:.3f} s ({len(data)} read data), {len(caught)} "
+            f"caught-up instants; {run}; per step that read data, p50/p99/"
+            f"max ms: {spread} (status record written {wrote} times); "
+            f"appends to home's topic {appends:.1f}/s by the update planes "
+            f"({planes}), {appends * step_ms:.2f} of them in a step's "
+            f"median length; "
+            f"fsyncs: the forwarder's {len(self.fsyncs)} "
+            f"({len(self.fsyncs) / win:.1f}/s, one per ratings journal a "
+            f"batch touches) {ms_spread(self.fsyncs)} ms, the replicator's "
+            f"{len(rep_f)} {ms_spread(rep_f)} ms; the 5 ms sampler late by "
+            f"{ms_spread(late)} ms; this process's stalls of {STALL_S} s in "
+            f"the window: {stalls or 'none'}, its threads: " + ", ".join(
+                f"{n} x{c}" if c > 1 else n for n, c in sorted(names.items()))
+            + "; CPU s in the window: " + ", ".join(
+                f"{k} {v:.2f}" for k, v in used.items())
+            + f", every other process {max(every - roles, 0.0):.2f} "
+            f"({os.cpu_count()} cores); journals on {mount_of(self.g.us_dir)}")
+
+
 def geo_replication(g, card) -> dict:
     """(a) replication lag under forwarded SGD, and ``st=`` across a
     partition."""
@@ -7245,7 +7643,7 @@ def geo_replication(g, card) -> dict:
     u_ids = [int(u) for u in g.base["users"]]
     i_ids = [int(i) for i in g.items]
     rng = np.random.default_rng(29)
-    stop, lag_ms, sent = threading.Event(), [], [0]
+    stop, lag_ms, ticks, sent = threading.Event(), [], [], [0]
 
     def produce():
         while not stop.is_set():
@@ -7260,13 +7658,19 @@ def geo_replication(g, card) -> dict:
 
     before = journal_files(g.us_dir)
     mirrored0 = g.rep.bytes_replicated
-    producer = threading.Thread(target=produce, daemon=True)
-    producer.start()
-    t_end = time.perf_counter() + GEO_SGD_S
-    while time.perf_counter() < t_end:
-        lag_ms.append(g.rep.lag_seconds() * 1e3)
-        time.sleep(0.005)
-    mirrored1 = g.rep.bytes_replicated
+    probe = LagProbe(g).start()
+    try:
+        producer = threading.Thread(target=produce, daemon=True,
+                                    name=LagProbe.FORWARDER)
+        producer.start()
+        t_end = time.perf_counter() + GEO_SGD_S
+        while time.perf_counter() < t_end:
+            lag_ms.append(g.rep.lag_seconds() * 1e3)
+            ticks.append(time.perf_counter())
+            time.sleep(0.005)
+        mirrored1 = g.rep.bytes_replicated
+    finally:
+        probe.stop()
     stop.set()
     producer.join(timeout=30)
     wait_until(lambda: len(applied_geo(g)) > 0,
@@ -7278,6 +7682,7 @@ def geo_replication(g, card) -> dict:
     p50, p99 = float(np.percentile(lag, 50)), float(np.percentile(lag, 99))
     mirrored = g.rep.bytes_replicated
     load_bps = (mirrored1 - mirrored0) / GEO_SGD_S
+    log(probe.line(ticks))
     log(f"geo (a) lag under forwarded SGD: {sent[0]} ratings in "
         f"{GEO_SGD_S:.1f}s ({sent[0] / GEO_SGD_S:.0f}/s of "
         f"{GEO_SGD_BATCH / GEO_SGD_EVERY_S:.0f}/s offered) through "
@@ -7815,9 +8220,9 @@ def geo_failover(g, card) -> dict:
 TAKEN_FOR_DEAD = ("no live replicas", "no endpoints")
 
 
-def geo_supervision(g) -> dict:
+def geo_supervision(g) -> tuple:
     """(a)-(c)'s supervisors: their respawns, and each member they took
-    for dead -> {supervisor: respawns}."""
+    for dead -> ({supervisor: respawns}, ``member_exits``)."""
     respawns, expired = {}, []
     for ctl in g.ctls:
         for gen, sup in ctl.supervisors.items():
@@ -7829,7 +8234,11 @@ def geo_supervision(g) -> dict:
         f"taken as expired: {expired or 'none'} (no kill in (a)-(c) is "
         "respawned: (b) stops a replica inside its TTL, (c) stops the "
         "supervisors first)")
-    return respawns
+    exits = member_exits(g)
+    if exits:
+        log("geo (a)-(c) members that exited and were respawned: "
+            + " | ".join(exits))
+    return respawns, exits
 
 
 def geo_phase(torch, base, dev, card) -> dict:
@@ -7865,6 +8274,7 @@ def geo_phase(torch, base, dev, card) -> dict:
                             duration_s=GEO_REHEARSAL_DURATION_S, hold=True)
             watch.roles[reh.run.proc.pid] = "(d) rehearsal"
             g = GeoRun(work, base, dev)
+            g.watch = watch
             try:
                 out.update(geo_regions(g, card))
                 watch.roles.update({p.pid: "proxy" for p in g.edge_procs})
@@ -7881,9 +8291,10 @@ def geo_phase(torch, base, dev, card) -> dict:
                 check(not dead, f"a live member taken for dead: {e}")
                 raise
             finally:
-                respawns = geo_supervision(g)
+                respawns, exits = geo_supervision(g)
             check(not any(respawns.values()),
-                  f"(a)-(c) respawned members: {respawns}")
+                  f"(a)-(c) respawned members: {respawns}"
+                  + "".join(f"; {x}" for x in exits))
             g.close()
             g = None
             t_d = time.perf_counter()

@@ -100,6 +100,29 @@ def test_geo_only_rehearsal(small_geo, capsys, monkeypatch):
                  "geo heartbeats: 15 members", "geo the largest gap",
                  "geo stalls of 0.3 s or more", "geo phase:"):
         assert line in out, line
+    # (a)'s lag window taken apart, on a line of its own before the lag's
+    (apart,) = [ln for ln in out.splitlines() if "window taken apart" in ln]
+    assert out.index(apart) < out.index("geo (a) lag under forwarded SGD")
+    for field in (r"[0-9]+ replicator steps in [0-9.]+ s \([0-9]+ read data\)",
+                  r"[0-9]+ caught-up instants",
+                  r"the longest run without one: [0-9]+ steps, [0-9.]+ ms "
+                  r"\(read [0-9.]+, write [0-9.]+, fsync [0-9.]+, status "
+                  r"[0-9.]+, rest [0-9.]+, between steps",
+                  r"read [0-9.]+/[0-9.]+/[0-9.]+; write [0-9.]+/[0-9.]+/",
+                  r"fsync [0-9.]+/[0-9.]+/[0-9.]+; status [0-9.]+/",
+                  r"status record written [0-9]+ times",
+                  r"appends to home's topic [0-9.]+/s by the update planes "
+                  r"\(us@@geo@g1:s",
+                  r"fsyncs: the forwarder's [0-9]+ \(",
+                  r"the replicator's [0-9]+ [0-9.]+/[0-9.]+/[0-9.]+ ms",
+                  r"the 5 ms sampler late by [0-9.]+/[0-9.]+/[0-9.]+ ms",
+                  r"this process's stalls of 0.3 s in the window: ",
+                  r"its threads: MainThread, .*tpums-georepl-eu-",
+                  r"CPU s in the window: us members [0-9.]+, eu members "
+                  r"[0-9.]+, proxies [0-9.]+, \(d\) [0-9.]+, this process "
+                  r"[0-9.]+, its replicator thread [0-9.]+",
+                  r"journals on \S+ at /"):
+        assert re.search(field, apart), field
     assert order == ["(d) started", "(a) began", "(a) ended",
                      "(a)'s lag began", "(a)'s lag ended", "(d) released",
                      "(c) began", "(c) ended", "(d) joined"]
@@ -144,6 +167,62 @@ def test_an_extra_respawn_fails_phase_22(small_geo, capsys, monkeypatch):
     assert "geo (c) failover" in out and "geo heartbeats:" in out
     assert re.search(r" us@@geo@g1:s1r1 [0-9.]+, 1 respawn(;|\n)", out)
     assert chip_smoke.own_processes(helpers=False) == {}
+
+
+def test_a_respawned_member_is_named_with_its_exit(small_geo, capsys,
+                                                  monkeypatch):
+    """The us replica (b) SIGSTOPs, SIGKILLed once (b) has continued it:
+    phase 22's failure names the member, its pid, its exit (-9, SIGKILL)
+    and the last lines of the stall file its watchdog kept, and the log
+    says the same."""
+    import signal
+    import time
+
+    real = chip_smoke.geo_edge
+    killed = []
+
+    def kill_in_b(g, card):
+        sup = g.region[chip_smoke.GEO_HOME].active_supervisor
+
+        def kill():
+            victim = sup.procs[(0, 0)]
+            killed.append(victim.pid)
+            victim.send_signal(signal.SIGKILL)
+            deadline = time.time() + 60
+            while sup.respawns == 0 and time.time() < deadline:
+                time.sleep(0.05)
+            assert sup.wait_all_ready(timeout_s=60)
+
+        # (b) reads 4 counters before it stops the replica and 2 after
+        monkeypatch.setattr(chip_smoke, "edge_counter",
+                            _after_first(chip_smoke.edge_counter, 4, kill))
+        return real(g, card)
+
+    monkeypatch.setattr(chip_smoke, "geo_edge", kill_in_b)
+    with pytest.raises(chip_smoke.SmokeFailure) as err:
+        chip_smoke.geo_only(torch, torch.device("cpu"))
+    (pid,) = killed
+    said = (rf"us@@geo@g1:s0r0 pid {pid} exited rc -9 \(SIGKILL\); "
+            rf"stall-{pid}\.txt ended: ")
+    assert re.search(r"\(a\)-\(c\) respawned members: .*'us@@geo gen 1': "
+                     r"1.*; " + said, str(err.value)), str(err.value)
+    out = capsys.readouterr().out
+    assert re.search(r"geo \(a\)-\(c\) members that exited and were "
+                     r"respawned: " + said, out)
+    assert chip_smoke.own_processes(helpers=False) == {}
+
+
+def _after_first(fn, calls, then):
+    """``fn``, which runs ``then`` once, after its first ``calls`` calls."""
+    n = [0]
+
+    def wrapped(*a, **k):
+        n[0] += 1
+        if n[0] == calls + 1:
+            then()
+        return fn(*a, **k)
+
+    return wrapped
 
 
 def test_geo_byte_check_fails_on_a_changed_follower(small_geo, tmp_path):
